@@ -1,0 +1,64 @@
+"""Primary-ray generation (pinhole projection).
+
+The torch counterpart of distributed_raytracer_tpu/ops/raygen.py's
+`ray_directions_flat` and `ray_rows_flat`, operation for operation.
+Reproduces tracer.go:15-22 `pixelToPoint` exactly, including its integer
+half-width/height division and 0.5 pixel-center offset:
+
+  halfW, halfH = W // 2, H // 2            (integer division)
+  projHalfWidth  = tan(fov / 2)
+  projHalfHeight = projHalfWidth * H / W
+  iOffset = left * projHalfWidth  * ((halfW - i) - 0.5) / halfW
+  jOffset = up   * projHalfHeight * ((halfH - j) - 0.5) / halfH
+  point   = pos + forward + iOffset + jOffset   (plane at distance 1)
+
+and the primary ray direction is norm(point - pos) (tracer.go:83-86).
+
+`cam` is a CameraArrays of float32 tensors on the rays' device.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _offsets(cam, width: int, height: int, idx: torch.Tensor):
+    idx = torch.clamp(idx, max=width * height - 1)
+    i = (idx % width).to(torch.float32)
+    j = torch.div(idx, width, rounding_mode="floor").to(torch.float32)
+
+    half_w, half_h = width // 2, height // 2
+    phw = torch.tan(cam.fov / 2.0)
+    phh = phw * (height / width)
+    a = phw * ((half_w - i) - 0.5) / half_w
+    b = phh * ((half_h - j) - 0.5) / half_h
+    return a, b
+
+
+def _norm_rows(d: torch.Tensor, axis: int) -> torch.Tensor:
+    """sqrt of the three squares summed in order (x, y, z) — the order
+    jnp.linalg.norm reduces in, written out so every backend agrees."""
+    x, y, z = d.unbind(axis)
+    return torch.sqrt(x * x + y * y + z * z).unsqueeze(axis)
+
+
+def ray_directions_flat(cam, width: int, height: int,
+                        idx: torch.Tensor) -> torch.Tensor:
+    """Directions (R, 3) for flat pixel indices idx (row-major j*width + i).
+    Indices past the last pixel are clamped — padding rays are traced and
+    discarded by the caller."""
+    a, b = _offsets(cam, width, height, idx)
+    d = (cam.forward[None, :] + a[:, None] * cam.left[None, :]
+         + b[:, None] * cam.up[None, :])
+    return d / _norm_rows(d, 1)
+
+
+def ray_rows_flat(cam, width: int, height: int,
+                  idx: torch.Tensor) -> torch.Tensor:
+    """Directions as (3, R) rows — the block-sparse path's native layout.
+    Values are bit-identical to ray_directions_flat (same multiplies, same
+    add order, elementwise-commuted broadcasts only)."""
+    a, b = _offsets(cam, width, height, idx)
+    d = (cam.forward[:, None] + a[None, :] * cam.left[:, None]
+         + b[None, :] * cam.up[:, None])
+    return d / _norm_rows(d, 0)

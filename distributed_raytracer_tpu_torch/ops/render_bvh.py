@@ -1,0 +1,496 @@
+"""Block-sparse (BVH-culled) frame rendering.
+
+The torch counterpart of distributed_raytracer_tpu/ops/render_bvh.py's
+`CulledRenderer`, single device, no bounces. The pipeline first culls
+(ray-tile, tri-block) pairs with the conservative interval test
+(ops/cull.py) over the Morton block BVH (models/bvh.py), then runs only the
+surviving pairs through the traversal kernels (ops/bsr_trace.py). Images are
+exact (culling is conservative); only the work changes.
+
+Rays are laid out in 2D screen tiles (cull.tiled_ray_order): compact tiles
+have tight interval hulls, which is what makes the cull effective. Data is
+row-native end to end: rays are (8, R) packed rows, per-ray vectors (3, R)
+rows, shadow queries kernel-ready (L, 8, R).
+
+A frame is seven stages:
+  1. ray generation (raygen.ray_rows_flat, bsr_trace.pack_rays_rows);
+  2. the multi-level interval cull (cull.multilevel_mask / _worklist);
+  3. the nearest-hit kernel (bsr_trace.bsr_nearest, shared camera origin);
+  4. hit-tile compaction, then shading prep (shade.prepare_packed,
+     light_gates);
+  5. the per-light shadow cull;
+  6. one any-hit kernel launch covering all lights (bsr_trace.bsr_any);
+  7. Phong shading (shade.shade_core_packed) and tile-major assembly.
+`render()` sizes the work lists exactly, with host syncs between stages;
+`freeze()` fixes the buckets from the last counts and `render_fast()` runs
+all stages with them and no host sync, checking the true counts against
+the buckets only when asked (verify=True).
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Optional
+
+import numpy as np
+import torch
+
+from distributed_raytracer_tpu_torch.models.camera import Camera, CameraArrays
+from distributed_raytracer_tpu_torch.models.scene import Scene, SceneArrays
+from distributed_raytracer_tpu_torch.ops import bsr_trace, cull, raygen, shade
+from distributed_raytracer_tpu_torch.ops.intersect import Hits
+from distributed_raytracer_tpu_torch.utils.config import (
+    DEFAULT_CONFIG, RenderConfig, default_block_size)
+
+_log = logging.getLogger(__name__)
+
+_bucket = bsr_trace.bucket_w_pad
+
+
+def _tile_bucket(n: int, n_tiles: int) -> int:
+    """Capacity for the compacted hit-TILE set: pow2, floor 8, capped at
+    the full tile count (cap = no compaction, overflow impossible)."""
+    return min(n_tiles, max(8, 1 << max(0, int(n - 1).bit_length())))
+
+
+def _slim_arrays(arrays: SceneArrays) -> SceneArrays:
+    """Strip the per-triangle fields the culled pipeline never reads (it
+    reads the packed rows and the shading table). (T, 0) placeholders keep
+    `p0.shape[0]` meaningful; lights and material tables stay real. The
+    full host copy lives on as `renderer.arrays_host`."""
+    t = arrays.p0.shape[0]
+    e2 = np.zeros((t, 0), np.float32)
+    e1 = np.zeros((0,), np.float32)
+    return arrays._replace(
+        p0=e2, e1=e2, e2=e2, geo_n=e2, n0=e2, n1=e2, n2=e2,
+        k_u=e2, k_v=e2, plane_d=e1, c_u=e1, c_v=e1,
+        mat_id=np.zeros((0,), np.int32))
+
+
+class CulledRenderer:
+    """Per-(scene, resolution) renderer on one explicit device."""
+
+    # Auto early-exit policy: average fine cells per ray tile above which
+    # the kernels refresh their front-to-back skip bound every _EXIT_STEP
+    # items. The JAX package's thresholds, measured on a TPU; not yet
+    # re-measured on the H100.
+    _EXIT_DENSITY = 48
+    _EXIT_STEP = 32
+
+    def __init__(self, scene: Optional[Scene], width: int, height: int,
+                 cfg: RenderConfig = DEFAULT_CONFIG, block_size=128,
+                 ray_tile: int = 512, prebaked=None,
+                 exit_every: Optional[int] = None, cull_group: int = 16,
+                 cull_levels: Optional[int] = None, *, device):
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(f"device {self.device} requested but "
+                                   "CUDA is not available")
+            # Full float32 on the hit path: a TF32 product would corrupt
+            # hit tests. (No product on the path uses them today; the
+            # settings make the intent explicit for any later one.)
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        if block_size == "auto":
+            block_size = default_block_size(
+                scene.num_tris if scene is not None else 1 << 30)
+        self.width, self.height, self.cfg = width, height, cfg
+        self.rt, self.tb = ray_tile, block_size
+        # Amortized front-to-back early exit of the traversal kernels:
+        # refresh the per-tile bound every `exit_every` work items; 0 = off;
+        # None = decided from the first sizing render's work density.
+        self._exit_auto = exit_every is None
+        self.exit_every = 0 if exit_every is None else exit_every
+
+        # `prebaked` = (SceneArrays, BlockBVH), e.g. models.scene
+        # .from_reference of the JAX package's bake; its leaf size wins.
+        if prebaked is not None:
+            arrays, tree = prebaked
+            self.tb = block_size = int(tree.block_size)
+        else:
+            arrays, tree = scene.bake_bvh(block_size=block_size)
+        self.arrays_host: SceneArrays = arrays
+        self.tree = tree
+        dev = self.device
+
+        def put(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+        tris16_np = bsr_trace.pack_tris(arrays)
+        self.n_tris = int(arrays.p0.shape[0])
+        self.arrays = SceneArrays(*(put(a) for a in _slim_arrays(arrays)))
+        self.tris_packed = put(tris16_np)
+        # Shading table (32, T), assembled on the device from the packed
+        # rows, p0, the vertex normals (smooth bakes only) and mat_id.
+        flat_bake = (np.array_equal(arrays.n0, arrays.geo_n)
+                     and np.array_equal(arrays.n1, arrays.geo_n)
+                     and np.array_equal(arrays.n2, arrays.geo_n))
+        p0_t = put(np.asarray(arrays.p0, np.float32).T)
+        n_t = None if flat_bake else put(np.concatenate(
+            [np.asarray(arrays.n0, np.float32).T,
+             np.asarray(arrays.n1, np.float32).T,
+             np.asarray(arrays.n2, np.float32).T]))
+        self.shade_tbl = shade.table_rows_device(
+            self.tris_packed, p0_t, n_t, put(arrays.mat_id),
+            self.arrays.mat_ka, self.arrays.mat_kd, self.arrays.mat_ks,
+            self.arrays.mat_ns)
+        self.block_lo = put(tree.block_lo)
+        self.block_hi = put(tree.block_hi)
+        # Hierarchy depth: one grouping level normally; two when the
+        # superblock count itself is large. `cull_levels` (2 or 3)
+        # overrides the automatic choice.
+        nsb = -(-tree.num_blocks // cull_group)
+        if cull_levels is None:
+            cull_levels = 3 if nsb > 768 else 2
+        self.groups = (cull_group,) * (cull_levels - 1)
+        # Count-vector layout: per-level primary counts (top mask count +
+        # one per expansion), the hit-tile count, then the shadow counts in
+        # the same level layout.
+        self.n_levels = len(self.groups) + 1
+        self._ht_idx = self.n_levels
+        # Shadow rays are reversed to start at their light, so each light's
+        # rays share one origin: per-light origin-folded (T, 16) rows,
+        # stacked to (L*T, 16); block ids with a light*nb offset index
+        # straight into light l's rows.
+        n_lights = int(arrays.light_pos.shape[0])
+        self.lights_scal = (
+            torch.cat([bsr_trace.pack_tris_origin(self.tris_packed,
+                                                  self.arrays.light_pos[li])
+                       for li in range(n_lights)])
+            if n_lights else self.tris_packed.new_zeros((0, 16)))
+
+        # 2D screen tiles of 32 x rt/32 pixels.
+        self.tile_w = 32
+        self.tile_h = ray_tile // self.tile_w
+        perm, _, n_slots = cull.tiled_ray_order(width, height, self.tile_w,
+                                                self.tile_h)
+        self._perm = put(perm.astype(np.int64))
+        self.n_pad = n_slots
+        self.n_tiles = self.n_pad // ray_tile
+        self._no_excl = torch.full((self.n_pad,), -1, dtype=torch.int32,
+                                   device=dev)
+        self._frozen_pads = None
+        # Raw counts of the last sync render, in the count-vector layout.
+        self._last_counts = None
+
+    # -- helpers ---------------------------------------------------------
+
+    def _camera(self, camera) -> CameraArrays:
+        """Camera or host CameraArrays -> CameraArrays of tensors on the
+        device, in ONE host-to-device copy. On CUDA the copy is from pinned
+        memory and non-blocking, so it does not wait for earlier frames."""
+        if isinstance(camera, Camera):
+            camera = camera.to_arrays()
+        if isinstance(camera.pos, torch.Tensor):
+            return camera
+        packed = torch.from_numpy(np.concatenate(
+            [np.asarray(camera.pos, np.float32).reshape(3),
+             np.asarray(camera.forward, np.float32).reshape(3),
+             np.asarray(camera.left, np.float32).reshape(3),
+             np.asarray(camera.up, np.float32).reshape(3),
+             np.asarray(camera.fov, np.float32).reshape(1)]))
+        if self.device.type == "cuda":
+            packed = packed.pin_memory().to(self.device, non_blocking=True)
+        else:
+            packed = packed.to(self.device)
+        return CameraArrays(pos=packed[0:3], forward=packed[3:6],
+                            left=packed[6:9], up=packed[9:12],
+                            fov=packed[12])
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _visited_rays(self, wl: cull.WorkList, n_tiles: int) -> torch.Tensor:
+        v = cull.visited_tiles(wl, n_tiles)
+        return v[:, None].expand(n_tiles, self.rt).reshape(-1)
+
+    def _assemble(self, rows: torch.Tensor) -> torch.Tensor:
+        """(3, n_pad) tile-major colour rows -> (H, W, 3) row-major frame
+        (slot s = ((tj*tx + ti)*th + wj)*tw + wi, the cull.tiled_ray_order
+        layout): a reshape and a permute, not a gather."""
+        tw, th = self.tile_w, self.tile_h
+        tx, ty = -(-self.width // tw), -(-self.height // th)
+        img = rows.reshape(3, ty, tx, th, tw).permute(1, 3, 2, 4, 0)
+        img = img.reshape(ty * th, tx * tw, 3)
+        return img[:self.height, :self.width]
+
+    # -- stage A: primary rays + cull ------------------------------------
+
+    def _stage_a(self, cam: CameraArrays):
+        d_rows = raygen.ray_rows_flat(cam, self.width, self.height,
+                                      self._perm)
+        rays = bsr_trace.pack_rays_rows(cam.pos, d_rows)
+        ti = cull.tile_intervals_packed(rays, self.rt)
+        mask1, entry1, c1 = cull.multilevel_mask(ti, self.block_lo,
+                                                 self.block_hi, self.groups)
+        return rays, ti, mask1, entry1, c1
+
+    def _size_pads(self, ti, mask, entry, c_top):
+        """Walk the hierarchy with one host sync per level: returns
+        (pads tuple len n_levels, counts tuple len n_levels). `mask` and
+        `entry` may carry a leading light axis."""
+        if mask.numel() == 0:   # no lights: no shadow work at any level
+            return ((_bucket(0),) * self.n_levels, (0,) * self.n_levels)
+        m = mask.reshape(-1, mask.shape[-1])
+        e = entry.reshape(-1, entry.shape[-1])
+        counts = [int(c_top)]
+        pads = [_bucket(counts[0])]
+        for _ in range(len(self.groups)):
+            _, c = cull.multilevel_worklist(ti, m, e, c_top, self.block_lo,
+                                            self.block_hi, self.groups,
+                                            tuple(pads))
+            counts.append(int(c[-1]))
+            pads.append(_bucket(counts[-1]))
+        return tuple(pads), tuple(counts)
+
+    # -- stage B: nearest hit + shadow masks -----------------------------
+
+    def _stage_b1(self, pads: tuple, rays, ti, mask1, entry1, c1):
+        """Primary nearest hit. Returns (hits, hit-tile count, counts).
+
+        Primary rays share the camera origin, folded into the triangle
+        rows each frame for the shared-origin kernel. Results are masked by
+        the EXACT visited tile set: unvisited means the cull proved no
+        block can be hit."""
+        wl, counts = cull.multilevel_worklist(ti, mask1, entry1, c1,
+                                              self.block_lo, self.block_hi,
+                                              self.groups, pads)
+        tris_cam = bsr_trace.pack_tris_origin(self.tris_packed, rays[0:3, 0])
+        best_t, best_i = bsr_trace.bsr_nearest(
+            rays, self._no_excl, tris_cam, wl.tile_ids, wl.block_ids,
+            wl.entry, wl.count, rt=self.rt, tb=self.tb, shared_origin=True,
+            exit_every=self.exit_every)
+        best_t = torch.where(self._visited_rays(wl, self.n_tiles), best_t,
+                             float("inf"))
+        hits = Hits(t=best_t, tri=torch.clamp(best_i, max=self.n_tris - 1),
+                    valid=torch.isfinite(best_t))
+        ht = hits.valid.reshape(self.n_tiles, self.rt).any(dim=1)
+        return hits, ht.sum(dtype=torch.int32), counts
+
+    def _stage_b2(self, ht_pad: int, rays, hits):
+        """Hit-TILE compaction + shading prep + per-light shadow masks.
+
+        Everything downstream of the nearest kernel is proportional to the
+        hit count, not the ray count, so it runs on the compacted set of
+        ray tiles that hit anything (ht_pad of them; ht_pad is capped at
+        n_tiles, so overflow is impossible when every tile hits)."""
+        (tpos, hit_tile, ht_count, rays_h,
+         hits_h) = self._compact_tiles(ht_pad, rays, hits)
+        prep = shade.prepare_packed(self.arrays, rays_h, hits_h, self.cfg,
+                                    table=self.shade_tbl)
+        live_l = shade.light_gates(self.arrays, rays[0:3, 0], prep,
+                                   hits_h.valid)
+        sti, smasks, sentries = self._light_masks(prep, live_l)
+        return (tpos, hit_tile, hits_h, prep, live_l, sti, smasks, sentries,
+                smasks.sum(dtype=torch.int32), ht_count)
+
+    def _compact_tiles(self, ht_pad: int, rays, hits):
+        """Order-preserving hit-TILE compaction: returns (tpos, hit_tile,
+        ht_count, rays_h, hits_h) with compacted shapes ht_pad * rt."""
+        nt, rt = self.n_tiles, self.rt
+        hit_t = hits.valid.reshape(nt, rt)
+        hit_tile = hit_t.any(dim=1)                             # (nt,)
+        tidx = torch.argsort((~hit_tile).to(torch.uint8),
+                             stable=True)[:ht_pad]
+        ht_count = hit_tile.sum(dtype=torch.int32)
+        tile_ok = torch.arange(ht_pad, device=self.device) < ht_count
+        tpos = torch.cumsum(hit_tile, 0) - 1                    # (nt,)
+        h = ht_pad * rt
+        rays_h = rays.reshape(8, nt, rt)[:, tidx, :].reshape(8, h)
+        valid_h = (hit_t[tidx] & tile_ok[:, None]).reshape(h)
+        t_h = torch.where(valid_h,
+                          hits.t.reshape(nt, rt)[tidx].reshape(h), 0.0)
+        tri_h = torch.where(valid_h,
+                            hits.tri.reshape(nt, rt)[tidx].reshape(h), 0)
+        return (tpos, hit_tile, ht_count, rays_h,
+                Hits(t=t_h, tri=tri_h, valid=valid_h))
+
+    def _light_masks(self, prep, live_l):
+        """Per-light coarse cull masks for the shadow queries, plus the
+        stacked (L*nTiles) tile hulls the finer levels test against. Dead
+        rays (misses, and rays this light provably cannot colour) are
+        masked out of the tile hulls so they never widen the work lists."""
+        n_lights = prep.q.shape[0]
+        nt = prep.q_rev.shape[2] // self.rt
+        tis, smasks, sentries = [], [], []
+        for li in range(n_lights):
+            ti = cull.tile_intervals_packed(prep.q_rev[li], self.rt,
+                                            live=live_l[li], use_tmax=True)
+            m, e, _ = cull.multilevel_mask(ti, self.block_lo, self.block_hi,
+                                           self.groups)
+            tis.append(ti)
+            smasks.append(m)
+            sentries.append(e)
+        if not n_lights:
+            ntop = self.block_lo.shape[0]
+            for g in self.groups:
+                ntop = -(-ntop // g)
+            z3 = self.block_lo.new_zeros((0, 3))
+            return (cull.TileIntervals(z3, z3, z3, z3,
+                                       t_hi=self.block_lo.new_zeros((0,))),
+                    torch.zeros((0, nt, ntop), dtype=torch.bool,
+                                device=self.device),
+                    self.block_lo.new_zeros((0, nt, ntop)))
+        sti = cull.TileIntervals(*(torch.cat([getattr(t, f) for t in tis])
+                                   for f in cull.TileIntervals._fields))
+        return sti, torch.stack(smasks), torch.stack(sentries)
+
+    # -- stage C: shadow queries + shading -------------------------------
+
+    def _lit(self, s_pads: tuple, prep, hits, live_l, sti, smasks, sentries,
+             sc1):
+        """All lights' shadow queries in ONE bsr_any launch: the (light,
+        tile) pairs are the tile axis of a single multi-level work list.
+        Dead rays pre-seed the accumulator as 'hit' so fully-occluded tiles
+        exit on live rays alone. Returns (lit (L, R) bool, shadow
+        expansion counts)."""
+        n_lights = prep.q.shape[0]
+        if n_lights == 0:
+            return (torch.zeros((0, prep.x.shape[1]), dtype=torch.bool,
+                                device=self.device),
+                    (torch.zeros((), dtype=torch.int32,
+                                 device=self.device),) * len(self.groups))
+        r = prep.q_rev.shape[2]
+        n_tiles = r // self.rt
+        nb = self.block_lo.shape[0]
+        mask = smasks.reshape(n_lights * n_tiles, -1)
+        entry = sentries.reshape(n_lights * n_tiles, -1)
+        wl, s_counts = cull.multilevel_worklist(sti, mask, entry, sc1,
+                                                self.block_lo, self.block_hi,
+                                                self.groups, s_pads)
+        q = prep.q_rev.permute(1, 0, 2).reshape(8, n_lights * r)
+        # Light l's origin-folded rows sit at block offset l * nb.
+        light_of = torch.div(wl.tile_ids, n_tiles, rounding_mode="floor")
+        block_ids = light_of * nb + wl.block_ids
+        excl = (hits.tri[None, :]
+                + (torch.arange(n_lights, dtype=torch.int32,
+                                device=self.device) * self.n_tris)[:, None]
+                ).reshape(-1)
+        dead = (~live_l).reshape(-1).to(torch.int32)
+        hit = bsr_trace.bsr_any(
+            q, excl, self.lights_scal, wl.tile_ids, block_ids, wl.entry,
+            wl.count, dead, rt=self.rt, tb=self.tb, shared_origin=True,
+            exit_every=self.exit_every)
+        visited = self._visited_rays(wl, n_lights * n_tiles)
+        lit = torch.where(visited, hit == 0, True).reshape(n_lights, r)
+        return lit, s_counts
+
+    def _stage_c(self, s_pads: tuple, cam: CameraArrays, tpos, hit_tile,
+                 hits_h, prep, live_l, sti, smasks, sentries, sc1):
+        """Shadow queries + Phong on the COMPACTED tile set, written back
+        tile by tile: output tile j reads compact tile tpos[j] if it had
+        any hit, else black."""
+        lit, s_counts = self._lit(s_pads, prep, hits_h, live_l, sti, smasks,
+                                  sentries, sc1)
+        colours_h = shade.shade_core_packed(self.arrays, cam.pos, prep,
+                                            hits_h, lit)         # (3, H)
+        rt = self.rt
+        ht_pad = colours_h.shape[1] // rt
+        src_t = torch.clamp(tpos, 0, ht_pad - 1)
+        cols = colours_h.reshape(3, ht_pad, rt)[:, src_t, :]    # (3, nt, rt)
+        colours = torch.where(hit_tile[None, :, None], cols,
+                              0.0).reshape(3, self.n_pad)
+        return self._assemble(colours), s_counts
+
+    # -- public ----------------------------------------------------------
+
+    def _resolve_exit(self, c2: int) -> None:
+        """Pick exit_every from the measured primary work density (only in
+        auto mode)."""
+        if self._exit_auto:
+            dense = c2 / max(self.n_tiles, 1) >= self._EXIT_DENSITY
+            self.exit_every = self._EXIT_STEP if dense else 0
+
+    def render(self, camera, block: bool = False) -> torch.Tensor:
+        """Render a frame with exactly sized work lists (a few host syncs);
+        returns an (H, W, 3) float32 tensor on the renderer's device."""
+        cam = self._camera(camera)
+        rays, ti, mask1, entry1, c1 = self._stage_a(cam)
+        p_pads, p_counts = self._size_pads(ti, mask1, entry1, c1)
+        self._resolve_exit(p_counts[-1])
+        hits, hcount, _ = self._stage_b1(p_pads, rays, ti, mask1, entry1, c1)
+        ht_pad = _tile_bucket(int(hcount), self.n_tiles)
+        (tpos, hit_tile, hits_h, prep, live_l, sti, smasks, sentries,
+         sc1, ht_count) = self._stage_b2(ht_pad, rays, hits)
+        s_pads, s_counts = self._size_pads(sti, smasks, sentries, sc1)
+        img, _ = self._stage_c(s_pads, cam, tpos, hit_tile, hits_h, prep,
+                               live_l, sti, smasks, sentries, sc1)
+        self._last_counts = p_counts + (int(ht_count),) + s_counts
+        if block:
+            self._sync()
+        return img
+
+    # -- frozen fast path ------------------------------------------------
+    #
+    # The sync render pays host round trips to size the work lists
+    # exactly. freeze() fixes the buckets (last observed counts x a safety
+    # margin) and render_fast() runs every stage with them and no host
+    # sync. Work-list overflow would drop candidate blocks, so
+    # render_fast(verify=True) checks the true counts and refreezes on
+    # overflow.
+
+    def _full(self, pads: tuple, cam: CameraArrays):
+        """All stages with fixed buckets; pads layout == the counts layout.
+        Returns (image, int32 counts on the device)."""
+        nl = self.n_levels
+        p_pads, h_pad, s_pads = pads[:nl], pads[nl], pads[nl + 1:]
+        rays, ti, mask1, entry1, c1 = self._stage_a(cam)
+        hits, _, p_counts = self._stage_b1(p_pads, rays, ti, mask1, entry1,
+                                           c1)
+        (tpos, hit_tile, hits_h, prep, live_l, sti, smasks, sentries,
+         sc1, ht_count) = self._stage_b2(h_pad, rays, hits)
+        img, s_counts = self._stage_c(s_pads, cam, tpos, hit_tile, hits_h,
+                                      prep, live_l, sti, smasks, sentries,
+                                      sc1)
+        counts = torch.stack([c1, *p_counts, ht_count, sc1, *s_counts])
+        return img, counts
+
+    def freeze(self, camera=None, margin: float = 1.4) -> None:
+        """Fix work-list buckets from the last sync render (running one if
+        needed). Buckets only grow."""
+        if self._last_counts is None:
+            if camera is None:
+                raise ValueError("freeze() needs a camera for the sizing "
+                                 "render")
+            self.render(camera, block=True)
+        pads = tuple(_bucket(c, margin) for c in self._last_counts)
+        # The hit-TILE bucket has its own small granularity, capped at
+        # n_tiles so overflow is structurally impossible at the cap.
+        hi = self._ht_idx
+        pads = (pads[:hi]
+                + (_tile_bucket(int(self._last_counts[hi] * margin),
+                                self.n_tiles),)
+                + pads[hi + 1:])
+        # Grow-only: a refreeze must never SHRINK a bucket, or the verify
+        # loop's "each round strictly grows some bucket" argument fails.
+        if self._frozen_pads is not None:
+            pads = tuple(max(p, q) for p, q in zip(pads, self._frozen_pads))
+        self._frozen_pads = pads
+
+    def render_fast(self, camera, verify: bool = False) -> torch.Tensor:
+        """All stages with the frozen buckets and no host sync; returns the
+        (H, W, 3) tensor. With verify=True, reads the true counts and, if a
+        bucket overflowed, refreezes and renders again — in a loop, since
+        an overflowed level truncates the next level's reported count."""
+        if self._frozen_pads is None:
+            self.freeze(camera)
+        cam = self._camera(camera)
+        img, counts = self._full(self._frozen_pads, cam)
+        if verify:
+            fits = False
+            for _ in range(8):   # each round strictly grows some bucket
+                got = tuple(counts.tolist())
+                if all(g <= p for g, p in zip(got, self._frozen_pads)):
+                    fits = True
+                    break
+                self._last_counts = got
+                self.freeze(camera)   # grow-only
+                img, counts = self._full(self._frozen_pads, cam)
+            if not fits:
+                _log.warning(
+                    "render_fast verify did not converge in 8 rounds "
+                    "(counts %s vs pads %s); image may drop blocks",
+                    tuple(counts.tolist()), self._frozen_pads)
+        return img

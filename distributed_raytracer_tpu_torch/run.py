@@ -1,0 +1,167 @@
+"""Command-line renderer: the analog of the reference's binaries.
+
+  python -m distributed_raytracer_tpu_torch SCENE.json WIDTH HEIGHT [options]
+
+The counterpart of distributed_raytracer_tpu/run.py's default path: the
+single-device block-BVH renderer (`--mode culled`, no bounces) on an
+explicit device (`--device`, default cuda). With no display, the
+interactive loop becomes a scripted camera animation (default: orbit, the
+reference's benchmark motion); frames can be written as PNGs, and the exit
+report reproduces the master's FPS statistics (master/main.go:285-325) plus
+Mrays/s.
+
+The JAX package's other modes, `--bounces`, `--animate-objects`, `--serve`
+and `--multihost` are not ported yet; asking for one exits with a message
+that says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+_MODES = ["sequential", "culled", "sharded", "sharded-bvh", "halo", "ring"]
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="distributed_raytracer_tpu_torch",
+        description="Raytracer on PyTorch with CUDA kernels",
+    )
+    p.add_argument("scene", help="JSON scene file (reference schema)")
+    p.add_argument("width", type=int)
+    p.add_argument("height", type=int)
+    p.add_argument("--mode", choices=_MODES, default="culled",
+                   help="only culled is ported")
+    p.add_argument("--bounces", type=int, default=0,
+                   help="reflection bounces (not ported: 0 only)")
+    p.add_argument("--animate-objects", action="store_true",
+                   help="per-frame object motion (not ported)")
+    p.add_argument("--serve", metavar="HOST:PORT", default=None,
+                   help="browser viewer (not ported)")
+    p.add_argument("--multihost", action="store_true",
+                   help="multi-process rendering (not ported)")
+    p.add_argument("--frames", type=int, default=60,
+                   help="animation frames to render")
+    p.add_argument("--animation", choices=["orbit", "strafe", "none"],
+                   default="orbit")
+    p.add_argument("--radius", type=float, default=6.0,
+                   help="orbit radius (distance to look-at point)")
+    p.add_argument("--revolutions", type=float, default=1.0)
+    p.add_argument("--out", default=None,
+                   help="directory to write frame PNGs (omit to skip IO)")
+    p.add_argument("--fps-target", type=int, default=30,
+                   help="pace frames like the reference's 30 Hz loop; "
+                        "0 = flat out")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (cuda, cuda:N or cpu)")
+    return p
+
+
+def _unported(args) -> str | None:
+    if args.mode != "culled":
+        return f"--mode {args.mode}"
+    if args.bounces:
+        return "--bounces"
+    if args.animate_objects:
+        return "--animate-objects"
+    if args.serve:
+        return "--serve"
+    if args.multihost:
+        return "--multihost"
+    return None
+
+
+def _periodic_verify(render_v, period: int = 8):
+    """Check the frozen work-list buckets (a host sync) every `period`
+    frames only, so a silent overflow lasts at most period - 1 frames."""
+    k = [0]
+
+    def render(cam):
+        v = (k[0] % period) == 0
+        k[0] += 1
+        return render_v(cam, v)
+
+    return render
+
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    what = _unported(args)
+    if what is not None:
+        raise SystemExit(f"{what} is not yet ported to "
+                         "distributed_raytracer_tpu_torch (only --mode "
+                         "culled without bounces is); use "
+                         "distributed_raytracer_tpu for it")
+
+    from distributed_raytracer_tpu_torch.models.scene import load_scene
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.runtime import animation, framebuffer
+    from distributed_raytracer_tpu_torch.runtime.stats import FrameTimer
+
+    scene = load_scene(args.scene)
+    w, h = args.width, args.height
+
+    # block_size="auto": the per-scene leaf policy
+    # (utils/config.default_block_size).
+    culled = CulledRenderer(scene, w, h, block_size="auto",
+                            device=args.device)
+    culled.render(scene.camera, block=True)
+    culled.freeze(scene.camera)
+    render = _periodic_verify(
+        lambda cam, v: culled.render_fast(cam, verify=v))
+
+    if args.animation == "none":
+        poses = [scene.camera] * args.frames
+    elif args.animation == "strafe":
+        poses = []
+        cam = scene.camera
+        for _ in range(args.frames):
+            cam = cam.move(0.1, leftward=True)
+            poses.append(cam)
+    else:
+        poses = animation.orbit_camera_path(scene.camera, args.frames,
+                                            radius=args.radius,
+                                            revolutions=args.revolutions)
+
+    # Warm up outside the timed loop (the reference never counts startup
+    # either — its first frame just runs slow).
+    render(poses[0]).cpu()
+
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+
+    timer = FrameTimer()
+    ms_per_frame = 1000.0 / args.fps_target if args.fps_target else 0.0
+    for k, cam in enumerate(poses):
+        tick = time.monotonic()
+        timer.frame_issued()
+        img = render(cam)
+        if args.out:
+            # u8 on the device before the host copy: 1 byte per channel
+            # crosses instead of a float32.
+            img = framebuffer.to_u8_device(img)
+        img_np = img.cpu().numpy()
+        timer.frame_drawn()
+        if args.out:
+            framebuffer.write_png(os.path.join(args.out, f"frame_{k:05d}.png"),
+                                  img_np)
+        if ms_per_frame:
+            elapsed = (time.monotonic() - tick) * 1000.0
+            if elapsed < ms_per_frame:
+                time.sleep((ms_per_frame - elapsed) / 1000.0)
+
+    stats = timer.stats()
+    if stats is not None:
+        print(stats.report())
+        rays = w * h * (1 + scene.light_pos.shape[0])
+        print(f"Throughput: {stats.mean_fps * w * h / 1e6:.2f} M primary "
+              f"rays/s ({stats.mean_fps * rays / 1e6:.2f} M total rays/s "
+              "incl. shadows).")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,122 @@
+"""The PyTorch port's command line and runtime helpers.
+
+`python -m distributed_raytracer_tpu_torch` renders the tetra scene on the
+CPU and must write the frames the port's own render() gives; the modes that
+are not ported yet exit non-zero with a message that names them. The runtime
+helpers copied from the JAX package (FPS statistics, PNG encoding, the orbit
+path) must give identical results.
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_raytracer_tpu.runtime import animation as janimation
+from distributed_raytracer_tpu.runtime import framebuffer as jframebuffer
+from distributed_raytracer_tpu.runtime import stats as jstats
+from distributed_raytracer_tpu_torch import run
+from distributed_raytracer_tpu_torch.models.scene import load_scene
+from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+from distributed_raytracer_tpu_torch.runtime import animation, framebuffer
+from distributed_raytracer_tpu_torch.runtime import stats
+from tests.conftest import make_tetra_obj
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def scene_path(tmp_path_factory):
+    d = tmp_path_factory.mktemp("torch_cli")
+    make_tetra_obj(str(d / "tetra.obj"))
+    p = d / "scene.json"
+    p.write_text(
+        '{"objs": [{"model": "tetra.obj", "pos": {"x": 0, "y": 0, "z": 0}}],'
+        '"lights": [{"pos": {"x": 3, "y": 4, "z": 5},'
+        '"col": {"r": 255, "g": 255, "b": 255}}],'
+        '"cam": {"pos": {"x": 1.5, "y": 1.2, "z": 3.0},'
+        '"dir": {"x": -0.35, "y": -0.3, "z": -1.0}, "fov": 1.0472}}')
+    return str(p)
+
+
+def run_module(args):
+    return subprocess.run(
+        [sys.executable, "-m", "distributed_raytracer_tpu_torch", *args],
+        capture_output=True, text=True, timeout=300, cwd=REPO)
+
+
+def test_cli_writes_the_frames_render_gives(scene_path, tmp_path):
+    out = str(tmp_path / "frames")
+    res = run_module([scene_path, "64", "48", "--frames", "2",
+                      "--fps-target", "0", "--device", "cpu", "--out", out,
+                      "--radius", "3"])
+    assert res.returncode == 0, res.stderr[-2000:]
+    assert "Mean FPS" in res.stdout and "Throughput" in res.stdout
+    files = sorted(os.listdir(out))
+    assert files == ["frame_00000.png", "frame_00001.png"]
+    scene = load_scene(scene_path)
+    r = CulledRenderer(scene, 64, 48, block_size="auto", device="cpu")
+    poses = animation.orbit_camera_path(scene.camera, 2, radius=3.0)
+    for k, cam in enumerate(poses):
+        want = framebuffer.to_u8(r.render(cam).numpy())
+        got = jframebuffer.read_png(os.path.join(out, files[k]))
+        np.testing.assert_array_equal(got, want)
+        assert want.max() > (50 if k == 0 else 0)   # lit front, ambient back
+
+
+@pytest.mark.parametrize("flags,name", [
+    (["--mode", "sequential"], "--mode sequential"),
+    (["--mode", "ring"], "--mode ring"),
+    (["--bounces", "2"], "--bounces"),
+    (["--animate-objects"], "--animate-objects"),
+    (["--serve", "127.0.0.1:0"], "--serve"),
+    (["--multihost"], "--multihost"),
+])
+def test_unported_options_exit_with_their_name(scene_path, flags, name):
+    with pytest.raises(SystemExit) as exc:
+        run.main([scene_path, "64", "48", "--device", "cpu", *flags])
+    assert isinstance(exc.value.code, str)     # exit status 1
+    assert name in exc.value.code and "not yet ported" in exc.value.code
+
+
+def test_unported_mode_exits_nonzero(scene_path):
+    res = run_module([scene_path, "64", "48", "--mode", "halo"])
+    assert res.returncode == 1
+    assert "--mode halo is not yet ported" in res.stderr
+
+
+def test_frame_stats_match():
+    ts = [0.0, 0.031, 0.065, 0.0952, 0.13, 0.171]
+    want, got = jstats.FrameTimer(), stats.FrameTimer()
+    for timer in (want, got):
+        for t in ts:
+            timer.frame_issued()
+            timer.frame_drawn(at=t)
+    assert got.stats().report() == want.stats().report()
+    assert got.stats().fps_per_frame == want.stats().fps_per_frame
+
+
+def test_png_and_u8_match():
+    rng = np.random.default_rng(4)
+    img = rng.uniform(-0.2, 1.2, (7, 9, 3)).astype(np.float32)
+    np.testing.assert_array_equal(framebuffer.to_u8(img),
+                                  jframebuffer.to_u8(img))
+    np.testing.assert_array_equal(
+        framebuffer.to_u8_device(torch.from_numpy(img)).numpy(),
+        jframebuffer.to_u8(img))
+    assert framebuffer.png_bytes(img) == jframebuffer.png_bytes(img)
+
+
+def test_orbit_camera_path_matches(scene_path):
+    from distributed_raytracer_tpu.models.scene import load_scene as jload
+
+    want = janimation.orbit_camera_path(jload(scene_path).camera, 5,
+                                        radius=3.0, revolutions=0.5)
+    got = animation.orbit_camera_path(load_scene(scene_path).camera, 5,
+                                      radius=3.0, revolutions=0.5)
+    for g, w in zip(got, want):
+        for f in ("pos", "forward", "left", "up"):
+            np.testing.assert_array_equal(getattr(g, f), getattr(w, f))
