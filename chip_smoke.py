@@ -1,33 +1,52 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the traversal kernels from csrc/ and runs three phases on cuda:0:
+Builds the traversal kernels from csrc/ and runs on cuda:0:
 
-  1. Kernels against their plain PyTorch versions. One 640x480 frame of
-     icosphere_scene(6) (81,920 triangles, 3 lights) is rendered on the
-     card, recording the real inputs of the nearest-hit launch (primary
-     rays) and of the any-hit launch (all lights). Each kernel runs on them
-     with exit_every 0 and 32 and must agree with its plain version on the
-     same CUDA tensors: nearest ids equal on every ray, t equal where the
-     ids agree (both round identically: the kernels are built with
-     -fmad=false), any-hit flags equal. Times are medians of 20 calls after
-     warm-up, with a device synchronize around each call.
-  2. The frame end to end: render(), freeze(), a 16-pose orbit through
-     render_fast(verify=True), one render_fast under CUDA's sync-debug
-     "error" mode (it must not wait on the device), and the first pose on a
-     device="cpu" renderer built from the same bake (the plain versions),
-     held to the repository's culled-vs-dense bound: max-channel diff >
-     2/255 on < 0.5% of pixels and mean |diff| < 1e-4. The launch counters
-     are reset before this phase and must both be > 0 after it.
-  3. The command line: the same sphere written as OBJ + scene.json, 30
-     frames through distributed_raytracer_tpu_torch.run.main on cuda.
+  1. Kernels against their plain PyTorch versions on the paths' real
+     inputs, each with exit_every 0 and 32, on the same CUDA tensors:
+     nearest ids equal on every ray, t equal where the ids agree (both round
+     identically: the kernels are built with -fmad=false), any-hit flags
+     equal, unvisited tiles left at init.
+     - K1 and K2 (shared origin) on the launches of one 640x480 render() of
+       icosphere_scene(6) (81,920 triangles, 3 lights). Times are medians
+       of 20 calls after warm-up, each synchronized.
+     - K3n (per-ray origins) on the bounce-1 nearest launch of one depth-2
+       render_bounced() of the 1920x1080 sphere grid
+       (instanced_grid(icosphere_scene(3), 4): 16 mirrored spheres, 20,480
+       triangles), and K3a (its any-hit twin, which no renderer path calls)
+       on the same rays with t_max set to K3n's finite hit t. Kernel times
+       are medians of 20 calls; the plain versions take seconds at this
+       size, so theirs are medians of 3.
+  2. The 640x480 frame end to end: render(), freeze(), a 16-pose orbit
+     through render_fast(verify=True), one render_fast under CUDA's
+     sync-debug "error" mode (it must not wait on the device), and the
+     first pose on a device="cpu" renderer built from the same bake (the
+     plain versions), held to the repository's culled-vs-dense bound:
+     max-channel diff > 2/255 on < 0.5% of pixels and mean |diff| < 1e-4.
+     The launch counters are reset before this phase; K1 and K2 must be
+     > 0 after it.
+  2b. The bounced 1920x1080 depth-2 frame of the sphere grid end to end:
+     render_bounced() with its per-bounce counts, freeze_bounced(), an
+     8-pose orbit through the frozen renderer with verify=True, the frozen
+     renderer timed without verify, and one frozen call under sync-debug
+     "error". The counters are reset before this phase; per-ray-origin
+     nearest (K3n) and K2 launches must be > 0 after it. The frame must
+     equal the same frame rendered with the wrappers swapped for their
+     plain versions on the card (max |diff| <= 2e-5), and bounces must add
+     light: some pixel exceeds the depth-0 frame by > 0.01, none falls
+     below it by > 1e-5.
+  3. The command line: the 640x480 sphere written as OBJ + scene.json, 30
+     frames through distributed_raytracer_tpu_torch.run.main on cuda; then
+     the sphere grid, 8 frames at 1920x1080 with --bounces 2.
 
-Prints the versions, the card's name and power limit, the build time, each
-phase's numbers, one JSON line of per-kernel results and, last, one JSON
-line {"ok": true, "device": {...}}. Exits non-zero without that line on any
-failure, when CUDA is not available, or when run outside the repository.
+Prints the versions, the card's name and power limit, the build time and
+each kernel's registers and spills, each phase's numbers, one JSON line of
+per-kernel results and, last, one JSON line {"ok": true, "device": {...}}.
+Exits non-zero without that line on any failure, when CUDA is not
+available, or when run outside the repository.
 """
 
 from __future__ import annotations
@@ -36,6 +55,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,10 +66,21 @@ W, H = 640, 480
 SUBDIV = 6          # icosphere_scene(6): 81,920 triangles
 ORBIT = 16
 REPEATS = 20
+PLAIN_REPEATS_BIG = 3
+# The bounced path: instanced_grid(icosphere_scene(3), 4) at 1080p, depth 2.
+BW, BH, DEPTH = 1920, 1080, 2
+GRID_SUBDIV, GRID_N = 3, 4
+BOUNCE_ORBIT = 8
 SOURCE = "distributed_raytracer_tpu_torch/csrc/bsr_trace.cu"
-REPLACES = {
-    "bsr_nearest": "distributed_raytracer_tpu/ops/pallas/bsr_trace.py:356",
-    "bsr_any": "distributed_raytracer_tpu/ops/pallas/bsr_trace.py:411",
+_PALLAS = "distributed_raytracer_tpu/ops/pallas/bsr_trace.py"
+WRAPPERS = ("bsr_nearest", "bsr_any")
+# Per kernel (its LAUNCHES key): (its id in PERF.md's kernel table, the
+# TPU kernel it replaces).
+KERNELS = {
+    "bsr_nearest": ("K1", f"{_PALLAS}:356"),
+    "bsr_any": ("K2", f"{_PALLAS}:411"),
+    "bsr_nearest_rays": ("K3n", f"{_PALLAS}:356"),
+    "bsr_any_rays": ("K3a", f"{_PALLAS}:411"),
 }
 
 
@@ -66,12 +97,12 @@ def gpu_query() -> str:
     ).stdout.strip()
 
 
-def time_ms(fn, repeats: int = REPEATS) -> float:
+def time_ms(fn, repeats: int = REPEATS, warmup: int = 2) -> float:
     """Median wall time of `fn()` in ms, synchronized around each call,
-    after two warm-up calls."""
+    after `warmup` calls."""
     import torch
 
-    for _ in range(2):
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -84,26 +115,59 @@ def time_ms(fn, repeats: int = REPEATS) -> float:
     return statistics.median(times)
 
 
-def record_launches(bsr_trace):
-    """Replace the wrappers with recorders of their arguments; returns the
-    record and a function that restores the wrappers."""
-    seen = {}
-    originals = {name: getattr(bsr_trace, name) for name in REPLACES}
+def print_ptxas(log: str) -> None:
+    """One line per kernel instantiation from nvcc's -Xptxas -v output."""
+    name, spill = None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(nearest|any)_kernelILi(\d+)ELb([01])E", m.group(1))
+            name = (f"{k.group(1)}_kernel<RPT={k.group(2)}, shared="
+                    f"{'true' if k.group(3) == '1' else 'false'}>"
+                    if k else m.group(1))
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            print(f"  ptxas: {name}: {line.split(':', 1)[-1].strip()}; "
+                  f"{spill}")
+            name = None
 
-    def recorder(name):
-        def call(*args, **kwargs):
-            seen[name] = (args, dict(kwargs))
-            return originals[name](*args, **kwargs)
-        return call
 
-    for name in REPLACES:
-        setattr(bsr_trace, name, recorder(name))
-
-    def restore():
+@contextlib.contextmanager
+def wrappers_replaced(bsr_trace, make):
+    """Within the block, bsr_trace.<name> is make(name, original) for each
+    wrapper name; the originals come back afterwards."""
+    originals = {name: getattr(bsr_trace, name) for name in WRAPPERS}
+    for name, fn in originals.items():
+        setattr(bsr_trace, name, make(name, fn))
+    try:
+        yield
+    finally:
         for name, fn in originals.items():
             setattr(bsr_trace, name, fn)
 
-    return seen, restore
+
+def recording(bsr_trace, seen: dict):
+    """A make() for wrappers_replaced that appends every call's arguments
+    to seen[LAUNCHES key] and then calls the wrapper."""
+    def make(name, fn):
+        def call(*args, **kwargs):
+            key = bsr_trace.launch_key(name, kwargs["shared_origin"])
+            seen.setdefault(key, []).append((args, dict(kwargs)))
+            return fn(*args, **kwargs)
+        return call
+    return make
+
+
+def plain_versions(bsr_trace):
+    """A make() for wrappers_replaced: each wrapper's plain version."""
+    return lambda name, fn: getattr(bsr_trace, name + "_ref")
+
+
+def reset_launches(bsr_trace) -> None:
+    for name in bsr_trace.LAUNCHES:
+        bsr_trace.LAUNCHES[name] = 0
 
 
 def visited_rays(args, kwargs):
@@ -118,57 +182,91 @@ def visited_rays(args, kwargs):
     return v[:, None].expand(-1, rt).reshape(-1)
 
 
-def phase_kernels(renderer, scene, bsr_trace):
-    """Phase 1: each kernel against its plain version on the main path's
-    real inputs."""
+def compare_kernel(bsr_trace, key, args, kwargs, plain_repeats=REPEATS):
+    """One kernel against its plain version on (args, kwargs), with
+    exit_every 0 and 32; returns {"max_abs_err", "ms", "plain_ms"}."""
     import torch
 
-    seen, restore = record_launches(bsr_trace)
-    try:
+    name = key.removesuffix("_rays")
+    kernel = getattr(bsr_trace, name)
+    plain = getattr(bsr_trace, name + "_ref")
+    vis = visited_rays(args, kwargs)
+    err = 0.0
+    for exit_every in (0, 32):
+        kw = dict(kwargs, exit_every=exit_every)
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        if name == "bsr_nearest":
+            (gt, gi), (wt, wi) = got, want
+            bad = int((gi != wi)[vis].sum())
+            check(bad == 0, f"{key} exit_every={exit_every}: {bad} ids "
+                            "differ on visited tiles")
+            both = vis & torch.isfinite(wt)
+            diff = (gt - wt).abs()[both]
+            e = float(diff.max()) if diff.numel() else 0.0
+            check(e == 0.0, f"{key} exit_every={exit_every}: t differs "
+                            f"by {e} where the ids agree")
+            check(bool(torch.equal(gi, wi) and torch.equal(gt[~vis],
+                                                           wt[~vis])),
+                  f"{key}: unvisited tiles differ from init")
+        else:
+            bad = int((got != want).sum())
+            check(bad == 0, f"{key} exit_every={exit_every}: {bad} "
+                            "any-hit flags differ")
+            e = float((got - want).abs().max())
+        err = max(err, e)
+    ms = time_ms(lambda: kernel(*args, **kwargs))
+    plain_ms = time_ms(lambda: plain(*args, **kwargs),
+                       repeats=plain_repeats,
+                       warmup=1 if plain_repeats < REPEATS else 2)
+    n = int(args[6].item())
+    print(f"[phase 1] {KERNELS[key][0]} {key}: R={args[0].shape[1]} "
+          f"T={args[2].shape[0]} W={args[3].shape[0]} live items={n} "
+          f"({n * kwargs['rt'] * kwargs['tb'] / 1e9:.3f} G pairs) "
+          f"exit_every(main path)={kwargs['exit_every']} max_abs_err={err} "
+          f"kernel {ms:.4f} ms (median of {REPEATS}), plain {plain_ms:.4f} "
+          f"ms (median of {plain_repeats})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_kernels(renderer, scene, bsr_trace):
+    """Phase 1, K1 and K2: the shared-origin kernels against their plain
+    versions on the 640x480 frame's real inputs."""
+    seen = {}
+    with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
         renderer.render(scene.camera, block=True)
-    finally:
-        restore()
-    check(set(seen) == set(REPLACES), f"recorded launches: {sorted(seen)}")
-    results = {}
-    for name in REPLACES:
-        args, kwargs = seen[name]
-        kernel = getattr(bsr_trace, name)
-        plain = getattr(bsr_trace, name + "_ref")
-        vis = visited_rays(args, kwargs)
-        err = 0.0
-        for exit_every in (0, 32):
-            kw = dict(kwargs, exit_every=exit_every)
-            got = kernel(*args, **kw)
-            want = plain(*args, **kw)
-            torch.cuda.synchronize()
-            if name == "bsr_nearest":
-                (gt, gi), (wt, wi) = got, want
-                bad = int((gi != wi)[vis].sum())
-                check(bad == 0, f"{name} exit_every={exit_every}: {bad} ids "
-                                "differ on visited tiles")
-                both = vis & torch.isfinite(wt)
-                diff = (gt - wt).abs()[both]
-                e = float(diff.max()) if diff.numel() else 0.0
-                check(e == 0.0, f"{name} exit_every={exit_every}: t differs "
-                                f"by {e} where the ids agree")
-                check(bool(torch.equal(gi, wi) and torch.equal(gt[~vis],
-                                                               wt[~vis])),
-                      f"{name}: unvisited tiles differ from init")
-            else:
-                bad = int((got != want).sum())
-                check(bad == 0, f"{name} exit_every={exit_every}: {bad} "
-                                "any-hit flags differ")
-                e = float((got - want).abs().max())
-            err = max(err, e)
-        ms = time_ms(lambda: kernel(*args, **kwargs))
-        plain_ms = time_ms(lambda: plain(*args, **kwargs))
-        w = args[3].shape[0]
-        n = int(args[6].item())
-        print(f"[phase 1] {name}: R={args[0].shape[1]} T={args[2].shape[0]} "
-              f"W={w} live items={n} exit_every(main path)="
-              f"{kwargs['exit_every']} max_abs_err={err} kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        results[name] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    check(set(seen) == {"bsr_nearest", "bsr_any"},
+          f"recorded launches: {sorted(seen)}")
+    return {key: compare_kernel(bsr_trace, key, *seen[key][-1])
+            for key in ("bsr_nearest", "bsr_any")}
+
+
+def phase_kernels_rays(renderer, scene, bsr_trace):
+    """Phase 1, K3n and K3a: the per-ray-origin kernels on the bounce-1
+    nearest launch of the bounced 1080p frame."""
+    import torch
+
+    seen = {}
+    with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
+        renderer.render_bounced(scene.camera, DEPTH, block=True)
+    calls = seen.get("bsr_nearest_rays", [])
+    check(len(calls) == DEPTH + 1, f"{len(calls)} per-ray-origin nearest "
+                                   f"launches for depth {DEPTH}")
+    check(renderer._last_bounce_counts[1][renderer.n_levels] > 0,
+          "bounce 1 has no hit tiles")
+    args, kwargs = calls[1]
+    results = {"bsr_nearest_rays": compare_kernel(
+        bsr_trace, "bsr_nearest_rays", args, kwargs, PLAIN_REPEATS_BIG)}
+    # K3a: the same rays and exclude ids, t_max = K3n's finite hit t.
+    best_t, _ = bsr_trace.bsr_nearest(*args, **kwargs)
+    rays = args[0].clone()
+    rays[6] = torch.where(torch.isfinite(best_t), best_t, bsr_trace.BIG_TMAX)
+    any_args = (rays,) + tuple(args[1:])
+    any_kwargs = {k: kwargs[k] for k in ("rt", "tb", "shared_origin",
+                                         "exit_every")}
+    results["bsr_any_rays"] = compare_kernel(
+        bsr_trace, "bsr_any_rays", any_args, any_kwargs, PLAIN_REPEATS_BIG)
     return results
 
 
@@ -181,8 +279,7 @@ def phase_frame(renderer, scene, bsr_trace):
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
     from distributed_raytracer_tpu_torch.runtime import animation
 
-    for name in bsr_trace.LAUNCHES:
-        bsr_trace.LAUNCHES[name] = 0
+    reset_launches(bsr_trace)
     render_ms = time_ms(lambda: renderer.render(scene.camera, block=True),
                         repeats=5)
     sync_img = renderer.render(scene.camera, block=True).cpu().numpy()
@@ -210,8 +307,8 @@ def phase_frame(renderer, scene, bsr_trace):
           f"render_fast() {nosync_ms:.3f} ms; counts {counts}; pads "
           f"{renderer._frozen_pads}; exit_every {renderer.exit_every}; "
           f"launches {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"{name} was not launched on the main path")
+    for name in ("bsr_nearest", "bsr_any"):
+        check(launches[name] > 0, f"{name} was not launched on the path")
     for img in imgs:
         check(tuple(img.shape) == (H, W, 3) and bool(img.isfinite().all()),
               "orbit frame shape / finiteness")
@@ -238,26 +335,113 @@ def phase_frame(renderer, scene, bsr_trace):
     return launches
 
 
+def grid_poses(scene, n: int):
+    """An n-pose orbit about the grid's centre (the camera looks at it
+    from its distance), a tenth of a revolution: the spheres stay in
+    view."""
+    import numpy as np
+
+    from distributed_raytracer_tpu_torch.runtime import animation
+
+    radius = float(np.linalg.norm(scene.camera.pos))
+    return animation.orbit_camera_path(scene.camera, n, radius=radius,
+                                       revolutions=0.1)
+
+
+def phase_bounced(renderer, scene, bsr_trace):
+    """Phase 2b: the bounced 1080p depth-2 frame end to end."""
+    import numpy as np
+    import torch
+
+    reset_launches(bsr_trace)
+    bounced_ms = time_ms(
+        lambda: renderer.render_bounced(scene.camera, DEPTH, block=True),
+        repeats=3, warmup=1)
+    sync = renderer.render_bounced(scene.camera, DEPTH, block=True)
+    counts = renderer._last_bounce_counts
+    t0 = time.perf_counter()
+    fast = renderer.freeze_bounced(scene.camera, DEPTH)
+    torch.cuda.synchronize()
+    freeze_s = time.perf_counter() - t0
+    poses = grid_poses(scene, BOUNCE_ORBIT)
+    imgs, verify_ms = [], []
+    for cam in poses:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs.append(fast(cam, verify=True))
+        torch.cuda.synchronize()
+        verify_ms.append((time.perf_counter() - t0) * 1e3)
+    nosync_ms = time_ms(lambda: fast(poses[1]), repeats=10)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fast(poses[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = dict(bsr_trace.LAUNCHES)
+    print(f"[phase 2b] render_bounced(depth={DEPTH}) {bounced_ms:.3f} ms "
+          f"(median of 3); per-bounce counts {counts}; freeze_bounced "
+          f"{freeze_s:.2f} s; frozen(verify=True) per frame "
+          f"{[round(t, 3) for t in verify_ms]} ms, median "
+          f"{statistics.median(verify_ms):.3f}; frozen() "
+          f"{nosync_ms:.3f} ms (median of 10); pads {fast.pads()}; "
+          f"exit_every {renderer.exit_every}; launches {launches}")
+    for name in ("bsr_nearest_rays", "bsr_any"):
+        check(launches[name] > 0, f"{name} was not launched on the bounced "
+                                  "path")
+    for img in imgs:
+        check(tuple(img.shape) == (BH, BW, 3) and bool(img.isfinite().all())
+              and float(img.min()) >= 0.0 and float(img.max()) <= 1.0,
+              "bounced orbit frame shape / range")
+
+    fast0 = fast(scene.camera, verify=True)
+    check(float((fast0 - sync).abs().max()) <= 2e-5,
+          "frozen bounced frame != render_bounced on the sizing pose")
+    t0 = time.perf_counter()
+    with wrappers_replaced(bsr_trace, plain_versions(bsr_trace)):
+        plain = renderer.render_bounced(scene.camera, DEPTH, block=True)
+    plain_s = time.perf_counter() - t0
+    check(renderer._last_bounce_counts == counts,
+          "plain-version frame sized different work lists")
+    diff = float((sync - plain).abs().max())
+    d0 = renderer.render_bounced(scene.camera, 0, block=True)
+    gain = (sync - d0).cpu().numpy()
+    hit = float(((sync.sum(-1) > 0).float().mean()))
+    print(f"[phase 2b] cuda vs plain versions on the card: max |diff| "
+          f"{diff} (plain frame {plain_s:.1f} s); bounces vs depth 0: max "
+          f"gain {gain.max():.4f}, {int((gain.max(-1) > 0.01).sum())} pixels "
+          f"gain > 0.01, min {gain.min():.3e}; hit fraction {hit:.4f}")
+    check(diff <= 2e-5, "bounced cuda frame differs from its plain-version "
+                        "frame")
+    check(gain.max() > 0.01 and gain.min() >= -1e-5,
+          "bounces do not add light")
+    check(hit > 0.05, f"hit fraction {hit}")
+    return launches
+
+
 def write_scene(d: str, scene, mesh) -> str:
-    """The scene as OBJ + MTL + scene.json (the reference's schema)."""
+    """The scene as OBJ + MTL + scene.json (the reference's schema): one
+    mesh, one `objs` entry per object of the scene."""
     m = mesh.materials[0]
-    with open(os.path.join(d, "sphere.mtl"), "w") as f:
+    with open(os.path.join(d, "mesh.mtl"), "w") as f:
         f.write("newmtl mat\n"
                 f"Ka {m.ka[0]!r} {m.ka[1]!r} {m.ka[2]!r}\n"
                 f"Kd {m.kd[0]!r} {m.kd[1]!r} {m.kd[2]!r}\n"
                 f"Ks {m.ks[0]!r} {m.ks[1]!r} {m.ks[2]!r}\n"
                 f"Ns {m.ns!r}\n")
-    lines = ["mtllib sphere.mtl"]
+    lines = ["mtllib mesh.mtl"]
     lines += [f"v {x!r} {y!r} {z!r}" for x, y, z in mesh.vertices.tolist()]
     lines += [f"vn {x!r} {y!r} {z!r}" for x, y, z in mesh.normals.tolist()]
     lines.append("usemtl mat")
     lines += ["f " + " ".join(f"{v + 1}//{n + 1}" for v, n in zip(fv, fn))
               for fv, fn in zip(mesh.faces_v.tolist(), mesh.faces_n.tolist())]
-    with open(os.path.join(d, "sphere.obj"), "w") as f:
+    with open(os.path.join(d, "mesh.obj"), "w") as f:
         f.write("\n".join(lines) + "\n")
     cam = scene.camera
     xyz = lambda v: {"x": float(v[0]), "y": float(v[1]), "z": float(v[2])}
-    doc = {"objs": [{"model": "sphere.obj", "pos": xyz([0, 0, 0])}],
+    doc = {"objs": [{"model": "mesh.obj", "pos": xyz(o.pos)}
+                    for o in scene.objects],
            "lights": [{"pos": xyz(p), "col": {"r": int(round(c[0] * 255)),
                                               "g": int(round(c[1] * 255)),
                                               "b": int(round(c[2] * 255))}}
@@ -270,27 +454,31 @@ def write_scene(d: str, scene, mesh) -> str:
     return path
 
 
-def phase_cli(scene, mesh):
-    """Phase 3: the command line on the card."""
+def run_cli(scene, mesh, size, frames: int, flags) -> None:
+    """Phase 3: `frames` frames of the scene through run.main on cuda."""
+    import numpy as np
+
     from distributed_raytracer_tpu_torch import run
 
+    radius = float(np.linalg.norm(np.asarray(scene.camera.pos)))
     with tempfile.TemporaryDirectory() as d:
         path = write_scene(d, scene, mesh)
         out = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(out):
-            rc = run.main([path, str(W), str(H), "--frames", "30",
-                           "--fps-target", "0", "--radius", "3",
-                           "--device", "cuda"])
+            rc = run.main([path, str(size[0]), str(size[1]), "--frames",
+                           str(frames), "--fps-target", "0", "--radius",
+                           repr(radius), "--device", "cuda", *flags])
         secs = time.perf_counter() - t0
     check(rc == 0, f"run.main returned {rc}")
     report = [l for l in out.getvalue().splitlines()
               if l.startswith(("Mean FPS", "Median FPS", "Throughput"))]
     check(len(report) == 3, f"no FPS report in: {out.getvalue()!r}")
+    what = f"{size[0]}x{size[1]} {' '.join(flags) or 'no bounces'}"
     for line in report:
-        print(f"[phase 3] {line}")
-    print(f"[phase 3] CLI total {secs:.1f} s (scene load, bake, sizing, "
-          "30 frames)")
+        print(f"[phase 3] {what}: {line}")
+    print(f"[phase 3] {what}: CLI total {secs:.1f} s (scene load, bake, "
+          f"sizing, {frames} frames)")
 
 
 def main() -> int:
@@ -311,9 +499,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.load_library()
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_logs.get("bsr_trace", "").splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    print_ptxas(_build.build_logs.get("bsr_trace", ""))
 
     scene = scenes.icosphere_scene(SUBDIV)
     t0 = time.perf_counter()
@@ -322,16 +508,29 @@ def main() -> int:
           f"{renderer.tree.num_blocks} blocks, groups {renderer.groups}, "
           f"{renderer.n_tiles} ray tiles; bake + upload "
           f"{time.perf_counter() - t0:.1f} s")
+    grid = scenes.instanced_grid(scenes.icosphere_scene(GRID_SUBDIV), GRID_N)
+    t0 = time.perf_counter()
+    bounced = CulledRenderer(grid, BW, BH, block_size="auto", device="cuda")
+    print(f"grid scene: {grid.num_tris} triangles, tb={bounced.tb}, "
+          f"{bounced.tree.num_blocks} blocks, groups {bounced.groups}, "
+          f"{bounced.n_tiles} ray tiles at {BW}x{BH}; bake + upload "
+          f"{time.perf_counter() - t0:.1f} s")
 
     kernels = phase_kernels(renderer, scene, bsr_trace)
+    kernels.update(phase_kernels_rays(bounced, grid, bsr_trace))
     launches = phase_frame(renderer, scene, bsr_trace)
-    phase_cli(scene, scenes.icosphere_mesh(SUBDIV))
+    for key, n in phase_bounced(bounced, grid, bsr_trace).items():
+        launches[key] += n
+    mesh = scenes.icosphere_mesh(SUBDIV)
+    run_cli(scene, mesh, (W, H), 30, [])
+    run_cli(grid, scenes.icosphere_mesh(GRID_SUBDIV), (BW, BH), 8,
+            ["--bounces", str(DEPTH), "--revolutions", "0.1"])
 
     print(f"gpu: {gpu_query()}")
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
-         **kernels[name]} for name in REPLACES]}))
+        {"name": key, "route": "cuda", "source": SOURCE,
+         "replaces": KERNELS[key][1], "kernel": KERNELS[key][0],
+         "launches": launches[key], **kernels[key]} for key in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

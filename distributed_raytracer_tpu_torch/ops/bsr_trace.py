@@ -15,9 +15,12 @@ Each kernel has two implementations here:
 The wrappers choose by the device of the tensors they are given and by
 nothing else: a CUDA tensor launches the kernel or raises.
 
-Only the shared-origin form (every ray of a launch has one origin, folded
-into the triangle rows by `pack_tris_origin`) is ported: per-ray origins
-(bounces) and the MXU variants are not yet.
+Both origin forms are ported. shared_origin=True: every ray of a launch
+has one origin, folded into the triangle rows by `pack_tris_origin`
+(primary rays; shadow rays reversed to start at their light).
+shared_origin=False: each ray has its own origin (ray rows 0..2) against
+the static `pack_tris` rows (the reflection rays of bounces). The MXU
+variants of the JAX package are not ported yet.
 
 Layouts (the JAX package's): rays [8, R] f32 rows (ox,oy,oz,dx,dy,dz,tmax,0);
 triangles [T, 16] f32 rows. R is a multiple of the ray tile rt, T of the
@@ -46,10 +49,16 @@ THREADS = 128
 # unchunked (W, tb, rt) pair tensor is gigabytes at frame sizes).
 _REF_CHUNK_PAIRS = 1 << 22
 
-# Kernel launches per wrapper. Incremented only where the CUDA kernel is
-# launched, never by the plain versions; a caller resets them to 0 to count
-# the launches of one run.
-LAUNCHES = {"bsr_nearest": 0, "bsr_any": 0}
+# Kernel launches per wrapper and origin form ("_rays": per-ray origins).
+# Incremented only where the CUDA kernel is launched, never by the plain
+# versions; a caller resets them to 0 to count the launches of one run.
+LAUNCHES = {"bsr_nearest": 0, "bsr_any": 0, "bsr_nearest_rays": 0,
+            "bsr_any_rays": 0}
+
+
+def launch_key(name: str, shared_origin: bool) -> str:
+    """The LAUNCHES key of wrapper `name` in one origin form."""
+    return name if shared_origin else name + "_rays"
 
 
 def bucket_w_pad(n: int, margin: float = 1.0) -> int:
@@ -152,11 +161,7 @@ def _scalar_i32(name, x, default: int, device):
 
 
 def _prepare(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
-             count, gid_base, rt, tb, shared_origin, exit_every):
-    if not shared_origin:
-        raise NotImplementedError(
-            "only the shared-origin traversal is ported: per-ray origins "
-            "(bsr_trace.py K3, used by bounces) are not yet")
+             count, gid_base, rt, tb, exit_every):
     if rt % THREADS or rt // THREADS not in (1, 2, 4, 8):
         raise ValueError(f"rt={rt}: must be 128, 256, 512 or 1024")
     if not 0 < tb <= 512:
@@ -226,17 +231,19 @@ def bsr_nearest(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
     the JAX kernel. Rays of tiles the work list does not name keep init.
     `exit_every` > 0 lets the kernel skip items front to back once every
     ray of the tile has a nearer hit than the item's `entry` (exact).
-    With shared_origin=True (required), tris_packed is the pack_tris_origin
-    layout for the common ray origin.
+    With shared_origin=True, tris_packed is the pack_tris_origin layout
+    for the common ray origin; with False, the static pack_tris layout, and
+    each ray's origin is its rays_packed rows 0..2.
     """
     dev, r, w, count, gid_base = _prepare(
         rays_packed, exclude, tris_packed, tile_ids, block_ids, entry, count,
-        gid_base, rt, tb, shared_origin, exit_every)
+        gid_base, rt, tb, exit_every)
     init_t = _init("init_t", init_t, float("inf"), torch.float32, r, dev)
     init_i = _init("init_i", init_i, BIG_IDX, torch.int32, r, dev)
     if dev.type == "cpu":
         return _nearest_ref(rays_packed, exclude, tris_packed, tile_ids,
-                            block_ids, count, init_t, init_i, gid_base, rt, tb)
+                            block_ids, count, init_t, init_i, gid_base, rt, tb,
+                            shared_origin)
     if dev.type != "cuda":
         raise ValueError(f"bsr_nearest: no kernel for device {dev}")
     out_t, out_i = torch.empty_like(init_t), torch.empty_like(init_i)
@@ -248,8 +255,8 @@ def bsr_nearest(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
                     _ptr(tris_packed, 16), _ptr(tile_ids), _ptr(block_ids),
                     _ptr(entry), _ptr(count), w, _ptr(init_t), _ptr(init_i),
                     _ptr(gid_base), _ptr(out_t), _ptr(out_i), rt, tb,
-                    exit_every, stream)
-        LAUNCHES["bsr_nearest"] += 1
+                    exit_every, int(shared_origin), stream)
+        LAUNCHES[launch_key("bsr_nearest", shared_origin)] += 1
     return out_t, out_i
 
 
@@ -260,17 +267,18 @@ def bsr_any(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
     1 where some pair of the ray's tile hits with t <= t_max (and the id is
     not excluded), else `init` (0/1, default 0). Dead rays pre-seeded as 1
     let a tile stop as soon as every live ray is occluded (`exit_every` > 0;
-    exact). Work-list and padding semantics as in bsr_nearest; the all-
-    lights launch carries a light * n_blocks offset in block_ids into
-    stacked per-light pack_tris_origin rows.
+    exact). Work-list, padding and origin-form (`shared_origin`) semantics
+    as in bsr_nearest; the all-lights launch carries a light * n_blocks
+    offset in block_ids into stacked per-light pack_tris_origin rows.
     """
     dev, r, w, count, gid_base = _prepare(
         rays_packed, exclude, tris_packed, tile_ids, block_ids, entry, count,
-        gid_base, rt, tb, shared_origin, exit_every)
+        gid_base, rt, tb, exit_every)
     init = _init("init", init, 0, torch.int32, r, dev)
     if dev.type == "cpu":
         return _any_ref(rays_packed, exclude, tris_packed, tile_ids,
-                        block_ids, count, init, gid_base, rt, tb)
+                        block_ids, count, init, gid_base, rt, tb,
+                        shared_origin)
     if dev.type != "cuda":
         raise ValueError(f"bsr_any: no kernel for device {dev}")
     out = torch.empty_like(init)
@@ -281,8 +289,8 @@ def bsr_any(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
             _launch(lib.drt_bsr_any, _ptr(rays_packed), r, _ptr(exclude),
                     _ptr(tris_packed, 16), _ptr(tile_ids), _ptr(block_ids),
                     _ptr(count), w, _ptr(init), _ptr(gid_base), _ptr(out), rt,
-                    tb, exit_every, stream)
-        LAUNCHES["bsr_any"] += 1
+                    tb, exit_every, int(shared_origin), stream)
+        LAUNCHES[launch_key("bsr_any", shared_origin)] += 1
     return out
 
 
@@ -299,11 +307,12 @@ def bsr_nearest_ref(rays_packed, exclude, tris_packed, tile_ids, block_ids,
     changes the result."""
     dev, r, w, count, gid_base = _prepare(
         rays_packed, exclude, tris_packed, tile_ids, block_ids, entry, count,
-        gid_base, rt, tb, shared_origin, exit_every)
+        gid_base, rt, tb, exit_every)
     init_t = _init("init_t", init_t, float("inf"), torch.float32, r, dev)
     init_i = _init("init_i", init_i, BIG_IDX, torch.int32, r, dev)
     return _nearest_ref(rays_packed, exclude, tris_packed, tile_ids,
-                        block_ids, count, init_t, init_i, gid_base, rt, tb)
+                        block_ids, count, init_t, init_i, gid_base, rt, tb,
+                        shared_origin)
 
 
 def bsr_any_ref(rays_packed, exclude, tris_packed, tile_ids, block_ids,
@@ -313,10 +322,10 @@ def bsr_any_ref(rays_packed, exclude, tris_packed, tile_ids, block_ids,
     (`exit_every` is accepted and ignored, as in bsr_nearest_ref)."""
     dev, r, w, count, gid_base = _prepare(
         rays_packed, exclude, tris_packed, tile_ids, block_ids, entry, count,
-        gid_base, rt, tb, shared_origin, exit_every)
+        gid_base, rt, tb, exit_every)
     init = _init("init", init, 0, torch.int32, r, dev)
     return _any_ref(rays_packed, exclude, tris_packed, tile_ids, block_ids,
-                    count, init, gid_base, rt, tb)
+                    count, init, gid_base, rt, tb, shared_origin)
 
 
 def _chunks(count, w: int, rt: int, tb: int):
@@ -328,10 +337,11 @@ def _chunks(count, w: int, rt: int, tb: int):
     return [(s, min(s + step, n)) for s in range(0, n, step)]
 
 
-def _pairs(rays_packed, exclude, tris_packed, t_ids, b_ids, gid_base, rt, tb):
+def _pairs(rays_packed, exclude, tris_packed, t_ids, b_ids, gid_base, rt, tb,
+           shared_origin):
     """The (C, tb, rt) pair math of C items, in the kernels' operation
-    order. Returns (t, valid incl. exclusion, gid (C, tb, 1), ray rows
-    (8, C, 1, rt))."""
+    order (_pair_math, bsr_trace.py:236-248). Returns (t, valid incl.
+    exclusion, gid (C, tb, 1), ray rows (8, C, 1, rt))."""
     r = rays_packed.shape[1]
     nt, nb = r // rt, tris_packed.shape[0] // tb
     tri = tris_packed.reshape(nb, tb, 16)[b_ids]                # (C, tb, 16)
@@ -342,9 +352,17 @@ def _pairs(rays_packed, exclude, tris_packed, t_ids, b_ids, gid_base, rt, tb):
 
     dx, dy, dz = ray[3], ray[4], ray[5]
     den = col(0) * dx + col(1) * dy + col(2) * dz               # (C, tb, rt)
-    t = col(3) / den
-    u = col(7) + t * (col(4) * dx + col(5) * dy + col(6) * dz)
-    v = col(11) + t * (col(8) * dx + col(9) * dy + col(10) * dz)
+    if shared_origin:
+        t = col(3) / den
+        au, av = col(7), col(11)
+    else:
+        ox, oy, oz = ray[0], ray[1], ray[2]
+        o_n = col(0) * ox + col(1) * oy + col(2) * oz
+        t = (col(3) - o_n) / den
+        au = (col(4) * ox + col(5) * oy + col(6) * oz) + col(7)
+        av = (col(8) * ox + col(9) * oy + col(10) * oz) + col(11)
+    u = au + t * (col(4) * dx + col(5) * dy + col(6) * dz)
+    v = av + t * (col(8) * dx + col(9) * dy + col(10) * dz)
     eps = BARY_EPS
     valid = ((den != 0.0) & (t >= 0.0)
              & (u >= -eps) & (u <= 1.0 + eps)
@@ -364,14 +382,15 @@ def _keys(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
 
 
 def _nearest_ref(rays_packed, exclude, tris_packed, tile_ids, block_ids,
-                 count, init_t, init_i, gid_base, rt, tb):
+                 count, init_t, init_i, gid_base, rt, tb, shared_origin):
     r = rays_packed.shape[1]
     nt = r // rt
     best = _keys(init_t, init_i).reshape(nt, rt)
     for s, e in _chunks(count, tile_ids.shape[0], rt, tb):
         t_ids, b_ids = tile_ids[s:e].long(), block_ids[s:e].long()
         t, valid, gid, _ = _pairs(rays_packed, exclude, tris_packed, t_ids,
-                                  b_ids, gid_base.long(), rt, tb)
+                                  b_ids, gid_base.long(), rt, tb,
+                                  shared_origin)
         cand = torch.where(valid, t, float("inf"))
         item = _keys(cand, gid.expand_as(cand)).amin(dim=1)     # (C, rt)
         best.scatter_reduce_(0, t_ids[:, None].expand_as(item), item, "amin")
@@ -382,14 +401,15 @@ def _nearest_ref(rays_packed, exclude, tris_packed, tile_ids, block_ids,
 
 
 def _any_ref(rays_packed, exclude, tris_packed, tile_ids, block_ids, count,
-             init, gid_base, rt, tb):
+             init, gid_base, rt, tb, shared_origin):
     r = rays_packed.shape[1]
     nt = r // rt
     out = init.clone().reshape(nt, rt)
     for s, e in _chunks(count, tile_ids.shape[0], rt, tb):
         t_ids, b_ids = tile_ids[s:e].long(), block_ids[s:e].long()
         t, valid, _, ray = _pairs(rays_packed, exclude, tris_packed, t_ids,
-                                  b_ids, gid_base.long(), rt, tb)
+                                  b_ids, gid_base.long(), rt, tb,
+                                  shared_origin)
         hit = (valid & (t <= ray[6])).any(dim=1).to(torch.int32)  # (C, rt)
         out.scatter_reduce_(0, t_ids[:, None].expand_as(hit), hit, "amax")
     return out.reshape(r)

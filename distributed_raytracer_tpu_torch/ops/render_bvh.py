@@ -1,11 +1,12 @@
 """Block-sparse (BVH-culled) frame rendering.
 
 The torch counterpart of distributed_raytracer_tpu/ops/render_bvh.py's
-`CulledRenderer`, single device, no bounces. The pipeline first culls
-(ray-tile, tri-block) pairs with the conservative interval test
-(ops/cull.py) over the Morton block BVH (models/bvh.py), then runs only the
-surviving pairs through the traversal kernels (ops/bsr_trace.py). Images are
-exact (culling is conservative); only the work changes.
+`CulledRenderer`, single device, with Whitted reflection bounces. The
+pipeline first culls (ray-tile, tri-block) pairs with the conservative
+interval test (ops/cull.py) over the Morton block BVH (models/bvh.py), then
+runs only the surviving pairs through the traversal kernels
+(ops/bsr_trace.py). Images are exact (culling is conservative); only the
+work changes.
 
 Rays are laid out in 2D screen tiles (cull.tiled_ray_order): compact tiles
 have tight interval hulls, which is what makes the cull effective. Data is
@@ -25,12 +26,17 @@ A frame is seven stages:
 `freeze()` fixes the buckets from the last counts and `render_fast()` runs
 all stages with them and no host sync, checking the true counts against
 the buckets only when asked (verify=True).
+
+`render_bounced(camera, depth)` adds `depth` reflection bounces: stages 2-6
+again per bounce over the previous bounce's reflection rays, whose nearest
+query runs the per-ray-origin kernel. `freeze_bounced(camera, depth)`
+returns the same pipeline with per-bounce buckets and no host sync.
 """
 
 from __future__ import annotations
 
 import logging
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -39,6 +45,7 @@ from distributed_raytracer_tpu_torch.models.camera import Camera, CameraArrays
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneArrays
 from distributed_raytracer_tpu_torch.ops import bsr_trace, cull, raygen, shade
 from distributed_raytracer_tpu_torch.ops.intersect import Hits
+from distributed_raytracer_tpu_torch.ops.shade import PackedPrep
 from distributed_raytracer_tpu_torch.utils.config import (
     DEFAULT_CONFIG, RenderConfig, default_block_size)
 
@@ -51,6 +58,24 @@ def _tile_bucket(n: int, n_tiles: int) -> int:
     """Capacity for the compacted hit-TILE set: pow2, floor 8, capped at
     the full tile count (cap = no compaction, overflow impossible)."""
     return min(n_tiles, max(8, 1 << max(0, int(n - 1).bit_length())))
+
+
+class _Shading(NamedTuple):
+    """One ray set's hit-tile compaction, shading prep and shadow masks
+    (stage B2's output); compacted shapes are ht_pad * rt."""
+
+    tpos: torch.Tensor         # (nt,) compact position of each hit tile
+    hit_tile: torch.Tensor     # (nt,) bool: the tile has a hit
+    ht_count: torch.Tensor     # () int32 hit tiles
+    rays_h: torch.Tensor       # (8, C) compacted rays
+    hits_h: Hits               # compacted hits
+    view_h: torch.Tensor       # (3,) camera or (3, C) compacted viewers
+    prep: PackedPrep
+    live_l: torch.Tensor       # (L, C) bool light gates
+    sti: cull.TileIntervals    # stacked (L * C / rt) shadow tile hulls
+    smasks: torch.Tensor       # (L, C / rt, n_top) coarse shadow masks
+    sentries: torch.Tensor
+    sc1: torch.Tensor          # () int32 coarse shadow count
 
 
 def _slim_arrays(arrays: SceneArrays) -> SceneArrays:
@@ -247,20 +272,21 @@ class CulledRenderer:
 
     # -- stage B: nearest hit + shadow masks -----------------------------
 
-    def _stage_b1(self, pads: tuple, rays, ti, mask1, entry1, c1):
-        """Primary nearest hit. Returns (hits, hit-tile count, counts).
+    def _nearest(self, pads: tuple, tris, rays, exclude, ti, mask1, entry1,
+                 c1, shared_origin: bool = False):
+        """Multi-level compaction + BSR nearest. Returns (hits, hit-tile
+        count, per-level counts).
 
-        Primary rays share the camera origin, folded into the triangle
-        rows each frame for the shared-origin kernel. Results are masked by
-        the EXACT visited tile set: unvisited means the cull proved no
-        block can be hit."""
+        Results are masked by the EXACT visited tile set: unvisited means
+        the cull proved no block can be hit. With shared_origin, `tris` is
+        the pack_tris_origin fold for rays[0:3, 0]; otherwise the static
+        rows, and every ray brings its own origin."""
         wl, counts = cull.multilevel_worklist(ti, mask1, entry1, c1,
                                               self.block_lo, self.block_hi,
                                               self.groups, pads)
-        tris_cam = bsr_trace.pack_tris_origin(self.tris_packed, rays[0:3, 0])
         best_t, best_i = bsr_trace.bsr_nearest(
-            rays, self._no_excl, tris_cam, wl.tile_ids, wl.block_ids,
-            wl.entry, wl.count, rt=self.rt, tb=self.tb, shared_origin=True,
+            rays, exclude, tris, wl.tile_ids, wl.block_ids, wl.entry,
+            wl.count, rt=self.rt, tb=self.tb, shared_origin=shared_origin,
             exit_every=self.exit_every)
         best_t = torch.where(self._visited_rays(wl, self.n_tiles), best_t,
                              float("inf"))
@@ -269,26 +295,41 @@ class CulledRenderer:
         ht = hits.valid.reshape(self.n_tiles, self.rt).any(dim=1)
         return hits, ht.sum(dtype=torch.int32), counts
 
-    def _stage_b2(self, ht_pad: int, rays, hits):
+    def _stage_b1(self, pads: tuple, rays, ti, mask1, entry1, c1):
+        """Primary nearest hit. Primary rays share the camera origin, folded
+        into the triangle rows each frame for the shared-origin kernel."""
+        tris_cam = bsr_trace.pack_tris_origin(self.tris_packed, rays[0:3, 0])
+        return self._nearest(pads, tris_cam, rays, self._no_excl, ti, mask1,
+                             entry1, c1, shared_origin=True)
+
+    def _stage_b2(self, ht_pad: int, rays, hits, view) -> _Shading:
         """Hit-TILE compaction + shading prep + per-light shadow masks.
 
         Everything downstream of the nearest kernel is proportional to the
         hit count, not the ray count, so it runs on the compacted set of
         ray tiles that hit anything (ht_pad of them; ht_pad is capped at
-        n_tiles, so overflow is impossible when every tile hits)."""
-        (tpos, hit_tile, ht_count, rays_h,
+        n_tiles, so overflow is impossible when every tile hits). `view` is
+        the viewer of the light gates and the shading: the (3,) camera for
+        primary rays, the (3, n_pad) previous hit points for a bounce's
+        reflection rays (compacted alongside)."""
+        (tpos, hit_tile, tidx, ht_count, rays_h,
          hits_h) = self._compact_tiles(ht_pad, rays, hits)
+        if view.dim() == 1:
+            view_h = view
+        else:
+            view_h = view.reshape(3, self.n_tiles,
+                                  self.rt)[:, tidx, :].reshape(3, -1)
         prep = shade.prepare_packed(self.arrays, rays_h, hits_h, self.cfg,
                                     table=self.shade_tbl)
-        live_l = shade.light_gates(self.arrays, rays[0:3, 0], prep,
-                                   hits_h.valid)
+        live_l = shade.light_gates(self.arrays, view_h, prep, hits_h.valid)
         sti, smasks, sentries = self._light_masks(prep, live_l)
-        return (tpos, hit_tile, hits_h, prep, live_l, sti, smasks, sentries,
-                smasks.sum(dtype=torch.int32), ht_count)
+        return _Shading(tpos, hit_tile, ht_count, rays_h, hits_h, view_h,
+                        prep, live_l, sti, smasks, sentries,
+                        smasks.sum(dtype=torch.int32))
 
     def _compact_tiles(self, ht_pad: int, rays, hits):
         """Order-preserving hit-TILE compaction: returns (tpos, hit_tile,
-        ht_count, rays_h, hits_h) with compacted shapes ht_pad * rt."""
+        tidx, ht_count, rays_h, hits_h) with compacted shapes ht_pad * rt."""
         nt, rt = self.n_tiles, self.rt
         hit_t = hits.valid.reshape(nt, rt)
         hit_tile = hit_t.any(dim=1)                             # (nt,)
@@ -304,8 +345,23 @@ class CulledRenderer:
                           hits.t.reshape(nt, rt)[tidx].reshape(h), 0.0)
         tri_h = torch.where(valid_h,
                             hits.tri.reshape(nt, rt)[tidx].reshape(h), 0)
-        return (tpos, hit_tile, ht_count, rays_h,
+        return (tpos, hit_tile, tidx, ht_count, rays_h,
                 Hits(t=t_h, tri=tri_h, valid=valid_h))
+
+    def _gather_tiles(self, rows_h, tpos, hit_tile, fill=0.0):
+        """Tile-granular write-back: compacted (..., ht_pad * rt) rows ->
+        full-grid (..., n_pad); output tile j reads compact tile tpos[j] if
+        it had any hit, else `fill`."""
+        rt = self.rt
+        ht_pad = rows_h.shape[-1] // rt
+        src = torch.clamp(tpos, 0, ht_pad - 1)
+        if rows_h.dim() == 1:
+            out = rows_h.reshape(ht_pad, rt)[src]
+            return torch.where(hit_tile[:, None], out,
+                               fill).reshape(self.n_pad)
+        out = rows_h.reshape(rows_h.shape[0], ht_pad, rt)[:, src, :]
+        return torch.where(hit_tile[None, :, None], out,
+                           fill).reshape(rows_h.shape[0], self.n_pad)
 
     def _light_masks(self, prep, live_l):
         """Per-light coarse cull masks for the shadow queries, plus the
@@ -339,13 +395,13 @@ class CulledRenderer:
 
     # -- stage C: shadow queries + shading -------------------------------
 
-    def _lit(self, s_pads: tuple, prep, hits, live_l, sti, smasks, sentries,
-             sc1):
+    def _lit(self, s_pads: tuple, sh: _Shading):
         """All lights' shadow queries in ONE bsr_any launch: the (light,
         tile) pairs are the tile axis of a single multi-level work list.
         Dead rays pre-seed the accumulator as 'hit' so fully-occluded tiles
         exit on live rays alone. Returns (lit (L, R) bool, shadow
         expansion counts)."""
+        prep = sh.prep
         n_lights = prep.q.shape[0]
         if n_lights == 0:
             return (torch.zeros((0, prep.x.shape[1]), dtype=torch.bool,
@@ -355,20 +411,20 @@ class CulledRenderer:
         r = prep.q_rev.shape[2]
         n_tiles = r // self.rt
         nb = self.block_lo.shape[0]
-        mask = smasks.reshape(n_lights * n_tiles, -1)
-        entry = sentries.reshape(n_lights * n_tiles, -1)
-        wl, s_counts = cull.multilevel_worklist(sti, mask, entry, sc1,
+        mask = sh.smasks.reshape(n_lights * n_tiles, -1)
+        entry = sh.sentries.reshape(n_lights * n_tiles, -1)
+        wl, s_counts = cull.multilevel_worklist(sh.sti, mask, entry, sh.sc1,
                                                 self.block_lo, self.block_hi,
                                                 self.groups, s_pads)
         q = prep.q_rev.permute(1, 0, 2).reshape(8, n_lights * r)
         # Light l's origin-folded rows sit at block offset l * nb.
         light_of = torch.div(wl.tile_ids, n_tiles, rounding_mode="floor")
         block_ids = light_of * nb + wl.block_ids
-        excl = (hits.tri[None, :]
+        excl = (sh.hits_h.tri[None, :]
                 + (torch.arange(n_lights, dtype=torch.int32,
                                 device=self.device) * self.n_tris)[:, None]
                 ).reshape(-1)
-        dead = (~live_l).reshape(-1).to(torch.int32)
+        dead = (~sh.live_l).reshape(-1).to(torch.int32)
         hit = bsr_trace.bsr_any(
             q, excl, self.lights_scal, wl.tile_ids, block_ids, wl.entry,
             wl.count, dead, rt=self.rt, tb=self.tb, shared_origin=True,
@@ -377,22 +433,19 @@ class CulledRenderer:
         lit = torch.where(visited, hit == 0, True).reshape(n_lights, r)
         return lit, s_counts
 
-    def _stage_c(self, s_pads: tuple, cam: CameraArrays, tpos, hit_tile,
-                 hits_h, prep, live_l, sti, smasks, sentries, sc1):
-        """Shadow queries + Phong on the COMPACTED tile set, written back
-        tile by tile: output tile j reads compact tile tpos[j] if it had
-        any hit, else black."""
-        lit, s_counts = self._lit(s_pads, prep, hits_h, live_l, sti, smasks,
-                                  sentries, sc1)
-        colours_h = shade.shade_core_packed(self.arrays, cam.pos, prep,
-                                            hits_h, lit)         # (3, H)
-        rt = self.rt
-        ht_pad = colours_h.shape[1] // rt
-        src_t = torch.clamp(tpos, 0, ht_pad - 1)
-        cols = colours_h.reshape(3, ht_pad, rt)[:, src_t, :]    # (3, nt, rt)
-        colours = torch.where(hit_tile[None, :, None], cols,
-                              0.0).reshape(3, self.n_pad)
-        return self._assemble(colours), s_counts
+    def _stage_shade(self, s_pads: tuple, sh: _Shading):
+        """Shadow queries + Phong on the COMPACTED tile set -> ((3, C)
+        local radiance rows, shadow counts)."""
+        lit, s_counts = self._lit(s_pads, sh)
+        return (shade.shade_core_packed(self.arrays, sh.view_h, sh.prep,
+                                        sh.hits_h, lit), s_counts)
+
+    def _stage_c(self, s_pads: tuple, sh: _Shading):
+        """Stage C of the primary frame: the shaded compact tiles written
+        back tile by tile and assembled. Returns (image, shadow counts)."""
+        colours_h, s_counts = self._stage_shade(s_pads, sh)
+        return (self._assemble(self._gather_tiles(colours_h, sh.tpos,
+                                                  sh.hit_tile)), s_counts)
 
     # -- public ----------------------------------------------------------
 
@@ -412,12 +465,11 @@ class CulledRenderer:
         self._resolve_exit(p_counts[-1])
         hits, hcount, _ = self._stage_b1(p_pads, rays, ti, mask1, entry1, c1)
         ht_pad = _tile_bucket(int(hcount), self.n_tiles)
-        (tpos, hit_tile, hits_h, prep, live_l, sti, smasks, sentries,
-         sc1, ht_count) = self._stage_b2(ht_pad, rays, hits)
-        s_pads, s_counts = self._size_pads(sti, smasks, sentries, sc1)
-        img, _ = self._stage_c(s_pads, cam, tpos, hit_tile, hits_h, prep,
-                               live_l, sti, smasks, sentries, sc1)
-        self._last_counts = p_counts + (int(ht_count),) + s_counts
+        sh = self._stage_b2(ht_pad, rays, hits, cam.pos)
+        s_pads, s_counts = self._size_pads(sh.sti, sh.smasks, sh.sentries,
+                                           sh.sc1)
+        img, _ = self._stage_c(s_pads, sh)
+        self._last_counts = p_counts + (int(sh.ht_count),) + s_counts
         if block:
             self._sync()
         return img
@@ -439,13 +491,19 @@ class CulledRenderer:
         rays, ti, mask1, entry1, c1 = self._stage_a(cam)
         hits, _, p_counts = self._stage_b1(p_pads, rays, ti, mask1, entry1,
                                            c1)
-        (tpos, hit_tile, hits_h, prep, live_l, sti, smasks, sentries,
-         sc1, ht_count) = self._stage_b2(h_pad, rays, hits)
-        img, s_counts = self._stage_c(s_pads, cam, tpos, hit_tile, hits_h,
-                                      prep, live_l, sti, smasks, sentries,
-                                      sc1)
-        counts = torch.stack([c1, *p_counts, ht_count, sc1, *s_counts])
+        sh = self._stage_b2(h_pad, rays, hits, cam.pos)
+        img, s_counts = self._stage_c(s_pads, sh)
+        counts = torch.stack([c1, *p_counts, sh.ht_count, sh.sc1,
+                              *s_counts])
         return img, counts
+
+    def _pads_from(self, counts, margin: float) -> tuple:
+        """Buckets for one count vector (the counts layout): each count x
+        margin, the hit-TILE slot with its own small granularity, capped at
+        n_tiles so overflow is structurally impossible at the cap."""
+        hi = self._ht_idx
+        return tuple(_tile_bucket(int(c * margin), self.n_tiles) if k == hi
+                     else _bucket(c, margin) for k, c in enumerate(counts))
 
     def freeze(self, camera=None, margin: float = 1.4) -> None:
         """Fix work-list buckets from the last sync render (running one if
@@ -455,14 +513,7 @@ class CulledRenderer:
                 raise ValueError("freeze() needs a camera for the sizing "
                                  "render")
             self.render(camera, block=True)
-        pads = tuple(_bucket(c, margin) for c in self._last_counts)
-        # The hit-TILE bucket has its own small granularity, capped at
-        # n_tiles so overflow is structurally impossible at the cap.
-        hi = self._ht_idx
-        pads = (pads[:hi]
-                + (_tile_bucket(int(self._last_counts[hi] * margin),
-                                self.n_tiles),)
-                + pads[hi + 1:])
+        pads = self._pads_from(self._last_counts, margin)
         # Grow-only: a refreeze must never SHRINK a bucket, or the verify
         # loop's "each round strictly grows some bucket" argument fails.
         if self._frozen_pads is not None:
@@ -494,3 +545,164 @@ class CulledRenderer:
                     "(counts %s vs pads %s); image may drop blocks",
                     tuple(counts.tolist()), self._frozen_pads)
         return img
+
+    # -- multi-bounce path -----------------------------------------------
+    #
+    # Whitted reflections on the block-sparse path (the JAX package's
+    # render_bvh.py:566-829; semantics identical to its dense
+    # render_frame_bounced and the float64 oracle's _radiance). Bounce b is
+    # one more nearest query over bounce b-1's reflection rays, each with
+    # its own origin (the per-ray-origin kernel, for bounce 0's primary
+    # rays too, as in the JAX package), plus the all-lights shadow query
+    # (reversed to the light: shared origin). The radiance accumulates as
+    # colour += throughput * phong_b with one clamp at the end.
+
+    def _reflect_from(self, sh: _Shading):
+        """Full-grid reflection rays (8, n_pad) and liveness (n_pad,) from
+        one bounce's compacted shading prep: the shading normal mirrors the
+        direction and lifts the origin off the surface; dead rays (misses,
+        zero Ks, non-hit tiles) are zeros with live=False, which cull
+        away."""
+        cfg, prep = self.cfg, sh.prep
+        n = prep.normal
+        d = sh.rays_h[3:6]
+        d_dot_n = shade._sum3(d * n)
+        refl = shade._normalize_rows(d - 2.0 * d_dot_n[None, :] * n)
+        side = torch.where(shade._sum3(n * refl) >= 0.0, 1.0, -1.0)
+        o = (prep.x + cfg.shadow_offset * refl
+             + (cfg.shadow_normal_offset * side)[None, :] * n)
+        r_rays_h = bsr_trace.pack_rays_rows(o, refl)
+        r_live_h = sh.hits_h.valid & (prep.ks > 0.0).any(dim=0)
+        return (self._gather_tiles(r_rays_h, sh.tpos, sh.hit_tile),
+                self._gather_tiles(r_live_h, sh.tpos, sh.hit_tile,
+                                   fill=False))
+
+    def _bounce(self, sh: _Shading, hits, throughput):
+        """The next bounce's query from this one's shading: (rays, tile
+        hulls, coarse mask, entry, count, exclude ids, viewer,
+        throughput)."""
+        rays, live = self._reflect_from(sh)
+        ti = cull.tile_intervals_packed(rays, self.rt, live=live)
+        mask1, entry1, c1 = cull.multilevel_mask(ti, self.block_lo,
+                                                 self.block_hi, self.groups)
+        ks = self._gather_tiles(sh.prep.ks, sh.tpos, sh.hit_tile)
+        throughput = torch.where(hits.valid[None, :], throughput * ks, 0.0)
+        view = self._gather_tiles(sh.prep.x, sh.tpos, sh.hit_tile)
+        return rays, ti, mask1, entry1, c1, hits.tri, view, throughput
+
+    def render_bounced(self, camera, depth: int,
+                       block: bool = False) -> torch.Tensor:
+        """Whitted multi-bounce render (primary rays + `depth` reflection
+        bounces) with exactly sized work lists (host syncs per level and
+        bounce); returns the (H, W, 3) tensor. Records the buckets and raw
+        counts of every bounce in `_last_bounce_pads` / `_last_bounce_counts`
+        (per bounce, the counts layout of render())."""
+        if depth < 0:
+            raise ValueError(f"depth={depth}: must be >= 0")
+        cam = self._camera(camera)
+        rays, ti, mask1, entry1, c1 = self._stage_a(cam)
+        colour = rays.new_zeros((3, self.n_pad))
+        throughput = rays.new_ones((3, self.n_pad))
+        view, exclude = cam.pos, self._no_excl
+        pads_used, counts_used = [], []
+        for b in range(depth + 1):
+            p_pads, p_counts = self._size_pads(ti, mask1, entry1, c1)
+            if b == 0:
+                # Decided once, from primary density; every bounce uses it.
+                self._resolve_exit(p_counts[-1])
+            hits, hcount, _ = self._nearest(p_pads, self.tris_packed, rays,
+                                            exclude, ti, mask1, entry1, c1)
+            ht_pad = _tile_bucket(int(hcount), self.n_tiles)
+            sh = self._stage_b2(ht_pad, rays, hits, view)
+            s_pads, s_counts = self._size_pads(sh.sti, sh.smasks,
+                                               sh.sentries, sh.sc1)
+            pads_used.append(p_pads + (ht_pad,) + s_pads)
+            # Raw (unbucketed) counts: freeze_bounced applies its margin to
+            # these, never to already-rounded pads.
+            counts_used.append(p_counts + (int(sh.ht_count),) + s_counts)
+            local_h, _ = self._stage_shade(s_pads, sh)
+            colour = colour + throughput * self._gather_tiles(
+                local_h, sh.tpos, sh.hit_tile)
+            if b < depth:
+                (rays, ti, mask1, entry1, c1, exclude, view,
+                 throughput) = self._bounce(sh, hits, throughput)
+        img = self._assemble(torch.clamp(colour, 0.0, 1.0))
+        self._last_bounce_pads = tuple(pads_used)
+        self._last_bounce_counts = tuple(counts_used)
+        if block:
+            self._sync()
+        return img
+
+    def _full_bounced(self, pads: tuple, cam: CameraArrays):
+        """The multi-bounce pipeline with fixed buckets (no host sync).
+        `pads` holds one bucket vector per bounce (the counts layout).
+        Returns (image, (B, 2*n_levels + 1) int32 true counts on the
+        device), so callers can check the buckets and refreeze on overflow
+        instead of silently dropping candidate blocks."""
+        nl = self.n_levels
+        rays, ti, mask1, entry1, c1 = self._stage_a(cam)
+        colour = rays.new_zeros((3, self.n_pad))
+        throughput = rays.new_ones((3, self.n_pad))
+        view, exclude = cam.pos, self._no_excl
+        counts = []
+        for b, b_pads in enumerate(pads):
+            p_pads, ht_pad, s_pads = b_pads[:nl], b_pads[nl], b_pads[nl + 1:]
+            hits, _, p_counts = self._nearest(p_pads, self.tris_packed, rays,
+                                              exclude, ti, mask1, entry1, c1)
+            sh = self._stage_b2(ht_pad, rays, hits, view)
+            local_h, s_counts = self._stage_shade(s_pads, sh)
+            colour = colour + throughput * self._gather_tiles(
+                local_h, sh.tpos, sh.hit_tile)
+            counts.append(torch.stack([c1, *p_counts, sh.ht_count, sh.sc1,
+                                       *s_counts]))
+            if b + 1 < len(pads):
+                (rays, ti, mask1, entry1, c1, exclude, view,
+                 throughput) = self._bounce(sh, hits, throughput)
+        img = self._assemble(torch.clamp(colour, 0.0, 1.0))
+        return img, torch.stack(counts)
+
+    def freeze_bounced(self, camera, depth: int, margin: float = 1.4):
+        """Fix per-bounce buckets from one sync render_bounced's RAW counts
+        x margin. Returns render(cam, verify=False) -> (H, W, 3) tensor,
+        which runs the bounced pipeline with no host sync; verify=True reads
+        the true per-bounce counts and refreezes (grow-only) and renders
+        again until they fit, at most 8 rounds. `render.pads()` gives the
+        current buckets."""
+        self.render_bounced(camera, depth, block=True)
+        state = {}
+
+        def freeze_from(counts):
+            pads = tuple(self._pads_from(c, margin) for c in counts)
+            prev = state.get("pads")
+            if prev is not None:   # grow-only, as freeze()
+                pads = tuple(tuple(max(p, q) for p, q in zip(b, pb))
+                             for b, pb in zip(pads, prev))
+            state["pads"] = pads
+
+        freeze_from(self._last_bounce_counts)
+
+        def render(cam, verify: bool = False) -> torch.Tensor:
+            c = self._camera(cam)
+            img, counts = self._full_bounced(state["pads"], c)
+            if verify:
+                # Loop until every bounce's counts fit: an overflowed
+                # level truncates the next level's list, so its reported
+                # count is an undercount and one refreeze is not enough.
+                fits = False
+                for _ in range(8):
+                    got = counts.tolist()
+                    if all(g <= p for gb, pb in zip(got, state["pads"])
+                           for g, p in zip(gb, pb)):
+                        fits = True
+                        break
+                    freeze_from(got)
+                    img, counts = self._full_bounced(state["pads"], c)
+                if not fits:
+                    _log.warning(
+                        "bounced verify did not converge in 8 rounds "
+                        "(counts %s vs pads %s); image may drop blocks",
+                        counts.tolist(), state["pads"])
+            return img
+
+        render.pads = lambda: state["pads"]
+        return render

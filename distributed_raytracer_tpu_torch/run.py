@@ -3,15 +3,15 @@
   python -m distributed_raytracer_tpu_torch SCENE.json WIDTH HEIGHT [options]
 
 The counterpart of distributed_raytracer_tpu/run.py's default path: the
-single-device block-BVH renderer (`--mode culled`, no bounces) on an
-explicit device (`--device`, default cuda). With no display, the
-interactive loop becomes a scripted camera animation (default: orbit, the
-reference's benchmark motion); frames can be written as PNGs, and the exit
-report reproduces the master's FPS statistics (master/main.go:285-325) plus
-Mrays/s.
+single-device block-BVH renderer (`--mode culled`, with `--bounces N`
+Whitted reflection bounces) on an explicit device (`--device`, default
+cuda). With no display, the interactive loop becomes a scripted camera
+animation (default: orbit, the reference's benchmark motion); frames can
+be written as PNGs, and the exit report reproduces the master's FPS
+statistics (master/main.go:285-325) plus Mrays/s.
 
-The JAX package's other modes, `--bounces`, `--animate-objects`, `--serve`
-and `--multihost` are not ported yet; asking for one exits with a message
+The JAX package's other modes, `--animate-objects`, `--serve` and
+`--multihost` are not ported yet; asking for one exits with a message
 that says so.
 """
 
@@ -36,7 +36,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--mode", choices=_MODES, default="culled",
                    help="only culled is ported")
     p.add_argument("--bounces", type=int, default=0,
-                   help="reflection bounces (not ported: 0 only)")
+                   help="Whitted reflection bounces (culled mode)")
     p.add_argument("--animate-objects", action="store_true",
                    help="per-frame object motion (not ported)")
     p.add_argument("--serve", metavar="HOST:PORT", default=None,
@@ -63,8 +63,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def _unported(args) -> str | None:
     if args.mode != "culled":
         return f"--mode {args.mode}"
-    if args.bounces:
-        return "--bounces"
     if args.animate_objects:
         return "--animate-objects"
     if args.serve:
@@ -93,8 +91,10 @@ def main(argv=None) -> int:
     if what is not None:
         raise SystemExit(f"{what} is not yet ported to "
                          "distributed_raytracer_tpu_torch (only --mode "
-                         "culled without bounces is); use "
+                         "culled, with or without --bounces, is); use "
                          "distributed_raytracer_tpu for it")
+    if args.bounces < 0:
+        raise SystemExit(f"--bounces {args.bounces}: must be >= 0")
 
     from distributed_raytracer_tpu_torch.models.scene import load_scene
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
@@ -108,10 +108,14 @@ def main(argv=None) -> int:
     # (utils/config.default_block_size).
     culled = CulledRenderer(scene, w, h, block_size="auto",
                             device=args.device)
-    culled.render(scene.camera, block=True)
-    culled.freeze(scene.camera)
-    render = _periodic_verify(
-        lambda cam, v: culled.render_fast(cam, verify=v))
+    if args.bounces:
+        render = _periodic_verify(
+            culled.freeze_bounced(scene.camera, args.bounces))
+    else:
+        culled.render(scene.camera, block=True)
+        culled.freeze(scene.camera)
+        render = _periodic_verify(
+            lambda cam, v: culled.render_fast(cam, verify=v))
 
     if args.animation == "none":
         poses = [scene.camera] * args.frames

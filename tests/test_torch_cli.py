@@ -1,8 +1,9 @@
 """The PyTorch port's command line and runtime helpers.
 
 `python -m distributed_raytracer_tpu_torch` renders the tetra scene on the
-CPU and must write the frames the port's own render() gives; the modes that
-are not ported yet exit non-zero with a message that names them. The runtime
+CPU and must write the frames the port's own render() (render_bounced()
+with --bounces) gives; the modes that are not ported yet exit non-zero with
+a message that names them. The runtime
 helpers copied from the JAX package (FPS statistics, PNG encoding, the orbit
 path) must give identical results.
 """
@@ -70,7 +71,6 @@ def test_cli_writes_the_frames_render_gives(scene_path, tmp_path):
 @pytest.mark.parametrize("flags,name", [
     (["--mode", "sequential"], "--mode sequential"),
     (["--mode", "ring"], "--mode ring"),
-    (["--bounces", "2"], "--bounces"),
     (["--animate-objects"], "--animate-objects"),
     (["--serve", "127.0.0.1:0"], "--serve"),
     (["--multihost"], "--multihost"),
@@ -80,6 +80,22 @@ def test_unported_options_exit_with_their_name(scene_path, flags, name):
         run.main([scene_path, "64", "48", "--device", "cpu", *flags])
     assert isinstance(exc.value.code, str)     # exit status 1
     assert name in exc.value.code and "not yet ported" in exc.value.code
+
+
+def test_cli_bounces_report_fps(scene_path, tmp_path, capsys):
+    out = str(tmp_path / "frames")
+    assert run.main([scene_path, "64", "48", "--bounces", "1", "--frames",
+                     "2", "--fps-target", "0", "--device", "cpu", "--out",
+                     out, "--radius", "3"]) == 0
+    report = capsys.readouterr().out
+    assert "Mean FPS" in report and "Throughput" in report
+    scene = load_scene(scene_path)
+    r = CulledRenderer(scene, 64, 48, block_size="auto", device="cpu")
+    poses = animation.orbit_camera_path(scene.camera, 2, radius=3.0)
+    for k, cam in enumerate(poses):
+        want = framebuffer.to_u8(r.render_bounced(cam, 1).numpy())
+        got = jframebuffer.read_png(os.path.join(out, f"frame_{k:05d}.png"))
+        np.testing.assert_array_equal(got, want)
 
 
 def test_unported_mode_exits_nonzero(scene_path):
