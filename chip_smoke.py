@@ -38,9 +38,39 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      plain versions on the card (max |diff| <= 2e-5), and bounces must add
      light: some pixel exceeds the depth-0 frame by > 0.01, none falls
      below it by > 1e-5.
+  1c. K4 and K5 (the tensor-core form, use_mxu=True: 3xTF32, not bit-equal)
+     against their plain versions on the launches of one 640x480 render()
+     of icosphere_scene(6) with use_mxu=True, exit_every 0 and 32, every
+     mismatch counted and printed: on rays of visited tiles hit/miss equal
+     on all but <= 1 in 1e4 rays; ids equal on all but <= 1 in 1e4 hit rays,
+     not counting edge ties (the kernel's and the plain version's triangles
+     hit at t within 1e-5 relative: two triangles meeting at an edge, both
+     inside the BARY_EPS band, whose order rests on the last bit of t), and
+     edge ties on <= 1 in 1e3 hit rays; |t_k - t_p| <= 1e-5 * t_p on every
+     hit ray; any-hit flags equal on all but <= 1 in 1e4 rays; unvisited
+     tiles left at init. K4 is timed against K1 and K5 against K2 on the
+     same work (the launch in the (T, 16) form), medians of 20 calls in the
+     order old, new, new, old.
+  2c. The 640x480 frame with use_mxu=True: render(), freeze(), a 16-pose
+     orbit through render_fast(verify=True), one render_fast under
+     sync-debug "error"; counters reset first, then bsr_nearest_mxu and
+     bsr_any_mxu must be > 0 and bsr_nearest, bsr_any 0. Pose 0 within the
+     culled-vs-dense bound of the use_mxu=False CUDA frame and of the
+     plain-version (CPU) frame; render_fast timed for both forms. Then one
+     depth-2 render_bounced of the 1080p sphere grid with use_mxu=True
+     (bsr_any_mxu > 0) within the same bound of the use_mxu=False frame.
+  2d. The dynamic renderer (DynamicCulledRenderer) on the sphere grid at
+     1920x1080, for use_mxu False and True: object 0 orbits through 16
+     diffs of orbit_object_diffs with verify on every 8th frame; each frame
+     within tests/test_dynamic.py's bound (max-channel diff > 2/255 on
+     < 0.5% of pixels, mean |diff| < 1e-3) of render() on a fresh bake of
+     the moved scene; a zero diff equals render_fast exactly; one call
+     under sync-debug "error"; the counters show the kernel form asked for;
+     median frame time per form.
   3. The command line: the 640x480 sphere written as OBJ + scene.json, 30
      frames through distributed_raytracer_tpu_torch.run.main on cuda; then
-     the sphere grid, 8 frames at 1920x1080 with --bounces 2.
+     the sphere grid, 8 frames at 1920x1080 with --bounces 2, and 8 with
+     --animate-objects.
 
 Prints the versions, the card's name and power limit, the build time and
 each kernel's registers and spills, each phase's numbers, one JSON line of
@@ -71,6 +101,7 @@ PLAIN_REPEATS_BIG = 3
 BW, BH, DEPTH = 1920, 1080, 2
 GRID_SUBDIV, GRID_N = 3, 4
 BOUNCE_ORBIT = 8
+DYN_FRAMES = 16
 SOURCE = "distributed_raytracer_tpu_torch/csrc/bsr_trace.cu"
 _PALLAS = "distributed_raytracer_tpu/ops/pallas/bsr_trace.py"
 WRAPPERS = ("bsr_nearest", "bsr_any")
@@ -81,6 +112,8 @@ KERNELS = {
     "bsr_any": ("K2", f"{_PALLAS}:411"),
     "bsr_nearest_rays": ("K3n", f"{_PALLAS}:356"),
     "bsr_any_rays": ("K3a", f"{_PALLAS}:411"),
+    "bsr_nearest_mxu": ("K4", f"{_PALLAS}:287"),
+    "bsr_any_mxu": ("K5", f"{_PALLAS}:324"),
 }
 
 
@@ -122,9 +155,11 @@ def print_ptxas(log: str) -> None:
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(nearest|any)_kernelILi(\d+)ELb([01])E", m.group(1))
+            x = re.search(r"(nearest|any)_mxu_kernelILi(\d+)E", m.group(1))
             name = (f"{k.group(1)}_kernel<RPT={k.group(2)}, shared="
-                    f"{'true' if k.group(3) == '1' else 'false'}>"
-                    if k else m.group(1))
+                    f"{'true' if k.group(3) == '1' else 'false'}>" if k
+                    else f"{x.group(1)}_mxu_kernel<NT={x.group(2)}>" if x
+                    else m.group(1))
             spill = ""
         elif "spill" in line:
             spill = line.strip()
@@ -153,7 +188,8 @@ def recording(bsr_trace, seen: dict):
     to seen[LAUNCHES key] and then calls the wrapper."""
     def make(name, fn):
         def call(*args, **kwargs):
-            key = bsr_trace.launch_key(name, kwargs["shared_origin"])
+            key = bsr_trace.launch_key(name, kwargs["shared_origin"],
+                                       mxu=isinstance(args[2], tuple))
             seen.setdefault(key, []).append((args, dict(kwargs)))
             return fn(*args, **kwargs)
         return call
@@ -332,7 +368,7 @@ def phase_frame(renderer, scene, bsr_trace):
           f"{frac:.6%} of pixels > 2/255, mean {mean:.3e}; hit fraction "
           f"{hit:.4f}; cpu render {cpu_s:.1f} s")
     check(frac < 0.005 and mean < 1e-4, "cuda frame differs from cpu frame")
-    return launches
+    return launches, want
 
 
 def grid_poses(scene, n: int):
@@ -417,6 +453,283 @@ def phase_bounced(renderer, scene, bsr_trace):
     check(gain.max() > 0.01 and gain.min() >= -1e-5,
           "bounces do not add light")
     check(hit > 0.05, f"hit fraction {hit}")
+    return launches, sync
+
+
+def close_frames(what: str, got, want, mean_bound: float = 1e-4):
+    """Checks the culled-vs-dense bound between two (H, W, 3) frames:
+    max-channel diff > 2/255 on < 0.5% of pixels and mean |diff| below
+    `mean_bound`; prints both numbers."""
+    import numpy as np
+
+    got = got.cpu().numpy() if hasattr(got, "cpu") else got
+    want = want.cpu().numpy() if hasattr(want, "cpu") else want
+    diff = np.abs(got - want)
+    frac = float((diff.max(-1) > 2 / 255).mean())
+    mean = float(diff.mean())
+    print(f"  {what}: max {diff.max():.3e}, {frac:.6%} of pixels > 2/255, "
+          f"mean {mean:.3e}")
+    check(frac < 0.005 and mean < mean_bound, f"{what}: frames differ")
+    return frac, mean
+
+
+def compare_mxu(bsr_trace, key, args, kwargs, twin):
+    """Phase 1c: one tensor-core kernel (K4 or K5) against its plain
+    version with exit_every 0 and 32, under the bounds of the module
+    docstring; then timed against its CUDA-core twin (K1 or K2) on the same
+    work. Returns {"max_abs_err", "ms", "plain_ms", "twin_ms"}."""
+    import torch
+
+    name = key.removesuffix("_mxu")
+    kernel = getattr(bsr_trace, name)
+    plain = getattr(bsr_trace, name + "_ref")
+    vis = visited_rays(args, kwargs)
+    n_vis = int(vis.sum())
+    err = 0.0
+    for exit_every in (0, 32):
+        kw = dict(kwargs, exit_every=exit_every)
+        got = kernel(*args, **kw)
+        want = plain(*args, **kw)
+        torch.cuda.synchronize()
+        tag = f"[phase 1c] {KERNELS[key][0]} exit_every={exit_every}"
+        if name == "bsr_nearest":
+            (gt, gi), (pt, pi) = got, want
+            hit_p, hit_g = torch.isfinite(pt) & vis, torch.isfinite(gt) & vis
+            n_hits = int(hit_p.sum())
+            hm = int((hit_p != hit_g).sum())
+            both = hit_p & hit_g
+            rel = torch.where(both, (gt - pt).abs()
+                              / pt.abs().clamp_min(1e-30), 0.0)
+            idm = both & (gi != pi)
+            ties = int((idm & (rel <= 1e-5)).sum())
+            other = int(idm.sum()) - ties
+            e = float((gt - pt).abs()[both].max()) if n_hits else 0.0
+            r = float(rel.max())
+            r_same = float(torch.where(idm, 0.0, rel).max())
+            print(f"{tag}: {n_vis} visited rays, {n_hits} hits; hit/miss "
+                  f"differ {hm}; ids differ {int(idm.sum())} ({ties} edge "
+                  f"ties, {other} other); max |t_k - t_p| / t_p {r:.3e} "
+                  f"({r_same:.3e} where the ids agree); max |t_k - t_p| {e}")
+            check(hm * 1e4 <= n_vis, f"{tag}: {hm} hit/miss differences")
+            check(other * 1e4 <= n_hits, f"{tag}: {other} ids differ")
+            check(ties * 1e3 <= n_hits, f"{tag}: {ties} edge ties")
+            check(r <= 1e-5, f"{tag}: t differs by {r} relative")
+            check(bool(torch.equal(gi[~vis], pi[~vis])
+                       and torch.equal(gt[~vis], pt[~vis])),
+                  f"{tag}: unvisited tiles differ from init")
+        else:
+            fm = int((got != want)[vis].sum())
+            print(f"{tag}: {n_vis} visited rays, {int(want[vis].sum())} "
+                  f"hit in the plain version; flags differ {fm}")
+            check(fm * 1e4 <= n_vis, f"{tag}: {fm} any-hit flags differ")
+            check(bool(torch.equal(got[~vis], want[~vis])),
+                  f"{tag}: unvisited tiles differ from init")
+            e = float((got - want).abs().max())
+        err = max(err, e)
+    t_args, t_kwargs = twin
+    t1 = time_ms(lambda: kernel(*t_args, **t_kwargs))
+    m1 = time_ms(lambda: kernel(*args, **kwargs))
+    m2 = time_ms(lambda: kernel(*args, **kwargs))
+    t2 = time_ms(lambda: kernel(*t_args, **t_kwargs))
+    plain_ms = time_ms(lambda: plain(*args, **kwargs))
+    n = int(args[6].item())
+    print(f"[phase 1c] {KERNELS[key][0]} {key}: R={args[0].shape[1]} "
+          f"W={args[3].shape[0]} live items={n} "
+          f"({n * kwargs['rt'] * kwargs['tb'] / 1e9:.3f} G pairs) "
+          f"exit_every(main path)={kwargs['exit_every']}; kernel {m1:.4f} / "
+          f"{m2:.4f} ms, {KERNELS[name][0]} on the same work {t1:.4f} / "
+          f"{t2:.4f} ms (order {KERNELS[name][0]}, {KERNELS[key][0]}, "
+          f"{KERNELS[key][0]}, {KERNELS[name][0]}; medians of {REPEATS}); "
+          f"plain {plain_ms:.4f} ms; max_abs_err {err}")
+    return {"max_abs_err": err, "ms": m1, "plain_ms": plain_ms,
+            "twin_ms": t1}
+
+
+def phase_kernels_mxu(mxu, renderer, scene, bsr_trace):
+    """Phase 1c: K4 and K5 on the launches of one use_mxu=True 640x480
+    render(); their twins are the same launches in the (T, 16) form."""
+    seen = {}
+    with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
+        mxu.render(scene.camera, block=True)
+    check(set(seen) == {"bsr_nearest_mxu", "bsr_any_mxu"},
+          f"recorded launches: {sorted(seen)}")
+    args, kwargs = seen["bsr_nearest_mxu"][-1]
+    rays = args[0]
+    folded = bsr_trace.pack_tris_origin(renderer.dev_scene.tris_packed,
+                                        rays[0:3, 0])
+    results = {"bsr_nearest_mxu": compare_mxu(
+        bsr_trace, "bsr_nearest_mxu", args, kwargs,
+        ((args[0], args[1], folded) + tuple(args[3:]), kwargs))}
+    args, kwargs = seen["bsr_any_mxu"][-1]
+    twin_kwargs = {k: v for k, v in kwargs.items() if k != "ablock_ids"}
+    results["bsr_any_mxu"] = compare_mxu(
+        bsr_trace, "bsr_any_mxu", args, kwargs,
+        ((args[0], args[1], renderer.dev_scene.lights_scal)
+         + tuple(args[3:]), twin_kwargs))
+    return results
+
+
+def phase_frame_mxu(mxu, renderer, scene, bsr_trace, plain0):
+    """Phase 2c: the 640x480 frame end to end with use_mxu=True, against
+    the use_mxu=False CUDA frame and the plain-version frame of pose 0."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.runtime import animation
+
+    reset_launches(bsr_trace)
+    render_ms = time_ms(lambda: mxu.render(scene.camera, block=True),
+                        repeats=5)
+    mxu.freeze(scene.camera)
+    poses = animation.orbit_camera_path(scene.camera, ORBIT, radius=3.0)
+    imgs, fast_ms = [], []
+    for cam in poses:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        imgs.append(mxu.render_fast(cam, verify=True))
+        torch.cuda.synchronize()
+        fast_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        mxu.render_fast(poses[2])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    launches = dict(bsr_trace.LAUNCHES)
+    print(f"[phase 2c] use_mxu=True: render() {render_ms:.3f} ms; "
+          f"render_fast(verify=True) median {statistics.median(fast_ms):.3f} "
+          f"ms over {ORBIT} poses; counts {mxu._last_counts}; pads "
+          f"{mxu._frozen_pads}; exit_every {mxu.exit_every}; launches "
+          f"{launches}")
+    for name in ("bsr_nearest_mxu", "bsr_any_mxu"):
+        check(launches[name] > 0, f"{name} was not launched on the path")
+    for name in ("bsr_nearest", "bsr_any"):
+        check(launches[name] == 0, f"{name} launched under use_mxu=True")
+    for img in imgs:
+        check(tuple(img.shape) == (H, W, 3) and bool(img.isfinite().all()),
+              "orbit frame shape / finiteness")
+    close_frames("pose 0, use_mxu=True vs the plain versions (cpu)",
+                 imgs[0], plain0)
+    close_frames("pose 0, use_mxu=True vs use_mxu=False on cuda", imgs[0],
+                 renderer.render_fast(poses[0], verify=True))
+    # render_fast of both forms at one pose, in turns.
+    old1 = time_ms(lambda: renderer.render_fast(poses[1]))
+    new1 = time_ms(lambda: mxu.render_fast(poses[1]))
+    new2 = time_ms(lambda: mxu.render_fast(poses[1]))
+    old2 = time_ms(lambda: renderer.render_fast(poses[1]))
+    print(f"[phase 2c] render_fast() at pose 1, medians of {REPEATS}: "
+          f"use_mxu=False {old1:.3f} / {old2:.3f} ms, use_mxu=True "
+          f"{new1:.3f} / {new2:.3f} ms (order False, True, True, False)")
+    return launches
+
+
+def phase_bounced_mxu(grid, bounced, bsr_trace, sync_k2):
+    """Phase 2c, bounced: one depth-2 render_bounced of the 1080p sphere
+    grid with use_mxu=True against the use_mxu=False frame."""
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+
+    mxu = CulledRenderer(None, BW, BH, prebaked=(bounced.arrays_host,
+                                                 bounced.tree),
+                         device="cuda", use_mxu=True)
+    mxu.render_bounced(grid.camera, DEPTH, block=True)   # warm-up
+    reset_launches(bsr_trace)
+    t0 = time.perf_counter()
+    img = mxu.render_bounced(grid.camera, DEPTH, block=True)
+    secs = time.perf_counter() - t0
+    launches = dict(bsr_trace.LAUNCHES)
+    print(f"[phase 2c] bounced 1080p depth {DEPTH}, use_mxu=True: "
+          f"render_bounced {secs * 1e3:.3f} ms; per-bounce counts "
+          f"{mxu._last_bounce_counts}; launches {launches}")
+    check(launches["bsr_any_mxu"] > 0 and launches["bsr_nearest_rays"] > 0
+          and launches["bsr_any"] == 0, "bounced use_mxu=True launches")
+    close_frames("bounced, use_mxu=True vs use_mxu=False", img, sync_k2)
+    return launches
+
+
+def moved_grid(grid, diff):
+    """The grid scene with the diff's object positions, for a fresh
+    bake."""
+    import copy
+
+    import numpy as np
+
+    m = copy.deepcopy(grid)
+    for o, pos in zip(m.objects, diff.obj_pos):
+        o.pos = np.asarray(pos, np.float64)
+    m.light_pos = np.asarray(diff.light_pos, np.float64)
+    return m
+
+
+def phase_dynamic(grid, bsr_trace):
+    """Phase 2d: DynamicCulledRenderer on the 1080p sphere grid for both
+    kernel forms, against fresh bakes of every moved scene."""
+    import numpy as np
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.ops.render_dynamic import (
+        DynamicCulledRenderer)
+    from distributed_raytracer_tpu_torch.runtime import animation
+
+    diffs = animation.orbit_object_diffs(grid, DYN_FRAMES)
+    t0 = time.perf_counter()
+    refs = []
+    for d in diffs:
+        m = moved_grid(grid, d)
+        refs.append(CulledRenderer(m, BW, BH, device="cuda").render(
+            m.camera, block=True).cpu().numpy())
+    print(f"[phase 2d] {DYN_FRAMES} fresh bakes + render() of the moved "
+          f"scenes: {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for use_mxu in (False, True):
+        dyn = DynamicCulledRenderer(grid, BW, BH, device="cuda",
+                                    use_mxu=use_mxu)
+        dyn.render(grid.camera, block=True)
+        dyn.freeze(grid.camera)
+        reset_launches(bsr_trace)
+        imgs, ms = [], []
+        for k, d in enumerate(diffs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            imgs.append(dyn.render_dynamic(grid.camera, d,
+                                           verify=(k % 8 == 0)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        zero = dyn.render_dynamic(grid.camera, grid.make_diff())
+        static = dyn.render_fast(grid.camera)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            dyn.render_dynamic(grid.camera, diffs[3])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        got = dict(bsr_trace.LAUNCHES)
+        worst = (0.0, 0.0)
+        for k, img in enumerate(imgs):
+            diff = np.abs(img.cpu().numpy() - refs[k])
+            frac = float((diff.max(-1) > 2 / 255).mean())
+            mean = float(diff.mean())
+            worst = (max(worst[0], frac), max(worst[1], mean))
+            check(frac < 0.005 and mean < 1e-3,
+                  f"dynamic frame {k} (use_mxu={use_mxu}) differs from its "
+                  f"fresh bake: {frac:.6%} of pixels > 2/255, mean {mean}")
+        print(f"[phase 2d] use_mxu={use_mxu}: render_dynamic per frame "
+              f"{[round(t, 3) for t in ms]} ms, median "
+              f"{statistics.median(ms):.3f} ms (verify on frames 0, 8); "
+              f"worst frame vs fresh bake: {worst[0]:.6%} of pixels > "
+              f"2/255, mean {worst[1]:.3e}; pads {dyn._frozen_pads}; "
+              f"launches {got}")
+        check(bool(torch.equal(zero, static)),
+              "zero diff differs from render_fast")
+        want, other = (("bsr_nearest_mxu", "bsr_any_mxu"),
+                       ("bsr_nearest", "bsr_any"))[::1 if use_mxu else -1]
+        for name in want:
+            check(got[name] > 0, f"{name} not launched (use_mxu={use_mxu})")
+        for name in other:
+            check(got[name] == 0, f"{name} launched (use_mxu={use_mxu})")
+        for key, n in got.items():
+            launches[key] = launches.get(key, 0) + n
     return launches
 
 
@@ -516,15 +829,29 @@ def main() -> int:
           f"{bounced.n_tiles} ray tiles at {BW}x{BH}; bake + upload "
           f"{time.perf_counter() - t0:.1f} s")
 
+    # The same bake in the tensor-core form (use_mxu=True).
+    mxu = CulledRenderer(None, W, H, prebaked=(renderer.arrays_host,
+                                               renderer.tree),
+                         device="cuda", use_mxu=True)
+
     kernels = phase_kernels(renderer, scene, bsr_trace)
     kernels.update(phase_kernels_rays(bounced, grid, bsr_trace))
-    launches = phase_frame(renderer, scene, bsr_trace)
-    for key, n in phase_bounced(bounced, grid, bsr_trace).items():
-        launches[key] += n
+    kernels.update(phase_kernels_mxu(mxu, renderer, scene, bsr_trace))
+    launches, plain0 = phase_frame(renderer, scene, bsr_trace)
+    got, sync_k2 = phase_bounced(bounced, grid, bsr_trace)
+    runs = [got, phase_frame_mxu(mxu, renderer, scene, bsr_trace, plain0),
+            phase_bounced_mxu(grid, bounced, bsr_trace, sync_k2),
+            phase_dynamic(grid, bsr_trace)]
+    for got in runs:
+        for key, n in got.items():
+            launches[key] += n
     mesh = scenes.icosphere_mesh(SUBDIV)
+    grid_mesh = scenes.icosphere_mesh(GRID_SUBDIV)
     run_cli(scene, mesh, (W, H), 30, [])
-    run_cli(grid, scenes.icosphere_mesh(GRID_SUBDIV), (BW, BH), 8,
+    run_cli(grid, grid_mesh, (BW, BH), 8,
             ["--bounces", str(DEPTH), "--revolutions", "0.1"])
+    run_cli(grid, grid_mesh, (BW, BH), 8,
+            ["--animate-objects", "--revolutions", "0.1"])
 
     print(f"gpu: {gpu_query()}")
     print(json.dumps({"kernels": [

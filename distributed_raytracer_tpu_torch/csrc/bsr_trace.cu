@@ -12,6 +12,11 @@
 //   any_kernel<RPT, false>      <- _any_kernel with _pair_math(shared_origin=False)
 //                                  (K3a: per-ray-origin any hit; the renderer has no
 //                                  caller for it, shadows reverse to the light)
+//   nearest_mxu_kernel<NT>      <- _nearest_mxu_kernel with _pair_math_mxu (K4:
+//                                  primary rays under use_mxu=True)
+//   any_mxu_kernel<NT>          <- _any_mxu_kernel (K5: every shadow launch under
+//                                  use_mxu=True)
+// K4 and K5 are described at their definitions below.
 //
 // All walk a flat, tile-major work list of (ray tile of rt rays, triangle
 // block of tb triangles) items made by ops/cull.py and evaluate the
@@ -315,6 +320,391 @@ __global__ void __launch_bounds__(kThreads)
   for (int j = 0; j < RPT; ++j) out[first + j * kThreads] = hit[j];
 }
 
+// ---------------------------------------------------------------------------
+// K4 and K5: the direction dots on the tensor cores.
+//
+// The TPU kernels (_pair_math_mxu, bsr_trace.py:259-284) take the three
+// direction dots of a shared-origin pair, den = n.d, kud = ku.d and
+// kvd = kv.d, as ONE product A (3tb, 8) @ rays (8, rt) at HIGHEST
+// precision: A stacks [n; ku; kv] per triangle block with xyz in columns
+// 3:6 (pack_dirs), and the origin-dependent scalars (num, a_u, a_v) come
+// from a (T, 8) side array (fold_origin_scal). Here the product runs on
+// Hopper's tensor cores with warp-level mma.sync.m16n8k8 in TF32, whose K
+// of 8 is exactly A's 8 columns. One TF32 pass keeps 10 mantissa bits and
+// would corrupt hit tests, so every operand is split x = hi + lo (both
+// TF32: hi = rna(x), lo = rna(x - hi)) and each dot is
+// A_lo.B_hi + A_hi.B_lo + A_hi.B_hi accumulated in FP32 (3xTF32; the
+// dropped A_lo.B_lo is ~2^-22 relative), the TPU's bf16x6 pass in another
+// form. The dots are then within a few FP32 ulps of the CUDA-core K1/K2,
+// not bit-equal, so K4/K5 are held to their plain versions under stated
+// tolerances. B is the ray tile's d rows only (rows 3..5; the rest of the
+// K dimension is zero), so the finite-big t_max row never enters.
+//
+// What bounds them: per (16 triangles x 8 rays) tile, 9 mma (3 matrices x 3
+// passes) do the 15 multiply-adds per pair that K1 issues on the CUDA
+// cores; the rest of the pair math (the division, two products with t,
+// the bounds) stays there. So K4 trades ~half of K1's FP32 instructions
+// for tensor-core work and operand splits, and is still bound by FP32
+// issue and the IEEE division. Memory is negligible, as for K1.
+//
+// Layout, simple first. One block of 8 warps per ray tile of rt = 64 * NT
+// rays; warp w owns NT 8-ray column tiles, so no reduction crosses warps.
+// Per work item the block stages A's 3tb rows and the tb scalar rows in
+// shared memory; each warp walks the triangle block 16 rows at a time:
+// it loads the three A fragments (split hi/lo once, reused by its NT
+// column tiles), and for each column tile issues 9 mma whose C fragments
+// line up element for element: lane (g = lane>>2, q = lane&3) holds den,
+// kud and kvd of triangle rows g and g+8 and ray columns 2q and 2q+1. The
+// epilogue (t = num/den, u = a_u + t*kud, v = a_v + t*kvd, in
+// _pair_math_mxu's order under -fmad=false) folds each pair into a running
+// (t, id) minimum (any-hit: a flag) per lane and ray column. The 8 lanes
+// sharing a column (xor 4, 8, 16) are folded at every early-exit refresh
+// and once at the end; lanes with g == 0 write the result.
+// ---------------------------------------------------------------------------
+
+constexpr int kMxuWarps = 8;
+constexpr int kMxuThreads = kMxuWarps * 32;
+constexpr uint32_t kTf32Mask = 0xffffe000u;  // TF32 keeps 10 mantissa bits
+
+// The K4/K5 launch: the A matrix rides WorkArgs::tris.
+struct MxuArgs {
+  WorkArgs w;
+  const float4* scal;     // (S, 8) rows num a_u a_v 0...
+  const int* ablock_ids;  // (W,) A block per item
+};
+
+// x rounded to TF32 (nearest, ties away), low bits cleared so the value
+// the tensor core multiplies is exactly the one the split subtracts.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r & kTf32Mask;
+}
+
+struct Tf32x2 {
+  uint32_t hi, lo;
+};
+
+__device__ __forceinline__ Tf32x2 split_tf32(float x) {
+  const uint32_t hi = tf32(x);
+  return {hi, tf32(x - __uint_as_float(hi))};
+}
+
+// d += a (16x8, row) . b (8x8, col), TF32 in, FP32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// One 16x8 tile of one dot, 3xTF32: small products first.
+__device__ __forceinline__ void dot_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_hi)[4],
+                                           const uint32_t (&a_lo)[4],
+                                           const Tf32x2 b0, const Tf32x2 b1) {
+  d[0] = d[1] = d[2] = d[3] = 0.0f;
+  mma_tf32(d, a_lo, b0.hi, b1.hi);
+  mma_tf32(d, a_hi, b0.lo, b1.lo);
+  mma_tf32(d, a_hi, b0.hi, b1.hi);
+}
+
+// The A fragments of one 16-row slice of the staged [n; ku; kv] block: for
+// matrix m, a[0] = (row g, col q), a[1] = (g+8, q), a[2] = (g, q+4),
+// a[3] = (g+8, q+4), the m16n8k8 row-major A layout.
+struct AFrags {
+  uint32_t hi[3][4], lo[3][4];
+
+  __device__ __forceinline__ void load(const float* dirs_s, int tb, int row0,
+                                       int g, int q) {
+#pragma unroll
+    for (int m = 0; m < 3; ++m) {
+      const float* r = dirs_s + (m * tb + row0 + g) * 8;
+      const float v[4] = {r[q], r[64 + q], r[q + 4], r[64 + q + 4]};
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const Tf32x2 s = split_tf32(v[k]);
+        hi[m][k] = s.hi;
+        lo[m][k] = s.lo;
+      }
+    }
+  }
+};
+
+// Baldwin-Weber's epilogue for one pair from the dots (_pair_math_mxu's
+// operation order).
+__device__ __forceinline__ bool pair_mxu(float den, float kud, float kvd,
+                                         float num, float au, float av,
+                                         float* t_out) {
+  const float t = num / den;
+  const float u = au + t * kud;
+  const float v = av + t * kvd;
+  *t_out = t;
+  const float uv = u + v;
+  return (den != 0.0f) & (t >= 0.0f) & (u >= -kEps) & (u <= kOneEps) &
+         (uv >= -kEps) & (uv <= kOneEps) & (v >= -kEps);
+}
+
+// The B fragments (rays' d rows) of column tile `col0` for lane (g, q):
+// b0 holds K row q (row 3 = dx for q == 3), b1 K row q + 4 (dy for q == 0,
+// dz for q == 1); the other K rows are zero.
+__device__ __forceinline__ void load_b(const WorkArgs& p, int64_t col0, int g,
+                                       int q, Tf32x2* b0, Tf32x2* b1) {
+  const int64_t r = col0 + g;
+  *b0 = split_tf32(q == 3 ? p.rays[3 * p.n_rays + r] : 0.0f);
+  *b1 = split_tf32(q < 2 ? p.rays[(4 + q) * p.n_rays + r] : 0.0f);
+}
+
+// Stage item w's A block (3tb rows) and scalar block (tb rows).
+__device__ __forceinline__ void stage_mxu(const MxuArgs& p, int w,
+                                          float4* dirs_s, float4* scal_s) {
+  const int tb = p.w.tb;
+  const float4* a = p.w.tris + (int64_t)p.ablock_ids[w] * tb * 6;
+  for (int k = threadIdx.x; k < tb * 6; k += kMxuThreads) dirs_s[k] = a[k];
+  const float4* s = p.scal + (int64_t)p.w.block_ids[w] * tb * 2;
+  for (int k = threadIdx.x; k < tb * 2; k += kMxuThreads) scal_s[k] = s[k];
+  __syncthreads();
+}
+
+__device__ __forceinline__ void fold_min(float* t, int* i, float ot, int oi) {
+  if (ot < *t || (ot == *t && oi < *i)) {
+    *t = ot;
+    *i = oi;
+  }
+}
+
+// Lexicographic (t, id) minimum over the 8 lanes sharing a ray column.
+__device__ __forceinline__ void fold_lanes_min(float* t, int* i) {
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1) {
+    const float ot = __shfl_xor_sync(0xffffffffu, *t, off);
+    const int oi = __shfl_xor_sync(0xffffffffu, *i, off);
+    fold_min(t, i, ot, oi);
+  }
+}
+
+// Any-hit flag (0/1) maximum over the 8 lanes sharing a ray column.
+__device__ __forceinline__ void fold_lanes_max(int* hit) {
+#pragma unroll
+  for (int off = 4; off < 32; off <<= 1)
+    *hit = max(*hit, __shfl_xor_sync(0xffffffffu, *hit, off));
+}
+
+// Warp vote: every ray of the warp's column tile (both of each lane's
+// columns, all lanes) is hit.
+__device__ __forceinline__ bool all_hit(const int (&hit)[2]) {
+  return __all_sync(0xffffffffu, (hit[0] != 0) & (hit[1] != 0));
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kMxuThreads)
+    nearest_mxu_kernel(const MxuArgs p, const float* __restrict__ init_t,
+                       const int* __restrict__ init_i,
+                       float* __restrict__ out_t, int* __restrict__ out_i) {
+  constexpr int kRays = kMxuWarps * NT * 8;  // rt
+  extern __shared__ float4 smem[];
+  __shared__ int run[2];
+  __shared__ int excl_s[kRays];
+  __shared__ float warp_max[kMxuWarps];
+
+  const int tb = p.w.tb;
+  float4* dirs_s = smem;
+  float4* scal_s = smem + tb * 6;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int64_t tile0 = (int64_t)blockIdx.x * kRays;
+  const int local0 = warp * NT * 8;  // the warp's first ray in the tile
+
+  for (int k = threadIdx.x; k < kRays; k += kMxuThreads)
+    excl_s[k] = p.w.excl[tile0 + k];
+  Tf32x2 b0[NT], b1[NT];
+  float bt[NT][2];
+  int bi[NT][2];
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    load_b(p.w, tile0 + local0 + j * 8, g, q, &b0[j], &b1[j]);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int64_t r = tile0 + local0 + j * 8 + 2 * q + c;
+      bt[j][c] = init_t[r];
+      bi[j][c] = init_i[r];
+    }
+  }
+  find_run(p.w, blockIdx.x, run);  // its __syncthreads covers excl_s
+  const int lo = run[0], hi = run[1];
+  const int gid0 = *p.w.gid_base;
+  float bound = INFINITY;  // block-uniform
+  int done = 0;
+
+  for (int w = lo; w < hi; ++w) {
+    if (p.w.exit_every && !(p.w.entry[w] <= bound + kExitSlack)) continue;
+    stage_mxu(p, w, dirs_s, scal_s);
+    const float* dirs_f = reinterpret_cast<const float*>(dirs_s);
+    const float* scal_f = reinterpret_cast<const float*>(scal_s);
+    const int g0 = gid0 + p.w.block_ids[w] * tb;
+    for (int row0 = 0; row0 < tb; row0 += 16) {
+      AFrags a;
+      a.load(dirs_f, tb, row0, g, q);
+      float num[2], au[2], av[2];
+      int gid[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* s = scal_f + (row0 + g + 8 * h) * 8;
+        num[h] = s[0];
+        au[h] = s[1];
+        av[h] = s[2];
+        gid[h] = g0 + row0 + g + 8 * h;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        float den[4], kud[4], kvd[4];
+        dot_3xtf32(den, a.hi[0], a.lo[0], b0[j], b1[j]);
+        dot_3xtf32(kud, a.hi[1], a.lo[1], b0[j], b1[j]);
+        dot_3xtf32(kvd, a.hi[2], a.lo[2], b0[j], b1[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // C element e: row h = e>>1, col c
+          const int h = e >> 1, c = e & 1;
+          float t;
+          const bool valid =
+              pair_mxu(den[e], kud[e], kvd[e], num[h], au[h], av[h], &t) &&
+              gid[h] != excl_s[local0 + j * 8 + 2 * q + c];
+          fold_min(&bt[j][c], &bi[j][c], valid ? t : INFINITY, gid[h]);
+        }
+      }
+    }
+    __syncthreads();  // the staged block is overwritten by the next item
+    if (p.w.exit_every && ++done % p.w.exit_every == 0) {
+      float m = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          fold_lanes_min(&bt[j][c], &bi[j][c]);
+          m = fmaxf(m, bt[j][c]);
+        }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+      if (lane == 0) warp_max[warp] = m;
+      __syncthreads();
+      bound = warp_max[0];
+#pragma unroll
+      for (int k = 1; k < kMxuWarps; ++k) bound = fmaxf(bound, warp_max[k]);
+      __syncthreads();  // warp_max is rewritten at the next refresh
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      fold_lanes_min(&bt[j][c], &bi[j][c]);
+      if (g == 0) {
+        const int64_t r = tile0 + local0 + j * 8 + 2 * q + c;
+        out_t[r] = bt[j][c];
+        out_i[r] = bi[j][c];
+      }
+    }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kMxuThreads)
+    any_mxu_kernel(const MxuArgs p, const int* __restrict__ init,
+                   int* __restrict__ out) {
+  constexpr int kRays = kMxuWarps * NT * 8;
+  extern __shared__ float4 smem[];
+  __shared__ int run[2];
+  __shared__ int excl_s[kRays];
+  __shared__ float tmax_s[kRays];
+
+  const int tb = p.w.tb;
+  float4* dirs_s = smem;
+  float4* scal_s = smem + tb * 6;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, q = lane & 3;
+  const int64_t tile0 = (int64_t)blockIdx.x * kRays;
+  const int local0 = warp * NT * 8;
+
+  for (int k = threadIdx.x; k < kRays; k += kMxuThreads) {
+    excl_s[k] = p.w.excl[tile0 + k];
+    tmax_s[k] = p.w.rays[6 * p.w.n_rays + tile0 + k];
+  }
+  Tf32x2 b0[NT], b1[NT];
+  int hit[NT][2];
+  unsigned skip = 0;  // warp-uniform: bit j set once tile j is all hit
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    load_b(p.w, tile0 + local0 + j * 8, g, q, &b0[j], &b1[j]);
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      hit[j][c] = init[tile0 + local0 + j * 8 + 2 * q + c];
+    if (all_hit(hit[j])) skip |= 1u << j;
+  }
+  find_run(p.w, blockIdx.x, run);
+  const int lo = run[0], hi = run[1];
+  const int gid0 = *p.w.gid_base;
+  int done = 0;
+
+  for (int w = lo; w < hi; ++w) {
+    stage_mxu(p, w, dirs_s, scal_s);
+    const float* dirs_f = reinterpret_cast<const float*>(dirs_s);
+    const float* scal_f = reinterpret_cast<const float*>(scal_s);
+    const int g0 = gid0 + p.w.block_ids[w] * tb;
+    for (int row0 = 0; row0 < tb; row0 += 16) {
+      AFrags a;
+      a.load(dirs_f, tb, row0, g, q);
+      float num[2], au[2], av[2];
+      int gid[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float* s = scal_f + (row0 + g + 8 * h) * 8;
+        num[h] = s[0];
+        au[h] = s[1];
+        av[h] = s[2];
+        gid[h] = g0 + row0 + g + 8 * h;
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        if (skip >> j & 1u) continue;  // every ray of the column tile is hit
+        float den[4], kud[4], kvd[4];
+        dot_3xtf32(den, a.hi[0], a.lo[0], b0[j], b1[j]);
+        dot_3xtf32(kud, a.hi[1], a.lo[1], b0[j], b1[j]);
+        dot_3xtf32(kvd, a.hi[2], a.lo[2], b0[j], b1[j]);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int h = e >> 1, c = e & 1;
+          const int k = local0 + j * 8 + 2 * q + c;
+          float t;
+          if (pair_mxu(den[e], kud[e], kvd[e], num[h], au[h], av[h], &t) &&
+              gid[h] != excl_s[k] && t <= tmax_s[k])
+            hit[j][c] = 1;
+        }
+      }
+    }
+    __syncthreads();  // the staged block is overwritten by the next item
+    if (p.w.exit_every && ++done % p.w.exit_every == 0) {
+      int all = 1;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          fold_lanes_max(&hit[j][c]);
+          all &= hit[j][c] != 0;
+        }
+        if (all_hit(hit[j])) skip |= 1u << j;
+      }
+      if (__syncthreads_and(all)) break;  // every ray of the tile is hit
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      fold_lanes_max(&hit[j][c]);
+      if (g == 0) out[tile0 + local0 + j * 8 + 2 * q + c] = hit[j][c];
+    }
+}
+
 // Rays per thread (RPT = rt / 128) and the origin form are template
 // parameters; these pick the instantiation for a launch.
 using NearestFn = void (*)(WorkArgs, const float*, const int*, float*, int*);
@@ -340,6 +730,42 @@ AnyFn any_for(int rt) {
     case 1024: return any_kernel<8, kShared>;
     default: return nullptr;
   }
+}
+
+using NearestMxuFn = void (*)(MxuArgs, const float*, const int*, float*,
+                              int*);
+using AnyMxuFn = void (*)(MxuArgs, const int*, int*);
+
+// Column tiles per warp: NT = rt / (8 warps * 8 rays).
+NearestMxuFn nearest_mxu_for(int rt) {
+  switch (rt) {
+    case 128: return nearest_mxu_kernel<2>;
+    case 256: return nearest_mxu_kernel<4>;
+    case 512: return nearest_mxu_kernel<8>;
+    case 1024: return nearest_mxu_kernel<16>;
+    default: return nullptr;
+  }
+}
+
+AnyMxuFn any_mxu_for(int rt) {
+  switch (rt) {
+    case 128: return any_mxu_kernel<2>;
+    case 256: return any_mxu_kernel<4>;
+    case 512: return any_mxu_kernel<8>;
+    case 1024: return any_mxu_kernel<16>;
+    default: return nullptr;
+  }
+}
+
+// Dynamic shared memory of a K4/K5 launch: A's 3tb rows and the tb scalar
+// rows, 8 floats each; above the 48 KB default (tb > 352) the kernel must
+// opt in.
+template <typename Fn>
+cudaError_t mxu_smem(Fn fn, int tb, size_t* smem) {
+  *smem = (size_t)tb * 8 * 8 * sizeof(float);
+  if (*smem <= 48 * 1024 - 8 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)*smem);
 }
 
 WorkArgs work_args(const float* rays, int64_t n_rays, const int* excl,
@@ -389,6 +815,49 @@ int drt_bsr_any(const float* rays, int64_t n_rays, const int* excl,
   const size_t smem = (size_t)tb * 16 * sizeof(float);
   fn<<<(int)(n_rays / rt), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       p, init, out);
+  return cudaGetLastError();
+}
+
+// The tensor-core forms (K4, K5): dirs is pack_dirs's (3T, 8) A, indexed
+// by ablock_ids; scal the (S, 8) fold_origin_scal rows, indexed (with the
+// global ids) by block_ids. tb must be a multiple of 16.
+int drt_bsr_nearest_mxu(const float* rays, int64_t n_rays, const int* excl,
+                        const float* dirs, const float* scal,
+                        const int* tile_ids, const int* block_ids,
+                        const int* ablock_ids, const float* entry,
+                        const int* count, int n_items, const float* init_t,
+                        const int* init_i, const int* gid_base, float* out_t,
+                        int* out_i, int rt, int tb, int exit_every,
+                        void* stream) {
+  const NearestMxuFn fn = nearest_mxu_for(rt);
+  if (fn == nullptr || tb % 16) return cudaErrorInvalidValue;
+  size_t smem;
+  const cudaError_t err = mxu_smem(fn, tb, &smem);
+  if (err != cudaSuccess) return err;
+  const MxuArgs p{work_args(rays, n_rays, excl, dirs, tile_ids, block_ids,
+                            entry, count, n_items, gid_base, tb, exit_every),
+                  reinterpret_cast<const float4*>(scal), ablock_ids};
+  fn<<<(int)(n_rays / rt), kMxuThreads, smem,
+       static_cast<cudaStream_t>(stream)>>>(p, init_t, init_i, out_t, out_i);
+  return cudaGetLastError();
+}
+
+int drt_bsr_any_mxu(const float* rays, int64_t n_rays, const int* excl,
+                    const float* dirs, const float* scal, const int* tile_ids,
+                    const int* block_ids, const int* ablock_ids,
+                    const int* count, int n_items, const int* init,
+                    const int* gid_base, int* out, int rt, int tb,
+                    int exit_every, void* stream) {
+  const AnyMxuFn fn = any_mxu_for(rt);
+  if (fn == nullptr || tb % 16) return cudaErrorInvalidValue;
+  size_t smem;
+  const cudaError_t err = mxu_smem(fn, tb, &smem);
+  if (err != cudaSuccess) return err;
+  const MxuArgs p{work_args(rays, n_rays, excl, dirs, tile_ids, block_ids,
+                            nullptr, count, n_items, gid_base, tb, exit_every),
+                  reinterpret_cast<const float4*>(scal), ablock_ids};
+  fn<<<(int)(n_rays / rt), kMxuThreads, smem,
+       static_cast<cudaStream_t>(stream)>>>(p, init, out);
   return cudaGetLastError();
 }
 

@@ -1,8 +1,9 @@
 """Scene model: environments, objects, lights — and baking to flat arrays.
 
 A copy of distributed_raytracer_tpu/models/scene.py with its logic unchanged
-(the per-object grouped bake and SceneDiff are not part of this package yet),
-plus `from_reference`, which takes the JAX package's bake as it is.
+(the per-object grouped bake `bake_bvh_grouped` and the per-frame
+`SceneDiff` included), plus `from_reference`, which takes the JAX package's
+bake as it is.
 
 The reference splits an Environment into immutables (mesh library) and
 mutables (object R-tree + lights + camera) with gob serialization and
@@ -93,6 +94,14 @@ class Scene:
     light_pos: np.ndarray   # (L, 3) float64
     light_col: np.ndarray   # (L, 3) float64, channels in [0, 1]
     camera: Camera
+
+    def set_object_pos(self, obj_id: int, pos) -> None:
+        """Move an object (the EnvMutables diff analog). Requires re-bake."""
+        for o in self.objects:
+            if o.obj_id == obj_id:
+                o.pos = np.asarray(pos, dtype=np.float64)
+                return
+        raise KeyError(f"no object with id {obj_id}")
 
     # ---- world-space triangle soup ------------------------------------
 
@@ -198,7 +207,7 @@ class Scene:
         """Real (unpadded) triangle count across all instances."""
         return sum(len(self.meshes[o.model].faces_v) for o in self.objects)
 
-    def _bake_bvh_native(self, block_size: int):
+    def _bake_bvh_native(self, block_size: int, grouped: bool):
         """One-pass C++ bake (native/drt_native.cpp drt_bake_object): the
         whole per-triangle loop — world-space placement, Baldwin-Weber
         precompute, normals, per-slot AABBs with the bound-epsilon floor —
@@ -235,15 +244,33 @@ class Scene:
         if not mat_rows:
             mat_rows.append(((0.0,) * 3, (1.0,) * 3, (0.0,) * 3, 0.0))
 
-        cents = np.empty((n_real, 3), np.float64)
-        for oi, obj in enumerate(self.objects):
-            mesh = self.meshes[obj.model]
-            cents[starts[oi]:starts[oi + 1]] = native.centroids(
-                mesh.vertices, mesh.faces_v, obj.pos)
-        order = native.morton_argsort(cents)
-        codes = native.morton_codes(cents)[order]
-        slots = bvh_mod.gap_aligned_slots(codes, block_size)
-        slot_src = np.where(slots >= 0, order[np.maximum(slots, 0)], -1)
+        if grouped:
+            # Per-object Morton + gap alignment: no leaf block ever spans
+            # two objects (_grouped_order's layout, same codes/order).
+            slot_chunks, id_chunks = [], []
+            for oi, obj in enumerate(self.objects):
+                mesh = self.meshes[obj.model]
+                cent = native.centroids(mesh.vertices, mesh.faces_v, obj.pos)
+                codes = native.morton_codes(cent)
+                order = np.argsort(codes, kind="stable")
+                slots = bvh_mod.gap_aligned_slots(codes[order], block_size)
+                full = np.where(slots >= 0,
+                                starts[oi] + order[np.maximum(slots, 0)], -1)
+                slot_chunks.append(full)
+                id_chunks.append(np.full(full.shape, oi, np.int32))
+            slot_src = np.concatenate(slot_chunks)
+            obj_id = np.concatenate(id_chunks)
+        else:
+            cents = np.empty((n_real, 3), np.float64)
+            for oi, obj in enumerate(self.objects):
+                mesh = self.meshes[obj.model]
+                cents[starts[oi]:starts[oi + 1]] = native.centroids(
+                    mesh.vertices, mesh.faces_v, obj.pos)
+            order = native.morton_argsort(cents)
+            codes = native.morton_codes(cents)[order]
+            slots = bvh_mod.gap_aligned_slots(codes, block_size)
+            slot_src = np.where(slots >= 0, order[np.maximum(slots, 0)], -1)
+            obj_id = None
 
         out = native.BakeOut(slot_src.shape[0])
         slot_src = np.ascontiguousarray(slot_src, np.int64)
@@ -267,6 +294,10 @@ class Scene:
             light_pos=f(self.light_pos), light_col=f(self.light_col))
         tree = bvh_mod.BlockBVH(block_lo=lo, block_hi=hi,
                                 block_size=block_size)
+        if grouped:
+            block_obj = obj_id.reshape(-1, block_size)[:, 0]
+            obj_pos0 = np.stack([o.pos for o in self.objects])
+            return arrays, tree, obj_id, block_obj, obj_pos0.astype(np.float32)
         return arrays, tree
 
     def bake_bvh(self, block_size: int = 128, dtype=np.float32):
@@ -285,7 +316,7 @@ class Scene:
         from distributed_raytracer_tpu_torch.models import bvh as bvh_mod
 
         if dtype == np.float32:
-            got = self._bake_bvh_native(block_size)
+            got = self._bake_bvh_native(block_size, grouped=False)
             if got is not None:
                 return got
         arrays = self.bake(dtype=dtype, tri_pad=block_size)
@@ -301,6 +332,88 @@ class Scene:
         arrays = bvh_mod.reorder_scene(arrays, full)
         tree = bvh_mod.build_block_bvh(arrays, slots >= 0, block_size)
         return arrays, tree
+
+    def bake_bvh_grouped(self, block_size: int = 128, dtype=np.float32):
+        """bake_bvh with per-OBJECT Morton ordering: no leaf block ever
+        spans two objects, so a per-frame object translation (SceneDiff)
+        shifts each block's AABB exactly — the structural requirement of
+        the dynamic renderer (ops/render_dynamic.py).
+
+        Returns (arrays, tree, obj_id (T,) int32 owner per slot,
+        block_obj (NB,) int32 owner per block, obj_pos0 (O, 3) float32
+        baked object positions)."""
+        from distributed_raytracer_tpu_torch.models import bvh as bvh_mod
+
+        if dtype == np.float32:
+            got = self._bake_bvh_native(block_size, grouped=True)
+            if got is not None:
+                return got
+        arrays = self.bake(dtype=dtype, tri_pad=block_size)
+        slots, obj_id = _grouped_order(self, arrays, block_size)
+        arrays = bvh_mod.reorder_scene(arrays, slots)
+        tree = bvh_mod.build_block_bvh(arrays, slots >= 0, block_size)
+        block_obj = obj_id.reshape(-1, block_size)[:, 0]
+        obj_pos0 = (np.stack([o.pos for o in self.objects])
+                    if self.objects else np.zeros((0, 3)))
+        return (arrays, tree, obj_id, block_obj,
+                obj_pos0.astype(np.float32))
+
+    def make_diff(self) -> "SceneDiff":
+        """Snapshot the current mutable state as a per-frame diff (the
+        master gob-encoding EnvMutables each frame, master/main.go:260-262)."""
+        obj_pos = (np.stack([o.pos for o in self.objects])
+                   if self.objects else np.zeros((0, 3)))
+        return SceneDiff(obj_pos=obj_pos.astype(np.float32),
+                         light_pos=np.asarray(self.light_pos, np.float32),
+                         light_col=np.asarray(self.light_col, np.float32))
+
+
+class SceneDiff(NamedTuple):
+    """Per-frame mutable scene state — the EnvMutables analog
+    (shared/state/environment.go:65-69: object positions + lights + camera;
+    the camera already rides every render call).
+
+    Where the reference gob-encodes the diff and every worker re-links and
+    rebuilds its R-tree per order (worker/distributed/main.go:56-64,
+    environment.go:73-98), here the diff is a tiny host tuple folded into
+    the baked arrays on the device each frame (ops/render_dynamic.py) —
+    translation only touches plane_d/c_u/c_v/p0 and shifts whole-object
+    block AABBs, so no host re-bake or BVH rebuild happens at frame rate.
+    """
+
+    obj_pos: np.ndarray    # (O, 3) float32 ABSOLUTE object positions
+    light_pos: np.ndarray  # (L, 3) float32
+    light_col: np.ndarray  # (L, 3) float32
+
+
+def _grouped_order(scene: "Scene", arrays: SceneArrays, block_size: int):
+    """Per-object Morton ordering + gap alignment (objects never share a
+    leaf block, so a per-object translation shifts each block AABB exactly).
+
+    Returns (slots, obj_id) where slots is the reorder_scene map (-1 =
+    padding) and obj_id tags every output slot with its owner object index.
+    """
+    from distributed_raytracer_tpu_torch.models import bvh as bvh_mod
+
+    p0 = np.asarray(arrays.p0, np.float64)
+    e1 = np.asarray(arrays.e1, np.float64)
+    e2 = np.asarray(arrays.e2, np.float64)
+    counts = [len(scene.meshes[o.model].faces_v) for o in scene.objects]
+    starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+    slot_chunks, id_chunks = [], []
+    for oi in range(len(scene.objects)):
+        a, b = int(starts[oi]), int(starts[oi + 1])
+        cent = p0[a:b] + (e1[a:b] + e2[a:b]) / 3.0
+        codes = bvh_mod.morton_codes(cent)
+        order = np.argsort(codes, kind="stable")
+        slots = bvh_mod.gap_aligned_slots(codes[order], block_size)
+        full = np.where(slots >= 0, a + order[np.maximum(slots, 0)], -1)
+        slot_chunks.append(full)
+        id_chunks.append(np.full(full.shape, oi, np.int32))
+    if not slot_chunks:
+        return (np.full(block_size, -1, np.int64),
+                np.zeros(block_size, np.int32))
+    return np.concatenate(slot_chunks), np.concatenate(id_chunks)
 
 
 def load_scene(path: str) -> Scene:

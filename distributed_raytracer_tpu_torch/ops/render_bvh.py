@@ -31,6 +31,13 @@ the buckets only when asked (verify=True).
 again per bounce over the previous bounce's reflection rays, whose nearest
 query runs the per-ray-origin kernel. `freeze_bounced(camera, depth)`
 returns the same pipeline with per-bounce buckets and no host sync.
+
+`use_mxu=True` runs the shared-origin launches (stage 3 and every shadow
+query, bounced ones included) in the tensor-core form of the JAX package's
+MXU kernels: a static direction matrix (`bsr_trace.pack_dirs`) and
+per-origin scalar rows (`fold_origin_scal`). Every stage reads the scene's
+device arrays from one `DeviceScene` bundle passed to it: the renderer's
+own, or per-frame diffed copies (ops/render_dynamic.py).
 """
 
 from __future__ import annotations
@@ -58,6 +65,21 @@ def _tile_bucket(n: int, n_tiles: int) -> int:
     """Capacity for the compacted hit-TILE set: pow2, floor 8, capped at
     the full tile count (cap = no compaction, overflow impossible)."""
     return min(n_tiles, max(8, 1 << max(0, int(n - 1).bit_length())))
+
+
+class DeviceScene(NamedTuple):
+    """The scene arrays on the device that one frame reads. The renderer
+    keeps its own (`CulledRenderer.dev_scene`); the dynamic renderer passes
+    per-frame diffed copies, never mutating the renderer."""
+
+    arrays: SceneArrays        # slim: lights and material tables
+    tris_packed: torch.Tensor  # (T, 16) static pack_tris rows
+    tris_dirs: torch.Tensor    # (3T, 8) pack_dirs A (use_mxu), else (0, 8)
+    lights_scal: torch.Tensor  # per-light origin folds stacked: (L*T, 8)
+    #   fold_origin_scal rows (use_mxu) or (L*T, 16) pack_tris_origin rows
+    shade_tbl: torch.Tensor    # (32, T) shading table
+    block_lo: torch.Tensor     # (NB, 3) leaf-block AABBs
+    block_hi: torch.Tensor
 
 
 class _Shading(NamedTuple):
@@ -106,7 +128,8 @@ class CulledRenderer:
                  cfg: RenderConfig = DEFAULT_CONFIG, block_size=128,
                  ray_tile: int = 512, prebaked=None,
                  exit_every: Optional[int] = None, cull_group: int = 16,
-                 cull_levels: Optional[int] = None, *, device):
+                 cull_levels: Optional[int] = None, use_mxu: bool = False,
+                 *, device):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -127,6 +150,10 @@ class CulledRenderer:
         # None = decided from the first sizing render's work density.
         self._exit_auto = exit_every is None
         self.exit_every = 0 if exit_every is None else exit_every
+        # Kernel form of the shared-origin launches: False = the (T, 16)
+        # pack_tris_origin rows on the CUDA cores (K1, K2); True = the
+        # direction dots on the tensor cores (K4, K5).
+        self.use_mxu = use_mxu
 
         # `prebaked` = (SceneArrays, BlockBVH), e.g. models.scene
         # .from_reference of the JAX package's bake; its leaf size wins.
@@ -134,7 +161,7 @@ class CulledRenderer:
             arrays, tree = prebaked
             self.tb = block_size = int(tree.block_size)
         else:
-            arrays, tree = scene.bake_bvh(block_size=block_size)
+            arrays, tree = self._bake_scene(scene, block_size)
         self.arrays_host: SceneArrays = arrays
         self.tree = tree
         dev = self.device
@@ -144,8 +171,8 @@ class CulledRenderer:
 
         tris16_np = bsr_trace.pack_tris(arrays)
         self.n_tris = int(arrays.p0.shape[0])
-        self.arrays = SceneArrays(*(put(a) for a in _slim_arrays(arrays)))
-        self.tris_packed = put(tris16_np)
+        slim = SceneArrays(*(put(a) for a in _slim_arrays(arrays)))
+        tris_packed = put(tris16_np)
         # Shading table (32, T), assembled on the device from the packed
         # rows, p0, the vertex normals (smooth bakes only) and mat_id.
         flat_bake = (np.array_equal(arrays.n0, arrays.geo_n)
@@ -156,12 +183,18 @@ class CulledRenderer:
             [np.asarray(arrays.n0, np.float32).T,
              np.asarray(arrays.n1, np.float32).T,
              np.asarray(arrays.n2, np.float32).T]))
-        self.shade_tbl = shade.table_rows_device(
-            self.tris_packed, p0_t, n_t, put(arrays.mat_id),
-            self.arrays.mat_ka, self.arrays.mat_kd, self.arrays.mat_ks,
-            self.arrays.mat_ns)
-        self.block_lo = put(tree.block_lo)
-        self.block_hi = put(tree.block_hi)
+        shade_tbl = shade.table_rows_device(
+            tris_packed, p0_t, n_t, put(arrays.mat_id), slim.mat_ka,
+            slim.mat_kd, slim.mat_ks, slim.mat_ns)
+        # The tensor-core form's direction matrix is static: it holds only
+        # translation-invariant direction coefficients.
+        tris_dirs = (put(bsr_trace.pack_dirs(tris16_np, self.tb))
+                     if use_mxu else tris_packed.new_zeros((0, 8)))
+        self.dev_scene = DeviceScene(
+            arrays=slim, tris_packed=tris_packed, tris_dirs=tris_dirs,
+            lights_scal=self._fold_lights(tris_packed, slim.light_pos),
+            shade_tbl=shade_tbl, block_lo=put(tree.block_lo),
+            block_hi=put(tree.block_hi))
         # Hierarchy depth: one grouping level normally; two when the
         # superblock count itself is large. `cull_levels` (2 or 3)
         # overrides the automatic choice.
@@ -174,16 +207,6 @@ class CulledRenderer:
         # the same level layout.
         self.n_levels = len(self.groups) + 1
         self._ht_idx = self.n_levels
-        # Shadow rays are reversed to start at their light, so each light's
-        # rays share one origin: per-light origin-folded (T, 16) rows,
-        # stacked to (L*T, 16); block ids with a light*nb offset index
-        # straight into light l's rows.
-        n_lights = int(arrays.light_pos.shape[0])
-        self.lights_scal = (
-            torch.cat([bsr_trace.pack_tris_origin(self.tris_packed,
-                                                  self.arrays.light_pos[li])
-                       for li in range(n_lights)])
-            if n_lights else self.tris_packed.new_zeros((0, 16)))
 
         # 2D screen tiles of 32 x rt/32 pixels.
         self.tile_w = 32
@@ -198,6 +221,25 @@ class CulledRenderer:
         self._frozen_pads = None
         # Raw counts of the last sync render, in the count-vector layout.
         self._last_counts = None
+
+    def _bake_scene(self, scene: Scene, block_size: int):
+        """Bake hook: the dynamic renderer (ops/render_dynamic.py)
+        overrides it to group leaf blocks per object."""
+        return scene.bake_bvh(block_size=block_size)
+
+    def _fold_lights(self, tris_packed: torch.Tensor,
+                     light_pos: torch.Tensor) -> torch.Tensor:
+        """Shadow rays are reversed to start at their light, so each
+        light's rays share one origin: per-light origin folds of the static
+        rows (fold_origin_scal under use_mxu, else pack_tris_origin),
+        stacked to (L*T, 8 or 16); block ids with a light*nb offset index
+        straight into light l's rows."""
+        fold = (bsr_trace.fold_origin_scal if self.use_mxu
+                else bsr_trace.pack_tris_origin)
+        if light_pos.shape[0] == 0:
+            return tris_packed.new_zeros((0, 8 if self.use_mxu else 16))
+        return torch.cat([fold(tris_packed, light_pos[li])
+                          for li in range(light_pos.shape[0])])
 
     # -- helpers ---------------------------------------------------------
 
@@ -243,16 +285,16 @@ class CulledRenderer:
 
     # -- stage A: primary rays + cull ------------------------------------
 
-    def _stage_a(self, cam: CameraArrays):
+    def _stage_a(self, sc: DeviceScene, cam: CameraArrays):
         d_rows = raygen.ray_rows_flat(cam, self.width, self.height,
                                       self._perm)
         rays = bsr_trace.pack_rays_rows(cam.pos, d_rows)
         ti = cull.tile_intervals_packed(rays, self.rt)
-        mask1, entry1, c1 = cull.multilevel_mask(ti, self.block_lo,
-                                                 self.block_hi, self.groups)
+        mask1, entry1, c1 = cull.multilevel_mask(ti, sc.block_lo,
+                                                 sc.block_hi, self.groups)
         return rays, ti, mask1, entry1, c1
 
-    def _size_pads(self, ti, mask, entry, c_top):
+    def _size_pads(self, sc: DeviceScene, ti, mask, entry, c_top):
         """Walk the hierarchy with one host sync per level: returns
         (pads tuple len n_levels, counts tuple len n_levels). `mask` and
         `entry` may carry a leading light axis."""
@@ -263,8 +305,8 @@ class CulledRenderer:
         counts = [int(c_top)]
         pads = [_bucket(counts[0])]
         for _ in range(len(self.groups)):
-            _, c = cull.multilevel_worklist(ti, m, e, c_top, self.block_lo,
-                                            self.block_hi, self.groups,
+            _, c = cull.multilevel_worklist(ti, m, e, c_top, sc.block_lo,
+                                            sc.block_hi, self.groups,
                                             tuple(pads))
             counts.append(int(c[-1]))
             pads.append(_bucket(counts[-1]))
@@ -272,17 +314,18 @@ class CulledRenderer:
 
     # -- stage B: nearest hit + shadow masks -----------------------------
 
-    def _nearest(self, pads: tuple, tris, rays, exclude, ti, mask1, entry1,
-                 c1, shared_origin: bool = False):
+    def _nearest(self, sc: DeviceScene, pads: tuple, tris, rays, exclude,
+                 ti, mask1, entry1, c1, shared_origin: bool = False):
         """Multi-level compaction + BSR nearest. Returns (hits, hit-tile
         count, per-level counts).
 
         Results are masked by the EXACT visited tile set: unvisited means
         the cull proved no block can be hit. With shared_origin, `tris` is
-        the pack_tris_origin fold for rays[0:3, 0]; otherwise the static
-        rows, and every ray brings its own origin."""
+        the pack_tris_origin fold for rays[0:3, 0] (or the (A, scal) tuple
+        of the tensor-core form); otherwise the static rows, and every ray
+        brings its own origin."""
         wl, counts = cull.multilevel_worklist(ti, mask1, entry1, c1,
-                                              self.block_lo, self.block_hi,
+                                              sc.block_lo, sc.block_hi,
                                               self.groups, pads)
         best_t, best_i = bsr_trace.bsr_nearest(
             rays, exclude, tris, wl.tile_ids, wl.block_ids, wl.entry,
@@ -295,14 +338,24 @@ class CulledRenderer:
         ht = hits.valid.reshape(self.n_tiles, self.rt).any(dim=1)
         return hits, ht.sum(dtype=torch.int32), counts
 
-    def _stage_b1(self, pads: tuple, rays, ti, mask1, entry1, c1):
+    def _stage_b1(self, sc: DeviceScene, pads: tuple, rays, ti, mask1,
+                  entry1, c1):
         """Primary nearest hit. Primary rays share the camera origin, folded
-        into the triangle rows each frame for the shared-origin kernel."""
-        tris_cam = bsr_trace.pack_tris_origin(self.tris_packed, rays[0:3, 0])
-        return self._nearest(pads, tris_cam, rays, self._no_excl, ti, mask1,
-                             entry1, c1, shared_origin=True)
+        into the triangle rows (or, under use_mxu, the scalar rows beside
+        the static direction matrix) each frame for the shared-origin
+        kernel."""
+        if self.use_mxu:
+            tris_cam = (sc.tris_dirs,
+                        bsr_trace.fold_origin_scal(sc.tris_packed,
+                                                   rays[0:3, 0]))
+        else:
+            tris_cam = bsr_trace.pack_tris_origin(sc.tris_packed,
+                                                  rays[0:3, 0])
+        return self._nearest(sc, pads, tris_cam, rays, self._no_excl, ti,
+                             mask1, entry1, c1, shared_origin=True)
 
-    def _stage_b2(self, ht_pad: int, rays, hits, view) -> _Shading:
+    def _stage_b2(self, sc: DeviceScene, ht_pad: int, rays, hits,
+                  view) -> _Shading:
         """Hit-TILE compaction + shading prep + per-light shadow masks.
 
         Everything downstream of the nearest kernel is proportional to the
@@ -319,10 +372,10 @@ class CulledRenderer:
         else:
             view_h = view.reshape(3, self.n_tiles,
                                   self.rt)[:, tidx, :].reshape(3, -1)
-        prep = shade.prepare_packed(self.arrays, rays_h, hits_h, self.cfg,
-                                    table=self.shade_tbl)
-        live_l = shade.light_gates(self.arrays, view_h, prep, hits_h.valid)
-        sti, smasks, sentries = self._light_masks(prep, live_l)
+        prep = shade.prepare_packed(sc.arrays, rays_h, hits_h, self.cfg,
+                                    table=sc.shade_tbl)
+        live_l = shade.light_gates(sc.arrays, view_h, prep, hits_h.valid)
+        sti, smasks, sentries = self._light_masks(sc, prep, live_l)
         return _Shading(tpos, hit_tile, ht_count, rays_h, hits_h, view_h,
                         prep, live_l, sti, smasks, sentries,
                         smasks.sum(dtype=torch.int32))
@@ -363,7 +416,7 @@ class CulledRenderer:
         return torch.where(hit_tile[None, :, None], out,
                            fill).reshape(rows_h.shape[0], self.n_pad)
 
-    def _light_masks(self, prep, live_l):
+    def _light_masks(self, sc: DeviceScene, prep, live_l):
         """Per-light coarse cull masks for the shadow queries, plus the
         stacked (L*nTiles) tile hulls the finer levels test against. Dead
         rays (misses, and rays this light provably cannot colour) are
@@ -374,28 +427,28 @@ class CulledRenderer:
         for li in range(n_lights):
             ti = cull.tile_intervals_packed(prep.q_rev[li], self.rt,
                                             live=live_l[li], use_tmax=True)
-            m, e, _ = cull.multilevel_mask(ti, self.block_lo, self.block_hi,
+            m, e, _ = cull.multilevel_mask(ti, sc.block_lo, sc.block_hi,
                                            self.groups)
             tis.append(ti)
             smasks.append(m)
             sentries.append(e)
         if not n_lights:
-            ntop = self.block_lo.shape[0]
+            ntop = sc.block_lo.shape[0]
             for g in self.groups:
                 ntop = -(-ntop // g)
-            z3 = self.block_lo.new_zeros((0, 3))
+            z3 = sc.block_lo.new_zeros((0, 3))
             return (cull.TileIntervals(z3, z3, z3, z3,
-                                       t_hi=self.block_lo.new_zeros((0,))),
+                                       t_hi=sc.block_lo.new_zeros((0,))),
                     torch.zeros((0, nt, ntop), dtype=torch.bool,
                                 device=self.device),
-                    self.block_lo.new_zeros((0, nt, ntop)))
+                    sc.block_lo.new_zeros((0, nt, ntop)))
         sti = cull.TileIntervals(*(torch.cat([getattr(t, f) for t in tis])
                                    for f in cull.TileIntervals._fields))
         return sti, torch.stack(smasks), torch.stack(sentries)
 
     # -- stage C: shadow queries + shading -------------------------------
 
-    def _lit(self, s_pads: tuple, sh: _Shading):
+    def _lit(self, sc: DeviceScene, s_pads: tuple, sh: _Shading):
         """All lights' shadow queries in ONE bsr_any launch: the (light,
         tile) pairs are the tile axis of a single multi-level work list.
         Dead rays pre-seed the accumulator as 'hit' so fully-occluded tiles
@@ -410,14 +463,16 @@ class CulledRenderer:
                                  device=self.device),) * len(self.groups))
         r = prep.q_rev.shape[2]
         n_tiles = r // self.rt
-        nb = self.block_lo.shape[0]
+        nb = sc.block_lo.shape[0]
         mask = sh.smasks.reshape(n_lights * n_tiles, -1)
         entry = sh.sentries.reshape(n_lights * n_tiles, -1)
         wl, s_counts = cull.multilevel_worklist(sh.sti, mask, entry, sh.sc1,
-                                                self.block_lo, self.block_hi,
+                                                sc.block_lo, sc.block_hi,
                                                 self.groups, s_pads)
         q = prep.q_rev.permute(1, 0, 2).reshape(8, n_lights * r)
-        # Light l's origin-folded rows sit at block offset l * nb.
+        # Light l's origin-folded rows sit at block offset l * nb; the
+        # tensor-core form's direction matrix is shared by all lights
+        # (ablock_ids index it without the offset).
         light_of = torch.div(wl.tile_ids, n_tiles, rounding_mode="floor")
         block_ids = light_of * nb + wl.block_ids
         excl = (sh.hits_h.tri[None, :]
@@ -425,25 +480,29 @@ class CulledRenderer:
                                 device=self.device) * self.n_tris)[:, None]
                 ).reshape(-1)
         dead = (~sh.live_l).reshape(-1).to(torch.int32)
+        if self.use_mxu:
+            tris, a_ids = (sc.tris_dirs, sc.lights_scal), wl.block_ids
+        else:
+            tris, a_ids = sc.lights_scal, None
         hit = bsr_trace.bsr_any(
-            q, excl, self.lights_scal, wl.tile_ids, block_ids, wl.entry,
-            wl.count, dead, rt=self.rt, tb=self.tb, shared_origin=True,
+            q, excl, tris, wl.tile_ids, block_ids, wl.entry, wl.count, dead,
+            ablock_ids=a_ids, rt=self.rt, tb=self.tb, shared_origin=True,
             exit_every=self.exit_every)
         visited = self._visited_rays(wl, n_lights * n_tiles)
         lit = torch.where(visited, hit == 0, True).reshape(n_lights, r)
         return lit, s_counts
 
-    def _stage_shade(self, s_pads: tuple, sh: _Shading):
+    def _stage_shade(self, sc: DeviceScene, s_pads: tuple, sh: _Shading):
         """Shadow queries + Phong on the COMPACTED tile set -> ((3, C)
         local radiance rows, shadow counts)."""
-        lit, s_counts = self._lit(s_pads, sh)
-        return (shade.shade_core_packed(self.arrays, sh.view_h, sh.prep,
+        lit, s_counts = self._lit(sc, s_pads, sh)
+        return (shade.shade_core_packed(sc.arrays, sh.view_h, sh.prep,
                                         sh.hits_h, lit), s_counts)
 
-    def _stage_c(self, s_pads: tuple, sh: _Shading):
+    def _stage_c(self, sc: DeviceScene, s_pads: tuple, sh: _Shading):
         """Stage C of the primary frame: the shaded compact tiles written
         back tile by tile and assembled. Returns (image, shadow counts)."""
-        colours_h, s_counts = self._stage_shade(s_pads, sh)
+        colours_h, s_counts = self._stage_shade(sc, s_pads, sh)
         return (self._assemble(self._gather_tiles(colours_h, sh.tpos,
                                                   sh.hit_tile)), s_counts)
 
@@ -459,16 +518,17 @@ class CulledRenderer:
     def render(self, camera, block: bool = False) -> torch.Tensor:
         """Render a frame with exactly sized work lists (a few host syncs);
         returns an (H, W, 3) float32 tensor on the renderer's device."""
-        cam = self._camera(camera)
-        rays, ti, mask1, entry1, c1 = self._stage_a(cam)
-        p_pads, p_counts = self._size_pads(ti, mask1, entry1, c1)
+        sc, cam = self.dev_scene, self._camera(camera)
+        rays, ti, mask1, entry1, c1 = self._stage_a(sc, cam)
+        p_pads, p_counts = self._size_pads(sc, ti, mask1, entry1, c1)
         self._resolve_exit(p_counts[-1])
-        hits, hcount, _ = self._stage_b1(p_pads, rays, ti, mask1, entry1, c1)
+        hits, hcount, _ = self._stage_b1(sc, p_pads, rays, ti, mask1, entry1,
+                                         c1)
         ht_pad = _tile_bucket(int(hcount), self.n_tiles)
-        sh = self._stage_b2(ht_pad, rays, hits, cam.pos)
-        s_pads, s_counts = self._size_pads(sh.sti, sh.smasks, sh.sentries,
-                                           sh.sc1)
-        img, _ = self._stage_c(s_pads, sh)
+        sh = self._stage_b2(sc, ht_pad, rays, hits, cam.pos)
+        s_pads, s_counts = self._size_pads(sc, sh.sti, sh.smasks,
+                                           sh.sentries, sh.sc1)
+        img, _ = self._stage_c(sc, s_pads, sh)
         self._last_counts = p_counts + (int(sh.ht_count),) + s_counts
         if block:
             self._sync()
@@ -483,16 +543,16 @@ class CulledRenderer:
     # render_fast(verify=True) checks the true counts and refreezes on
     # overflow.
 
-    def _full(self, pads: tuple, cam: CameraArrays):
+    def _full(self, sc: DeviceScene, pads: tuple, cam: CameraArrays):
         """All stages with fixed buckets; pads layout == the counts layout.
         Returns (image, int32 counts on the device)."""
         nl = self.n_levels
         p_pads, h_pad, s_pads = pads[:nl], pads[nl], pads[nl + 1:]
-        rays, ti, mask1, entry1, c1 = self._stage_a(cam)
-        hits, _, p_counts = self._stage_b1(p_pads, rays, ti, mask1, entry1,
-                                           c1)
-        sh = self._stage_b2(h_pad, rays, hits, cam.pos)
-        img, s_counts = self._stage_c(s_pads, sh)
+        rays, ti, mask1, entry1, c1 = self._stage_a(sc, cam)
+        hits, _, p_counts = self._stage_b1(sc, p_pads, rays, ti, mask1,
+                                           entry1, c1)
+        sh = self._stage_b2(sc, h_pad, rays, hits, cam.pos)
+        img, s_counts = self._stage_c(sc, s_pads, sh)
         counts = torch.stack([c1, *p_counts, sh.ht_count, sh.sc1,
                               *s_counts])
         return img, counts
@@ -525,10 +585,17 @@ class CulledRenderer:
         (H, W, 3) tensor. With verify=True, reads the true counts and, if a
         bucket overflowed, refreezes and renders again — in a loop, since
         an overflowed level truncates the next level's reported count."""
+        return self._render_frozen(self.dev_scene, camera, verify,
+                                   "render_fast")
+
+    def _render_frozen(self, sc: DeviceScene, camera, verify: bool,
+                       name: str) -> torch.Tensor:
+        """render_fast on the scene arrays `sc` (`name` labels the warning
+        of a verify loop that does not converge)."""
         if self._frozen_pads is None:
             self.freeze(camera)
         cam = self._camera(camera)
-        img, counts = self._full(self._frozen_pads, cam)
+        img, counts = self._full(sc, self._frozen_pads, cam)
         if verify:
             fits = False
             for _ in range(8):   # each round strictly grows some bucket
@@ -538,11 +605,11 @@ class CulledRenderer:
                     break
                 self._last_counts = got
                 self.freeze(camera)   # grow-only
-                img, counts = self._full(self._frozen_pads, cam)
+                img, counts = self._full(sc, self._frozen_pads, cam)
             if not fits:
                 _log.warning(
-                    "render_fast verify did not converge in 8 rounds "
-                    "(counts %s vs pads %s); image may drop blocks",
+                    "%s verify did not converge in 8 rounds "
+                    "(counts %s vs pads %s); image may drop blocks", name,
                     tuple(counts.tolist()), self._frozen_pads)
         return img
 
@@ -577,14 +644,14 @@ class CulledRenderer:
                 self._gather_tiles(r_live_h, sh.tpos, sh.hit_tile,
                                    fill=False))
 
-    def _bounce(self, sh: _Shading, hits, throughput):
+    def _bounce(self, sc: DeviceScene, sh: _Shading, hits, throughput):
         """The next bounce's query from this one's shading: (rays, tile
         hulls, coarse mask, entry, count, exclude ids, viewer,
         throughput)."""
         rays, live = self._reflect_from(sh)
         ti = cull.tile_intervals_packed(rays, self.rt, live=live)
-        mask1, entry1, c1 = cull.multilevel_mask(ti, self.block_lo,
-                                                 self.block_hi, self.groups)
+        mask1, entry1, c1 = cull.multilevel_mask(ti, sc.block_lo,
+                                                 sc.block_hi, self.groups)
         ks = self._gather_tiles(sh.prep.ks, sh.tpos, sh.hit_tile)
         throughput = torch.where(hits.valid[None, :], throughput * ks, 0.0)
         view = self._gather_tiles(sh.prep.x, sh.tpos, sh.hit_tile)
@@ -599,33 +666,33 @@ class CulledRenderer:
         (per bounce, the counts layout of render())."""
         if depth < 0:
             raise ValueError(f"depth={depth}: must be >= 0")
-        cam = self._camera(camera)
-        rays, ti, mask1, entry1, c1 = self._stage_a(cam)
+        sc, cam = self.dev_scene, self._camera(camera)
+        rays, ti, mask1, entry1, c1 = self._stage_a(sc, cam)
         colour = rays.new_zeros((3, self.n_pad))
         throughput = rays.new_ones((3, self.n_pad))
         view, exclude = cam.pos, self._no_excl
         pads_used, counts_used = [], []
         for b in range(depth + 1):
-            p_pads, p_counts = self._size_pads(ti, mask1, entry1, c1)
+            p_pads, p_counts = self._size_pads(sc, ti, mask1, entry1, c1)
             if b == 0:
                 # Decided once, from primary density; every bounce uses it.
                 self._resolve_exit(p_counts[-1])
-            hits, hcount, _ = self._nearest(p_pads, self.tris_packed, rays,
+            hits, hcount, _ = self._nearest(sc, p_pads, sc.tris_packed, rays,
                                             exclude, ti, mask1, entry1, c1)
             ht_pad = _tile_bucket(int(hcount), self.n_tiles)
-            sh = self._stage_b2(ht_pad, rays, hits, view)
-            s_pads, s_counts = self._size_pads(sh.sti, sh.smasks,
+            sh = self._stage_b2(sc, ht_pad, rays, hits, view)
+            s_pads, s_counts = self._size_pads(sc, sh.sti, sh.smasks,
                                                sh.sentries, sh.sc1)
             pads_used.append(p_pads + (ht_pad,) + s_pads)
             # Raw (unbucketed) counts: freeze_bounced applies its margin to
             # these, never to already-rounded pads.
             counts_used.append(p_counts + (int(sh.ht_count),) + s_counts)
-            local_h, _ = self._stage_shade(s_pads, sh)
+            local_h, _ = self._stage_shade(sc, s_pads, sh)
             colour = colour + throughput * self._gather_tiles(
                 local_h, sh.tpos, sh.hit_tile)
             if b < depth:
                 (rays, ti, mask1, entry1, c1, exclude, view,
-                 throughput) = self._bounce(sh, hits, throughput)
+                 throughput) = self._bounce(sc, sh, hits, throughput)
         img = self._assemble(torch.clamp(colour, 0.0, 1.0))
         self._last_bounce_pads = tuple(pads_used)
         self._last_bounce_counts = tuple(counts_used)
@@ -639,25 +706,26 @@ class CulledRenderer:
         Returns (image, (B, 2*n_levels + 1) int32 true counts on the
         device), so callers can check the buckets and refreeze on overflow
         instead of silently dropping candidate blocks."""
-        nl = self.n_levels
-        rays, ti, mask1, entry1, c1 = self._stage_a(cam)
+        nl, sc = self.n_levels, self.dev_scene
+        rays, ti, mask1, entry1, c1 = self._stage_a(sc, cam)
         colour = rays.new_zeros((3, self.n_pad))
         throughput = rays.new_ones((3, self.n_pad))
         view, exclude = cam.pos, self._no_excl
         counts = []
         for b, b_pads in enumerate(pads):
             p_pads, ht_pad, s_pads = b_pads[:nl], b_pads[nl], b_pads[nl + 1:]
-            hits, _, p_counts = self._nearest(p_pads, self.tris_packed, rays,
-                                              exclude, ti, mask1, entry1, c1)
-            sh = self._stage_b2(ht_pad, rays, hits, view)
-            local_h, s_counts = self._stage_shade(s_pads, sh)
+            hits, _, p_counts = self._nearest(sc, p_pads, sc.tris_packed,
+                                              rays, exclude, ti, mask1,
+                                              entry1, c1)
+            sh = self._stage_b2(sc, ht_pad, rays, hits, view)
+            local_h, s_counts = self._stage_shade(sc, s_pads, sh)
             colour = colour + throughput * self._gather_tiles(
                 local_h, sh.tpos, sh.hit_tile)
             counts.append(torch.stack([c1, *p_counts, sh.ht_count, sh.sc1,
                                        *s_counts]))
             if b + 1 < len(pads):
                 (rays, ti, mask1, entry1, c1, exclude, view,
-                 throughput) = self._bounce(sh, hits, throughput)
+                 throughput) = self._bounce(sc, sh, hits, throughput)
         img = self._assemble(torch.clamp(colour, 0.0, 1.0))
         return img, torch.stack(counts)
 

@@ -4,15 +4,15 @@
 
 The counterpart of distributed_raytracer_tpu/run.py's default path: the
 single-device block-BVH renderer (`--mode culled`, with `--bounces N`
-Whitted reflection bounces) on an explicit device (`--device`, default
+Whitted reflection bounces, or `--animate-objects`: object 0 orbits
+through per-frame scene diffs) on an explicit device (`--device`, default
 cuda). With no display, the interactive loop becomes a scripted camera
 animation (default: orbit, the reference's benchmark motion); frames can
 be written as PNGs, and the exit report reproduces the master's FPS
 statistics (master/main.go:285-325) plus Mrays/s.
 
-The JAX package's other modes, `--animate-objects`, `--serve` and
-`--multihost` are not ported yet; asking for one exits with a message
-that says so.
+The JAX package's other modes, `--serve` and `--multihost` are not ported
+yet; asking for one exits with a message that says so.
 """
 
 from __future__ import annotations
@@ -38,7 +38,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--bounces", type=int, default=0,
                    help="Whitted reflection bounces (culled mode)")
     p.add_argument("--animate-objects", action="store_true",
-                   help="per-frame object motion (not ported)")
+                   help="orbit object 0 via per-frame SceneDiffs (the "
+                        "reference's per-WorkOrder EnvMutables, "
+                        "master/main.go:260-266; culled mode)")
+    p.add_argument("--object-radius", type=float, default=1.0,
+                   help="orbit radius for --animate-objects")
     p.add_argument("--serve", metavar="HOST:PORT", default=None,
                    help="browser viewer (not ported)")
     p.add_argument("--multihost", action="store_true",
@@ -63,8 +67,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def _unported(args) -> str | None:
     if args.mode != "culled":
         return f"--mode {args.mode}"
-    if args.animate_objects:
-        return "--animate-objects"
     if args.serve:
         return "--serve"
     if args.multihost:
@@ -91,10 +93,14 @@ def main(argv=None) -> int:
     if what is not None:
         raise SystemExit(f"{what} is not yet ported to "
                          "distributed_raytracer_tpu_torch (only --mode "
-                         "culled, with or without --bounces, is); use "
-                         "distributed_raytracer_tpu for it")
+                         "culled, with --bounces or --animate-objects, "
+                         "is); use distributed_raytracer_tpu for it")
     if args.bounces < 0:
         raise SystemExit(f"--bounces {args.bounces}: must be >= 0")
+    if args.animate_objects and args.bounces:
+        # The JAX package's message (its halo/ring modes are not ported).
+        raise SystemExit("--animate-objects supports --mode "
+                         "culled/halo/ring (--bounces on halo/ring)")
 
     from distributed_raytracer_tpu_torch.models.scene import load_scene
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
@@ -104,18 +110,34 @@ def main(argv=None) -> int:
     scene = load_scene(args.scene)
     w, h = args.width, args.height
 
-    # block_size="auto": the per-scene leaf policy
-    # (utils/config.default_block_size).
-    culled = CulledRenderer(scene, w, h, block_size="auto",
-                            device=args.device)
-    if args.bounces:
-        render = _periodic_verify(
-            culled.freeze_bounced(scene.camera, args.bounces))
+    if args.animate_objects:
+        # Per-frame object/light diffs through the frozen pipeline
+        # (ops/render_dynamic.py), block size 128 as in the JAX CLI.
+        from distributed_raytracer_tpu_torch.ops.render_dynamic import (
+            DynamicCulledRenderer)
+
+        diffs = animation.orbit_object_diffs(
+            scene, args.frames, radius=args.object_radius,
+            revolutions=args.revolutions)
+        dyn = DynamicCulledRenderer(scene, w, h, device=args.device)
+        dyn.render(scene.camera, block=True)
+        dyn.freeze(scene.camera)
+        render_k = lambda k, cam: dyn.render_dynamic(
+            cam, diffs[k], verify=(k % 8 == 0))
     else:
-        culled.render(scene.camera, block=True)
-        culled.freeze(scene.camera)
-        render = _periodic_verify(
-            lambda cam, v: culled.render_fast(cam, verify=v))
+        # block_size="auto": the per-scene leaf policy
+        # (utils/config.default_block_size).
+        culled = CulledRenderer(scene, w, h, block_size="auto",
+                                device=args.device)
+        if args.bounces:
+            render = _periodic_verify(
+                culled.freeze_bounced(scene.camera, args.bounces))
+        else:
+            culled.render(scene.camera, block=True)
+            culled.freeze(scene.camera)
+            render = _periodic_verify(
+                lambda cam, v: culled.render_fast(cam, verify=v))
+        render_k = lambda k, cam: render(cam)
 
     if args.animation == "none":
         poses = [scene.camera] * args.frames
@@ -132,7 +154,7 @@ def main(argv=None) -> int:
 
     # Warm up outside the timed loop (the reference never counts startup
     # either — its first frame just runs slow).
-    render(poses[0]).cpu()
+    render_k(0, poses[0]).cpu()
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -142,7 +164,7 @@ def main(argv=None) -> int:
     for k, cam in enumerate(poses):
         tick = time.monotonic()
         timer.frame_issued()
-        img = render(cam)
+        img = render_k(k, cam)
         if args.out:
             # u8 on the device before the host copy: 1 byte per channel
             # crosses instead of a float32.

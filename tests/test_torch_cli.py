@@ -2,8 +2,9 @@
 
 `python -m distributed_raytracer_tpu_torch` renders the tetra scene on the
 CPU and must write the frames the port's own render() (render_bounced()
-with --bounces) gives; the modes that are not ported yet exit non-zero with
-a message that names them. The runtime
+with --bounces, render_dynamic() with --animate-objects) gives; the modes
+that are not ported yet exit non-zero with a message that names them. The
+runtime
 helpers copied from the JAX package (FPS statistics, PNG encoding, the orbit
 path) must give identical results.
 """
@@ -71,7 +72,7 @@ def test_cli_writes_the_frames_render_gives(scene_path, tmp_path):
 @pytest.mark.parametrize("flags,name", [
     (["--mode", "sequential"], "--mode sequential"),
     (["--mode", "ring"], "--mode ring"),
-    (["--animate-objects"], "--animate-objects"),
+    (["--mode", "sharded"], "--mode sharded"),
     (["--serve", "127.0.0.1:0"], "--serve"),
     (["--multihost"], "--multihost"),
 ])
@@ -96,6 +97,43 @@ def test_cli_bounces_report_fps(scene_path, tmp_path, capsys):
         want = framebuffer.to_u8(r.render_bounced(cam, 1).numpy())
         got = jframebuffer.read_png(os.path.join(out, f"frame_{k:05d}.png"))
         np.testing.assert_array_equal(got, want)
+
+
+def test_cli_animate_objects_writes_render_dynamic_frames(scene_path,
+                                                         tmp_path, capsys):
+    """Object 0 orbits through per-frame SceneDiffs (block size 128 and a
+    verify every 8th frame, as in the JAX CLI)."""
+    from distributed_raytracer_tpu_torch.ops.render_dynamic import (
+        DynamicCulledRenderer)
+
+    out = str(tmp_path / "frames")
+    assert run.main([scene_path, "64", "48", "--animate-objects", "--frames",
+                     "3", "--object-radius", "0.5", "--fps-target", "0",
+                     "--device", "cpu", "--out", out, "--radius", "3"]) == 0
+    report = capsys.readouterr().out
+    assert "Mean FPS" in report and "Throughput" in report
+    scene = load_scene(scene_path)
+    r = DynamicCulledRenderer(scene, 64, 48, device="cpu")
+    r.render(scene.camera, block=True)
+    r.freeze(scene.camera)
+    diffs = animation.orbit_object_diffs(scene, 3, radius=0.5)
+    poses = animation.orbit_camera_path(scene.camera, 3, radius=3.0)
+    frames = set()
+    for k, cam in enumerate(poses):
+        want = framebuffer.to_u8(r.render_dynamic(cam, diffs[k],
+                                                  verify=True).numpy())
+        got = jframebuffer.read_png(os.path.join(out, f"frame_{k:05d}.png"))
+        np.testing.assert_array_equal(got, want)
+        frames.add(got.tobytes())
+    assert len(frames) == 3
+
+
+def test_cli_animate_objects_refuses_bounces(scene_path):
+    with pytest.raises(SystemExit) as exc:
+        run.main([scene_path, "64", "48", "--animate-objects", "--bounces",
+                  "1", "--device", "cpu"])
+    assert exc.value.code == ("--animate-objects supports --mode "
+                              "culled/halo/ring (--bounces on halo/ring)")
 
 
 def test_unported_mode_exits_nonzero(scene_path):
