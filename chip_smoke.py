@@ -67,10 +67,32 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      the moved scene; a zero diff equals render_fast exactly; one call
      under sync-debug "error"; the counters show the kernel form asked for;
      median frame time per form.
+  4. The dense, ray-sharded and ring renderers on the sphere grid
+     (instanced_grid(icosphere_scene(3), 4): 20,480 triangles, 3 lights) at
+     640x480, the ranks all on cuda:0 (n ranks share the card, each with
+     its own compute and copy streams).
+     4a. K6 and K7 (the ring step kernels) against ring_nearest_ref and
+     ring_any_ref on the frame's own primary and shadow rays (recorded from
+     one use_rdma=True frame), for n = 1, 2 and 4 ranks: torch.equal on
+     every rank. At n = 4: the kernel transport per query against the plain
+     version (median of 10 synchronized calls; the plain version's compared
+     call), and from a torch.profiler trace
+     of one query the kernel time of one step, the copy time of one step
+     and the share of copy time that ran under a kernel.
+     4b. render_frame (dense, one device), then make_ring_renderer over 4
+     ranks with use_rdma=True and use_rdma=False, each held to the ring
+     tests' bound against the dense frame (max-channel diff > 2/255 on
+     < 0.2% of pixels, mean |diff| < 1e-4); 8 RDMA frames, each
+     bit-identical to the first (a missing event wait shows up as a frame
+     that changes from run to run); ms per frame of each. The ring launch
+     counters are reset before the RDMA frames; K6 and K7 must be > 0.
+     4c. make_sharded_renderer over 4 ranks equals render_frame to atol
+     2e-5.
   3. The command line: the 640x480 sphere written as OBJ + scene.json, 30
      frames through distributed_raytracer_tpu_torch.run.main on cuda; then
      the sphere grid, 8 frames at 1920x1080 with --bounces 2, and 8 with
-     --animate-objects.
+     --animate-objects; 3 frames at 320x240 with --mode sequential and
+     with --mode sharded --devices 4.
 
 Prints the versions, the card's name and power limit, the build time and
 each kernel's registers and spills, each phase's numbers, one JSON line of
@@ -102,18 +124,27 @@ BW, BH, DEPTH = 1920, 1080, 2
 GRID_SUBDIV, GRID_N = 3, 4
 BOUNCE_ORBIT = 8
 DYN_FRAMES = 16
+# Phase 4: the ring's rank counts (all on cuda:0) and the RDMA frames.
+RING_RANKS = (1, 2, 4)
+RING_N = 4
+RING_FRAMES = 8
 SOURCE = "distributed_raytracer_tpu_torch/csrc/bsr_trace.cu"
+RING_SOURCE = "distributed_raytracer_tpu_torch/csrc/ring_trace.cu"
 _PALLAS = "distributed_raytracer_tpu/ops/pallas/bsr_trace.py"
+_PALLAS_RING = "distributed_raytracer_tpu/ops/pallas/ring_trace.py"
 WRAPPERS = ("bsr_nearest", "bsr_any")
-# Per kernel (its LAUNCHES key): (its id in PERF.md's kernel table, the
-# TPU kernel it replaces).
+RING_WRAPPERS = ("ring_nearest", "ring_any")
+# Per kernel (its LAUNCHES key): (its id in PERF.md's kernel table, its
+# source, the TPU kernel it replaces).
 KERNELS = {
-    "bsr_nearest": ("K1", f"{_PALLAS}:356"),
-    "bsr_any": ("K2", f"{_PALLAS}:411"),
-    "bsr_nearest_rays": ("K3n", f"{_PALLAS}:356"),
-    "bsr_any_rays": ("K3a", f"{_PALLAS}:411"),
-    "bsr_nearest_mxu": ("K4", f"{_PALLAS}:287"),
-    "bsr_any_mxu": ("K5", f"{_PALLAS}:324"),
+    "bsr_nearest": ("K1", SOURCE, f"{_PALLAS}:356"),
+    "bsr_any": ("K2", SOURCE, f"{_PALLAS}:411"),
+    "bsr_nearest_rays": ("K3n", SOURCE, f"{_PALLAS}:356"),
+    "bsr_any_rays": ("K3a", SOURCE, f"{_PALLAS}:411"),
+    "bsr_nearest_mxu": ("K4", SOURCE, f"{_PALLAS}:287"),
+    "bsr_any_mxu": ("K5", SOURCE, f"{_PALLAS}:324"),
+    "ring_nearest": ("K6", RING_SOURCE, f"{_PALLAS_RING}:57"),
+    "ring_any": ("K7", RING_SOURCE, f"{_PALLAS_RING}:57"),
 }
 
 
@@ -156,9 +187,12 @@ def print_ptxas(log: str) -> None:
         if m:
             k = re.search(r"(nearest|any)_kernelILi(\d+)ELb([01])E", m.group(1))
             x = re.search(r"(nearest|any)_mxu_kernelILi(\d+)E", m.group(1))
+            g = re.search(r"ring_step_kernelILi(\d+)ELb([01])E", m.group(1))
             name = (f"{k.group(1)}_kernel<RPT={k.group(2)}, shared="
                     f"{'true' if k.group(3) == '1' else 'false'}>" if k
                     else f"{x.group(1)}_mxu_kernel<NT={x.group(2)}>" if x
+                    else f"ring_step_kernel<RPT={g.group(1)}, any="
+                         f"{'true' if g.group(2) == '1' else 'false'}>" if g
                     else m.group(1))
             spill = ""
         elif "spill" in line:
@@ -170,17 +204,17 @@ def print_ptxas(log: str) -> None:
 
 
 @contextlib.contextmanager
-def wrappers_replaced(bsr_trace, make):
-    """Within the block, bsr_trace.<name> is make(name, original) for each
+def wrappers_replaced(module, make, names=WRAPPERS):
+    """Within the block, module.<name> is make(name, original) for each
     wrapper name; the originals come back afterwards."""
-    originals = {name: getattr(bsr_trace, name) for name in WRAPPERS}
+    originals = {name: getattr(module, name) for name in names}
     for name, fn in originals.items():
-        setattr(bsr_trace, name, make(name, fn))
+        setattr(module, name, make(name, fn))
     try:
         yield
     finally:
         for name, fn in originals.items():
-            setattr(bsr_trace, name, fn)
+            setattr(module, name, fn)
 
 
 def recording(bsr_trace, seen: dict):
@@ -456,10 +490,11 @@ def phase_bounced(renderer, scene, bsr_trace):
     return launches, sync
 
 
-def close_frames(what: str, got, want, mean_bound: float = 1e-4):
+def close_frames(what: str, got, want, mean_bound: float = 1e-4,
+                 frac_bound: float = 0.005):
     """Checks the culled-vs-dense bound between two (H, W, 3) frames:
-    max-channel diff > 2/255 on < 0.5% of pixels and mean |diff| below
-    `mean_bound`; prints both numbers."""
+    max-channel diff > 2/255 on < `frac_bound` of pixels (0.5%) and mean
+    |diff| below `mean_bound`; prints both numbers."""
     import numpy as np
 
     got = got.cpu().numpy() if hasattr(got, "cpu") else got
@@ -469,7 +504,7 @@ def close_frames(what: str, got, want, mean_bound: float = 1e-4):
     mean = float(diff.mean())
     print(f"  {what}: max {diff.max():.3e}, {frac:.6%} of pixels > 2/255, "
           f"mean {mean:.3e}")
-    check(frac < 0.005 and mean < mean_bound, f"{what}: frames differ")
+    check(frac < frac_bound and mean < mean_bound, f"{what}: frames differ")
     return frac, mean
 
 
@@ -733,6 +768,207 @@ def phase_dynamic(grid, bsr_trace):
     return launches
 
 
+def ring_renderer(arrays, n: int, use_rdma: bool):
+    """make_ring_renderer over n ranks that all share cuda:0."""
+    from distributed_raytracer_tpu_torch.parallel import ring
+
+    return ring.make_ring_renderer(ring.pad_for_ring(arrays, n), W, H,
+                                   mesh=["cuda:0"] * n, use_rdma=use_rdma)
+
+
+def record_ring(render, cam, ring_trace) -> dict:
+    """{wrapper: (args, kwargs)} of the ring kernels' calls in one frame."""
+    seen = {}
+
+    def make(name, fn):
+        def call(*args, **kwargs):
+            seen[name] = (args, dict(kwargs))
+            return fn(*args, **kwargs)
+        return call
+
+    with wrappers_replaced(ring_trace, make, RING_WRAPPERS):
+        render(cam)
+    return seen
+
+
+def outputs_equal(got, want) -> bool:
+    """Per-rank lists (or tuples of lists) of tensors, all torch.equal."""
+    import torch
+
+    if isinstance(got, tuple):
+        return all(outputs_equal(g, w) for g, w in zip(got, want))
+    return all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+
+
+def ring_trace_profile(fn):
+    """Runs fn() once under torch.profiler; returns (mean kernel ms, mean
+    copy ms, share of copy time under a kernel, kernel count, copy count),
+    or None when the trace holds no device kernels."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f).get("traceEvents", [])
+    kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
+               if e.get("cat") == "kernel" and "ring_step_kernel" in
+               e.get("name", "")]
+    copies = [(e["ts"], e["ts"] + e["dur"]) for e in events
+              if e.get("cat") == "gpu_memcpy"]
+    if not kernels:
+        return None
+    under = 0.0
+    for c0, c1 in copies:
+        # Union of the kernel intervals that meet the copy.
+        spans = sorted((max(c0, k0), min(c1, k1)) for k0, k1 in kernels
+                       if k0 < c1 and k1 > c0)
+        end = c0
+        for a, b in spans:
+            a = max(a, end)
+            if b > a:
+                under += b - a
+                end = b
+    copy_total = sum(b - a for a, b in copies)
+    k_ms = statistics.mean(b - a for a, b in kernels) / 1e3
+    c_ms = statistics.mean(b - a for a, b in copies) / 1e3 if copies else 0.0
+    share = under / copy_total if copy_total else 0.0
+    return k_ms, c_ms, share, len(kernels), len(copies)
+
+
+def phase_ring_kernels(grid, ring_trace):
+    """Phase 4a: K6 and K7 against their plain versions on the frame's own
+    rays for n = 1, 2, 4 ranks on cuda:0; timed at n = RING_N."""
+    import torch
+
+    arrays = grid.bake()
+    results = {}
+    for n in RING_RANKS:
+        render = ring_renderer(arrays, n, use_rdma=True)
+        seen = record_ring(render, grid.camera, ring_trace)
+        check(set(seen) == set(RING_WRAPPERS), f"recorded {sorted(seen)}")
+        for name in RING_WRAPPERS:
+            args, kwargs = seen[name]
+            kernel = getattr(ring_trace, name)
+            plain = getattr(ring_trace, name + "_ref")
+            got = kernel(*args, **kwargs)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(*args, **kwargs)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            check(outputs_equal(got, want),
+                  f"{name} (n={n}) differs from its plain version")
+            rays = args[1]
+            hits = (sum(int(torch.isfinite(t).sum()) for t in want[0])
+                    if name == "ring_nearest"
+                    else sum(int(h.sum()) for h in want))
+            line = (f"[phase 4a] {KERNELS[name][0]} {name} n={n}: "
+                    f"{n} x R_loc={rays[0].shape[1]} rays, T_loc="
+                    f"{args[2][0].shape[0]}, rt={kwargs['rt']}; torch.equal "
+                    f"to the plain version on every rank; "
+                    f"{'hits' if name == 'ring_nearest' else 'occluded'} "
+                    f"{hits}")
+            if n == RING_N:
+                ms = time_ms(lambda: kernel(*args, **kwargs), repeats=10)
+                prof = ring_trace_profile(lambda: kernel(*args, **kwargs))
+                if prof is None:
+                    line += ("; profile: no device kernels in the trace "
+                             "(step and copy times not measured)")
+                else:
+                    k_ms, c_ms, share, nk, nc = prof
+                    line += (f"; step kernel {k_ms:.4f} ms (mean of {nk}), "
+                             f"step copy {c_ms:.4f} ms (mean of {nc}), "
+                             f"{share:.1%} of copy time under a kernel")
+                line += (f"; transport {ms:.3f} ms per query (median of 10),"
+                         f" plain {plain_ms:.3f} ms (the compared call)")
+                results[name] = {"max_abs_err": 0.0, "ms": ms,
+                                 "plain_ms": plain_ms}
+            print(line)
+    return results
+
+
+def phase_ring_frames(grid, ring_trace):
+    """Phase 4b and 4c: the dense frame, the ring frames of both
+    transports over RING_N ranks, the ray-sharded frame."""
+    import numpy as np
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops.render import (render_frame,
+                                                            scene_on)
+    from distributed_raytracer_tpu_torch.parallel import render_sharded
+
+    arrays = grid.bake()
+    dev_arrays = scene_on(arrays, "cuda:0")
+    t0 = time.perf_counter()
+    dense = render_frame(dev_arrays, grid.camera, W, H)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    dense_ms = time_ms(lambda: render_frame(dev_arrays, grid.camera, W, H),
+                       repeats=1, warmup=0)
+    hit = float((dense.sum(-1) > 0).float().mean())
+    print(f"[phase 4b] dense render_frame {W}x{H}, {arrays.p0.shape[0]} "
+          f"triangles: first call {dense_s * 1e3:.1f} ms, second {dense_ms:.1f} "
+          f"ms; hit fraction {hit:.4f}")
+    check(hit > 0.05, f"hit fraction {hit}")
+
+    rdma = ring_renderer(arrays, RING_N, use_rdma=True)
+    rdma(grid.camera)                                      # warm-up
+    torch.cuda.synchronize()
+    for name in ring_trace.LAUNCHES:
+        ring_trace.LAUNCHES[name] = 0
+    frames, ms = [], []
+    for _ in range(RING_FRAMES):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frames.append(rdma(grid.camera))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(ring_trace.LAUNCHES)
+    print(f"[phase 4b] ring use_rdma=True, {RING_N} ranks on cuda:0: "
+          f"{[round(t, 3) for t in ms]} ms per frame, median "
+          f"{statistics.median(ms):.3f}; launches {launches} (mesh "
+          f"{[str(d) for d in rdma.mesh]})")
+    for name in RING_WRAPPERS:
+        check(launches[name] > 0, f"{name} was not launched on the path")
+    same = sum(bool(torch.equal(f, frames[0])) for f in frames)
+    print(f"[phase 4b] {same} of {RING_FRAMES} RDMA frames bit-identical to "
+          "the first")
+    check(same == RING_FRAMES, "RDMA ring frames differ from run to run")
+    close_frames("ring use_rdma=True vs dense", frames[0], dense,
+                 frac_bound=0.002)
+
+    scan = ring_renderer(arrays, RING_N, use_rdma=False)
+    t0 = time.perf_counter()
+    scan_img = scan(grid.camera)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    scan_ms = time_ms(lambda: scan(grid.camera), repeats=1, warmup=0)
+    print(f"[phase 4b] ring use_rdma=False (ppermute scan, plain torch), "
+          f"{RING_N} ranks on cuda:0: first call {scan_s * 1e3:.1f} ms, "
+          f"second {scan_ms:.1f} ms")
+    close_frames("ring use_rdma=False vs dense", scan_img, dense,
+                 frac_bound=0.002)
+
+    sharded = render_sharded.make_sharded_renderer(W, H,
+                                                   mesh=["cuda:0"] * RING_N)
+    img = sharded(dev_arrays, grid.camera)
+    sharded_ms = time_ms(lambda: sharded(dev_arrays, grid.camera),
+                         repeats=1, warmup=0)
+    diff = float((img - dense).abs().max())
+    print(f"[phase 4c] sharded {RING_N} ranks on cuda:0: {sharded_ms:.1f} ms "
+          f"(second call); max |diff| vs render_frame {diff}")
+    check(tuple(img.shape) == (H, W, 3) and diff <= 2e-5,
+          "sharded frame differs from render_frame")
+    check(bool(np.isfinite(dense.cpu().numpy()).all()), "dense frame finite")
+    return launches
+
+
 def write_scene(d: str, scene, mesh) -> str:
     """The scene as OBJ + MTL + scene.json (the reference's schema): one
     mesh, one `objs` entry per object of the scene."""
@@ -802,6 +1038,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from distributed_raytracer_tpu_torch.ops import _build, bsr_trace
+    from distributed_raytracer_tpu_torch.ops import ring_trace
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
     from distributed_raytracer_tpu_torch.utils import scenes
 
@@ -810,9 +1047,10 @@ def main() -> int:
     card = gpu_query()
     print(f"gpu: {card}")
     t0 = time.perf_counter()
-    _build.load_library()
+    _build.build_all()          # one nvcc per source, side by side
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    print_ptxas(_build.build_logs.get("bsr_trace", ""))
+    for name in ("bsr_trace", "ring_trace"):
+        print_ptxas(_build.build_logs.get(name, ""))
 
     scene = scenes.icosphere_scene(SUBDIV)
     t0 = time.perf_counter()
@@ -842,9 +1080,11 @@ def main() -> int:
     runs = [got, phase_frame_mxu(mxu, renderer, scene, bsr_trace, plain0),
             phase_bounced_mxu(grid, bounced, bsr_trace, sync_k2),
             phase_dynamic(grid, bsr_trace)]
+    kernels.update(phase_ring_kernels(grid, ring_trace))
+    runs.append(phase_ring_frames(grid, ring_trace))
     for got in runs:
         for key, n in got.items():
-            launches[key] += n
+            launches[key] = launches.get(key, 0) + n
     mesh = scenes.icosphere_mesh(SUBDIV)
     grid_mesh = scenes.icosphere_mesh(GRID_SUBDIV)
     run_cli(scene, mesh, (W, H), 30, [])
@@ -852,11 +1092,15 @@ def main() -> int:
             ["--bounces", str(DEPTH), "--revolutions", "0.1"])
     run_cli(grid, grid_mesh, (BW, BH), 8,
             ["--animate-objects", "--revolutions", "0.1"])
+    for flags in (["--mode", "sequential"],
+                  ["--mode", "sharded", "--devices", str(RING_N)]):
+        run_cli(grid, grid_mesh, (320, 240), 3,
+                flags + ["--revolutions", "0.1"])
 
     print(f"gpu: {gpu_query()}")
     print(json.dumps({"kernels": [
-        {"name": key, "route": "cuda", "source": SOURCE,
-         "replaces": KERNELS[key][1], "kernel": KERNELS[key][0],
+        {"name": key, "route": "cuda", "source": KERNELS[key][1],
+         "replaces": KERNELS[key][2], "kernel": KERNELS[key][0],
          "launches": launches[key], **kernels[key]} for key in KERNELS]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

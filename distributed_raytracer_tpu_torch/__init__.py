@@ -8,9 +8,12 @@ never jax.
 
 Layout (each module mirrors the JAX package's module of the same path):
   models/    camera, OBJ/MTL meshes, scenes, the block BVH bake (numpy)
-  ops/       ray generation, culling, shading and the culled renderer
-             (torch); ops/bsr_trace.py holds the traversal kernels' wrappers
-             and plain versions, csrc/ their CUDA source
+  ops/       ray generation, culling, shading, the dense and culled
+             renderers (torch); ops/bsr_trace.py and ops/ring_trace.py hold
+             the kernels' wrappers and plain versions, csrc/ their CUDA
+             source
+  parallel/  ranks as an explicit device list (mesh.py), the ray-sharded
+             dense renderer and the geometry ring
   runtime/   framebuffer output, FPS statistics, camera animation
   utils/     config and procedural scenes
   run.py     the command-line renderer (python -m distributed_raytracer_tpu_torch)

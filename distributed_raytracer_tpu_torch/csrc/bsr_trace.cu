@@ -68,9 +68,9 @@
 // nx*dx + ny*dy + nz*dz into fused multiply-adds, which round once instead
 // of twice and would make t, u and v differ from the plain PyTorch version
 // (and the JAX reference) in the last bit, flipping hit decisions on shared
-// edges. With it, the pair math below is the operation order of _pair_math
-// (bsr_trace.py:236-248), rounded after every operation, and matches the
-// plain version bit for bit. That matters most for the exclusion of the
+// edges. With it, the pair math (pair_math.cuh) is the operation order
+// of _pair_math (bsr_trace.py:236-248), rounded after every operation,
+// and matches the plain version bit for bit. That matters most for the exclusion of the
 // previous bounce's triangle, which keeps a reflection ray off its own
 // surface only if both versions agree on every id.
 //
@@ -81,12 +81,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "pair_math.cuh"  // kEps, kOneEps, pair_math<kShared>
+
 namespace {
 
 constexpr int kThreads = 128;
-// ops/intersect.py BARY_EPS, rounded as the Python float is rounded to f32.
-constexpr float kEps = (float)1e-4;
-constexpr float kOneEps = (float)(1.0 + 1e-4);
 constexpr float kExitSlack = (float)1e-4;  // guards f32 interval math
 
 // What every launch takes besides its accumulators.
@@ -123,33 +122,6 @@ struct RayRegs {
     }
   }
 };
-
-// Baldwin-Weber for one (triangle, ray) pair.
-// a = (nx, ny, nz, w), b = (kux, kuy, kuz, w_u), c = (kvx, kvy, kvz, w_v).
-template <bool kShared>
-__device__ __forceinline__ bool pair_math(const float4 a, const float4 b,
-                                          const float4 c, float ox, float oy,
-                                          float oz, float dx, float dy,
-                                          float dz, float* t_out) {
-  const float den = a.x * dx + a.y * dy + a.z * dz;
-  float t, au, av;
-  if (kShared) {
-    t = a.w / den;
-    au = b.w;
-    av = c.w;
-  } else {
-    const float o_n = a.x * ox + a.y * oy + a.z * oz;
-    t = (a.w - o_n) / den;
-    au = (b.x * ox + b.y * oy + b.z * oz) + b.w;
-    av = (c.x * ox + c.y * oy + c.z * oz) + c.w;
-  }
-  const float u = au + t * (b.x * dx + b.y * dy + b.z * dz);
-  const float v = av + t * (c.x * dx + c.y * dy + c.z * dz);
-  *t_out = t;
-  const float uv = u + v;
-  return (den != 0.0f) & (t >= 0.0f) & (u >= -kEps) & (u <= kOneEps) &
-         (uv >= -kEps) & (uv <= kOneEps) & (v >= -kEps);
-}
 
 // First index in [lo, hi) with a[i] >= key (a ascending).
 __device__ int lower_bound(const int* __restrict__ a, int lo, int hi,

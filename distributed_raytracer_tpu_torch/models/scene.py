@@ -2,8 +2,8 @@
 
 A copy of distributed_raytracer_tpu/models/scene.py with its logic unchanged
 (the per-object grouped bake `bake_bvh_grouped` and the per-frame
-`SceneDiff` included), plus `from_reference`, which takes the JAX package's
-bake as it is.
+`SceneDiff` included), plus `arrays_from_reference` and `from_reference`,
+which take the JAX package's bake as it is.
 
 The reference splits an Environment into immutables (mesh library) and
 mutables (object R-tree + lights + camera) with gob serialization and
@@ -463,19 +463,14 @@ def _check_array(name: str, a, shape, dtype) -> np.ndarray:
     return a
 
 
-def from_reference(arrays, tree):
-    """The JAX package's bake, `(SceneArrays, BlockBVH)` from
-    distributed_raytracer_tpu's `Scene.bake_bvh`, as this package's pair.
-
-    Both are NamedTuples of numpy arrays; field names, shapes and dtypes are
-    checked, so `CulledRenderer(None, W, H, prebaked=from_reference(...))`
-    renders from exactly the reference's triangle order and leaf blocks."""
-    from distributed_raytracer_tpu_torch.models.bvh import BlockBVH
-
+def arrays_from_reference(arrays) -> SceneArrays:
+    """The JAX package's flat bake (`Scene.bake()` of
+    distributed_raytracer_tpu, a NamedTuple of numpy arrays) as this
+    package's SceneArrays. Field names, shapes and dtypes are checked, not
+    converted, so the dense, sharded and ring renderers see exactly the
+    reference's arrays."""
     if tuple(arrays._fields) != SceneArrays._fields:
         raise ValueError(f"SceneArrays fields differ: {arrays._fields}")
-    if tuple(tree._fields) != BlockBVH._fields:
-        raise ValueError(f"BlockBVH fields differ: {tree._fields}")
     t = np.asarray(arrays.p0).shape[0]
     m = np.asarray(arrays.mat_ka).shape[0]
     n_lights = np.asarray(arrays.light_pos).shape[0]
@@ -488,11 +483,27 @@ def from_reference(arrays, tree):
         dtype = np.int32 if name == "mat_id" else np.float32
         fields[name] = _check_array(name, getattr(arrays, name),
                                     shapes.get(name, (t, 3)), dtype)
+    return SceneArrays(**fields)
+
+
+def from_reference(arrays, tree):
+    """The JAX package's bake, `(SceneArrays, BlockBVH)` from
+    distributed_raytracer_tpu's `Scene.bake_bvh`, as this package's pair.
+
+    Both are NamedTuples of numpy arrays; field names, shapes and dtypes are
+    checked (`arrays_from_reference`), so `CulledRenderer(None, W, H,
+    prebaked=from_reference(...))` renders from exactly the reference's
+    triangle order and leaf blocks."""
+    from distributed_raytracer_tpu_torch.models.bvh import BlockBVH
+
+    if tuple(tree._fields) != BlockBVH._fields:
+        raise ValueError(f"BlockBVH fields differ: {tree._fields}")
+    arrays = arrays_from_reference(arrays)
+    t = arrays.p0.shape[0]
     bs = int(tree.block_size)
     if bs <= 0 or t % bs:
         raise ValueError(f"block_size {bs} does not divide {t} triangles")
     nb = t // bs
     lo = _check_array("block_lo", tree.block_lo, (nb, 3), np.float32)
     hi = _check_array("block_hi", tree.block_hi, (nb, 3), np.float32)
-    return SceneArrays(**fields), BlockBVH(block_lo=lo, block_hi=hi,
-                                           block_size=bs)
+    return arrays, BlockBVH(block_lo=lo, block_hi=hi, block_size=bs)

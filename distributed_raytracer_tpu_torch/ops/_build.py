@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels (csrc/*.cu) on first use.
 
 Each source is compiled by `nvcc` into a shared library with a plain C
-interface and loaded with ctypes. The library lands in
-distributed_raytracer_tpu_torch/_build/ (listed in .gitignore) under a name
-keyed by a hash of the source and the flags, so an edited source rebuilds and
-an unchanged one loads the library already built. A failed build raises with
-nvcc's output; nothing falls back.
+interface and loaded with ctypes: csrc/bsr_trace.cu (K1-K5) and
+csrc/ring_trace.cu (K6, K7), both including csrc/pair_math.cuh. The
+library lands in distributed_raytracer_tpu_torch/_build/ (listed in
+.gitignore) under a name keyed by a hash of the source, the shared headers
+and the flags, so an edited source rebuilds and an unchanged one loads the
+library already built. `build_all()` runs one nvcc per source, all at
+once. A failed build raises with nvcc's output; nothing falls back.
 
 Importing this module builds nothing and needs no CUDA toolkit.
 """
@@ -18,6 +20,7 @@ import os
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -30,7 +33,6 @@ BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v")
 
-_lock = threading.Lock()
 _libs: dict = {}
 # nvcc's output per library, kept for reports (ptxas prints each kernel's
 # registers, shared memory and spills).
@@ -51,7 +53,16 @@ _SIGNATURES = {
                                    _i32, _p, _p, _p, _i32, _i32, _i32, _p]),
         "drt_cuda_error_string": (ctypes.c_char_p, [_i32]),
     },
+    "ring_trace": {
+        "drt_ring_nearest_step": (_i32, [_p, _i64, _p, _p, _i32, _i32, _p,
+                                         _p, _i32, _i32, _p]),
+        "drt_ring_any_step": (_i32, [_p, _i64, _p, _p, _i32, _i32, _p, _i32,
+                                     _i32, _p]),
+        "drt_cuda_error_string": (ctypes.c_char_p, [_i32]),
+    },
 }
+# One lock per library: two libraries build at once, one never twice.
+_locks = {name: threading.Lock() for name in _SIGNATURES}
 
 
 def _nvcc() -> str:
@@ -69,6 +80,8 @@ def _compile(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     nvcc = _nvcc()
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join((nvcc,) + NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
@@ -95,7 +108,7 @@ def _compile(name: str) -> Path:
 def load_library(name: str = "bsr_trace") -> ctypes.CDLL:
     """The compiled csrc/<name>.cu as a ctypes library, building it first if
     needed, with argtypes/restype set for every exported function."""
-    with _lock:
+    with _locks[name]:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(str(_compile(name)))
@@ -104,3 +117,20 @@ def load_library(name: str = "bsr_trace") -> ctypes.CDLL:
                 f.restype, f.argtypes = restype, argtypes
             _libs[name] = lib
         return lib
+
+
+def build_all() -> None:
+    """Build (or load) every library, one nvcc per source, all at once."""
+    with ThreadPoolExecutor(len(_SIGNATURES)) as pool:
+        list(pool.map(load_library, _SIGNATURES))
+
+
+def launch(name: str, fn, *args) -> None:
+    """Calls fn, a C entry of library `name` that launches a kernel and
+    returns cudaGetLastError(); raises with CUDA's message if it is not 0
+    (a refused launch never runs, and a synchronize would not report it)."""
+    err = fn(*args)
+    if err:
+        msg = load_library(name).drt_cuda_error_string(err).decode()
+        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} "
+                           f"({msg})")

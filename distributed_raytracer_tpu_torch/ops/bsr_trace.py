@@ -102,6 +102,18 @@ def pack_tris(scene_arrays) -> np.ndarray:
     return packed
 
 
+def pack_rays(origins: torch.Tensor, dirs: torch.Tensor,
+              t_max: torch.Tensor | None = None) -> torch.Tensor:
+    """[8, R] float32 ray rows from (R, 3) directions; origins (R, 3) or
+    (3,) shared; t_max (R,) or None for inf (as in the JAX package's
+    pack_rays)."""
+    r = dirs.shape[0]
+    o = origins[None, :].expand(r, 3) if origins.dim() == 1 else origins
+    tmax = (dirs.new_full((r,), float("inf")) if t_max is None else t_max)
+    return torch.stack([o[:, 0], o[:, 1], o[:, 2], dirs[:, 0], dirs[:, 1],
+                        dirs[:, 2], tmax, dirs.new_zeros((r,))])
+
+
 def pack_rays_rows(origins: torch.Tensor, d_rows: torch.Tensor,
                    t_max: torch.Tensor | None = None) -> torch.Tensor:
     """[8, R] rays from (3, R) direction rows. origins (3, R) rows or (3,)
@@ -270,14 +282,6 @@ def _init(name, x, fill, dtype, r, dev):
     return _check(name, x, dtype, (r,), dev)
 
 
-def _launch(fn, *args):
-    err = fn(*args)
-    if err:
-        lib = _build.load_library()
-        raise RuntimeError(f"{fn.__name__} launch failed: CUDA error {err} "
-                           f"({lib.drt_cuda_error_string(err).decode()})")
-
-
 def _ptr(x: torch.Tensor, align: int = 4) -> int:
     p = x.data_ptr()
     if p % align:
@@ -342,11 +346,12 @@ def bsr_nearest(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
         form = () if mxu else (int(shared_origin),)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            _launch(fn, _ptr(rays_packed), r, _ptr(exclude),
-                    *_work_ptrs(tris_packed, tile_ids, block_ids,
-                                ablock_ids, mxu), _ptr(entry), _ptr(count), w,
-                    _ptr(init_t), _ptr(init_i), _ptr(gid_base), _ptr(out_t),
-                    _ptr(out_i), rt, tb, exit_every, *form, stream)
+            _build.launch(
+                "bsr_trace", fn, _ptr(rays_packed), r, _ptr(exclude),
+                *_work_ptrs(tris_packed, tile_ids, block_ids, ablock_ids,
+                            mxu), _ptr(entry), _ptr(count), w, _ptr(init_t),
+                _ptr(init_i), _ptr(gid_base), _ptr(out_t), _ptr(out_i), rt,
+                tb, exit_every, *form, stream)
         LAUNCHES[launch_key("bsr_nearest", shared_origin, mxu)] += 1
     return out_t, out_i
 
@@ -381,11 +386,11 @@ def bsr_any(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
         form = () if mxu else (int(shared_origin),)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            _launch(fn, _ptr(rays_packed), r, _ptr(exclude),
-                    *_work_ptrs(tris_packed, tile_ids, block_ids,
-                                ablock_ids, mxu), _ptr(count), w, _ptr(init),
-                    _ptr(gid_base), _ptr(out), rt, tb, exit_every, *form,
-                    stream)
+            _build.launch(
+                "bsr_trace", fn, _ptr(rays_packed), r, _ptr(exclude),
+                *_work_ptrs(tris_packed, tile_ids, block_ids, ablock_ids,
+                            mxu), _ptr(count), w, _ptr(init), _ptr(gid_base),
+                _ptr(out), rt, tb, exit_every, *form, stream)
         LAUNCHES[launch_key("bsr_any", shared_origin, mxu)] += 1
     return out
 

@@ -1,7 +1,8 @@
 """Primary-ray generation (pinhole projection).
 
-The torch counterpart of distributed_raytracer_tpu/ops/raygen.py's
-`ray_directions_flat` and `ray_rows_flat`, operation for operation.
+The torch counterpart of distributed_raytracer_tpu/ops/raygen.py
+(`ray_directions`, `ray_directions_flat`, `ray_rows_flat`), operation for
+operation, plus `camera_arrays`, which puts a camera on a device.
 Reproduces tracer.go:15-22 `pixelToPoint` exactly, including its integer
 half-width/height division and 0.5 pixel-center offset:
 
@@ -19,7 +20,34 @@ and the primary ray direction is norm(point - pos) (tracer.go:83-86).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+from distributed_raytracer_tpu_torch.models.camera import Camera, CameraArrays
+
+
+def camera_arrays(camera, device) -> CameraArrays:
+    """Camera or host CameraArrays -> CameraArrays of float32 tensors on
+    `device`, in ONE host-to-device copy (CameraArrays of tensors pass
+    through). On CUDA the copy is from pinned memory and non-blocking, so
+    it does not wait for earlier frames."""
+    if isinstance(camera, Camera):
+        camera = camera.to_arrays()
+    if isinstance(camera.pos, torch.Tensor):
+        return camera
+    device = torch.device(device)
+    packed = torch.from_numpy(np.concatenate(
+        [np.asarray(camera.pos, np.float32).reshape(3),
+         np.asarray(camera.forward, np.float32).reshape(3),
+         np.asarray(camera.left, np.float32).reshape(3),
+         np.asarray(camera.up, np.float32).reshape(3),
+         np.asarray(camera.fov, np.float32).reshape(1)]))
+    if device.type == "cuda":
+        packed = packed.pin_memory().to(device, non_blocking=True)
+    else:
+        packed = packed.to(device)
+    return CameraArrays(pos=packed[0:3], forward=packed[3:6],
+                        left=packed[6:9], up=packed[9:12], fov=packed[12])
 
 
 def _offsets(cam, width: int, height: int, idx: torch.Tensor):
@@ -40,6 +68,18 @@ def _norm_rows(d: torch.Tensor, axis: int) -> torch.Tensor:
     jnp.linalg.norm reduces in, written out so every backend agrees."""
     x, y, z = d.unbind(axis)
     return torch.sqrt(x * x + y * y + z * z).unsqueeze(axis)
+
+
+def ray_directions(cam, width: int, height: int) -> torch.Tensor:
+    """Normalized primary ray directions, shape (height, width, 3).
+
+    Goes through ray_directions_flat, so the dense and block-sparse paths
+    see bit-identical directions (different evaluation orders flip
+    edge-pixel hit decisions)."""
+    idx = torch.arange(width * height, dtype=torch.int32,
+                       device=cam.pos.device)
+    return ray_directions_flat(cam, width, height, idx).reshape(
+        height, width, 3)
 
 
 def ray_directions_flat(cam, width: int, height: int,

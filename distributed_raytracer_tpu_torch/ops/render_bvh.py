@@ -48,9 +48,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from distributed_raytracer_tpu_torch.models.camera import Camera, CameraArrays
+from distributed_raytracer_tpu_torch.models.camera import CameraArrays
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneArrays
-from distributed_raytracer_tpu_torch.ops import bsr_trace, cull, raygen, shade
+from distributed_raytracer_tpu_torch.ops import (bsr_trace, cull, intersect,
+                                                raygen, shade)
 from distributed_raytracer_tpu_torch.ops.intersect import Hits
 from distributed_raytracer_tpu_torch.ops.shade import PackedPrep
 from distributed_raytracer_tpu_torch.utils.config import (
@@ -135,11 +136,10 @@ class CulledRenderer:
             if not torch.cuda.is_available():
                 raise RuntimeError(f"device {self.device} requested but "
                                    "CUDA is not available")
-            # Full float32 on the hit path: a TF32 product would corrupt
-            # hit tests. (No product on the path uses them today; the
-            # settings make the intent explicit for any later one.)
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+            # Full float32 on the hit path. (No product on the path uses
+            # TF32 today; the call makes the intent explicit for any later
+            # one.)
+            intersect.fp32_matmuls(self.device)
         if block_size == "auto":
             block_size = default_block_size(
                 scene.num_tris if scene is not None else 1 << 30)
@@ -242,28 +242,6 @@ class CulledRenderer:
                           for li in range(light_pos.shape[0])])
 
     # -- helpers ---------------------------------------------------------
-
-    def _camera(self, camera) -> CameraArrays:
-        """Camera or host CameraArrays -> CameraArrays of tensors on the
-        device, in ONE host-to-device copy. On CUDA the copy is from pinned
-        memory and non-blocking, so it does not wait for earlier frames."""
-        if isinstance(camera, Camera):
-            camera = camera.to_arrays()
-        if isinstance(camera.pos, torch.Tensor):
-            return camera
-        packed = torch.from_numpy(np.concatenate(
-            [np.asarray(camera.pos, np.float32).reshape(3),
-             np.asarray(camera.forward, np.float32).reshape(3),
-             np.asarray(camera.left, np.float32).reshape(3),
-             np.asarray(camera.up, np.float32).reshape(3),
-             np.asarray(camera.fov, np.float32).reshape(1)]))
-        if self.device.type == "cuda":
-            packed = packed.pin_memory().to(self.device, non_blocking=True)
-        else:
-            packed = packed.to(self.device)
-        return CameraArrays(pos=packed[0:3], forward=packed[3:6],
-                            left=packed[6:9], up=packed[9:12],
-                            fov=packed[12])
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -518,7 +496,7 @@ class CulledRenderer:
     def render(self, camera, block: bool = False) -> torch.Tensor:
         """Render a frame with exactly sized work lists (a few host syncs);
         returns an (H, W, 3) float32 tensor on the renderer's device."""
-        sc, cam = self.dev_scene, self._camera(camera)
+        sc, cam = self.dev_scene, raygen.camera_arrays(camera, self.device)
         rays, ti, mask1, entry1, c1 = self._stage_a(sc, cam)
         p_pads, p_counts = self._size_pads(sc, ti, mask1, entry1, c1)
         self._resolve_exit(p_counts[-1])
@@ -594,7 +572,7 @@ class CulledRenderer:
         of a verify loop that does not converge)."""
         if self._frozen_pads is None:
             self.freeze(camera)
-        cam = self._camera(camera)
+        cam = raygen.camera_arrays(camera, self.device)
         img, counts = self._full(sc, self._frozen_pads, cam)
         if verify:
             fits = False
@@ -666,7 +644,7 @@ class CulledRenderer:
         (per bounce, the counts layout of render())."""
         if depth < 0:
             raise ValueError(f"depth={depth}: must be >= 0")
-        sc, cam = self.dev_scene, self._camera(camera)
+        sc, cam = self.dev_scene, raygen.camera_arrays(camera, self.device)
         rays, ti, mask1, entry1, c1 = self._stage_a(sc, cam)
         colour = rays.new_zeros((3, self.n_pad))
         throughput = rays.new_ones((3, self.n_pad))
@@ -750,7 +728,7 @@ class CulledRenderer:
         freeze_from(self._last_bounce_counts)
 
         def render(cam, verify: bool = False) -> torch.Tensor:
-            c = self._camera(cam)
+            c = raygen.camera_arrays(cam, self.device)
             img, counts = self._full_bounced(state["pads"], c)
             if verify:
                 # Loop until every bounce's counts fit: an overflowed

@@ -1,8 +1,10 @@
-"""Phong shading with hard shadows, on packed (row-layout) rays.
+"""Phong shading with hard shadows.
 
-The torch counterpart of distributed_raytracer_tpu/ops/shade.py's packed
-path (`table_rows_device`, `prepare_packed(_rows)`, `light_gates(_rows)`,
-`shade_core_packed`, `shade_core_rows`), operation for operation.
+The torch counterpart of distributed_raytracer_tpu/ops/shade.py, operation
+for operation: the dense path on (C, 3) rays (`pack_table`, `prepare`,
+`shade_core`, `shade`) and the packed path on (3, C) row-layout rays
+(`table_rows_device`, `prepare_packed(_rows)`, `light_gates(_rows)`,
+`shade_core_packed`, `shade_core_rows`).
 Reproduces worker/shared/tracer/tracer.go:53-77 `phong`:
   - colour starts at the material's ambient Ka (tracer.go:56)
   - per light: a shadow ray from the hit point, offset by 1e-4 along the
@@ -16,11 +18,13 @@ Reproduces worker/shared/tracer/tracer.go:53-77 `phong`:
   - the normal is the interpolated vertex normal (the face normal for
     meshes without normals, baked into all three vertex slots)
 
-The shadow *queries* are separate from the shadow *answers*: the renderer
-answers them with the any-hit traversal (ops/bsr_trace.py).
+The shadow *queries* are separate from the shadow *answers*: the dense
+path answers them with intersect.any_hit, the culled renderer with the
+any-hit traversal (ops/bsr_trace.py).
 
-Every (3, C) row sum of three products is written out in x, y, z order,
-the order jnp.sum reduces three terms in, so all backends agree.
+Every sum of three products (a (3, C) row sum, a (C, 3) row dot, a norm) is
+written out in x, y, z order, the order jnp.sum reduces three terms in, so
+all backends agree.
 """
 
 from __future__ import annotations
@@ -29,7 +33,10 @@ from typing import NamedTuple
 
 import torch
 
-from distributed_raytracer_tpu_torch.ops.intersect import Hits
+import numpy as np
+
+from distributed_raytracer_tpu_torch.ops import intersect
+from distributed_raytracer_tpu_torch.ops.intersect import Hits, _dot3
 from distributed_raytracer_tpu_torch.utils.config import (DEFAULT_CONFIG,
                                                           RenderConfig)
 
@@ -44,6 +51,156 @@ def _normalize_rows(v: torch.Tensor) -> torch.Tensor:
     poisoning downstream math with NaNs."""
     n = torch.sqrt(_sum3(v * v))[None, :]
     return v / torch.where(n > 0.0, n, 1.0)
+
+
+def _normalize(v: torch.Tensor) -> torch.Tensor:
+    """Safe normalize of (C, 3) vectors: zero vectors (padding-triangle
+    normals gathered for miss rays) stay zero."""
+    n = torch.sqrt(_dot3(v, v))[:, None]
+    return v / torch.where(n > 0.0, n, 1.0)
+
+
+class ShadowQueries(NamedTuple):
+    """Per-light shadow rays for a batch of C shaded points."""
+
+    origin: torch.Tensor   # (L, C, 3) offset shadow-ray origins
+    ldir: torch.Tensor     # (L, C, 3) unit directions toward each light
+    t_max: torch.Tensor    # (L, C) blocker range (light distance - offset)
+
+
+class ShadePrep(NamedTuple):
+    x: torch.Tensor        # (C, 3) hit points
+    normal: torch.Tensor   # (C, 3) shading normals
+    geo_n: torch.Tensor    # (C, 3) unit geometric normals of the hit triangle
+    ka: torch.Tensor       # (C, 3) hit-material ambient
+    kd: torch.Tensor       # (C, 3) hit-material diffuse
+    ks: torch.Tensor       # (C, 3) hit-material specular
+    ns: torch.Tensor       # (C,) hit-material shininess
+    queries: ShadowQueries
+
+
+# Columns of the packed per-triangle shading table: every per-hit quantity
+# the shader needs, gathered by winning triangle id in ONE (C, 32) gather,
+# with materials folded per triangle.
+_TBL = {"p0": 0, "k_u": 3, "k_v": 6, "n0": 9, "n1": 12, "n2": 15,
+        "geo_n": 18, "ka": 21, "kd": 24, "ks": 27, "ns": 30}
+TABLE_WIDTH = 32
+
+
+def pack_table(scene, xp=torch):
+    """(T, 32) float32 per-triangle shading rows (static per scene):
+    p0, k_u, k_v, n0, n1, n2, the unit face normal, ka, kd, ks, ns, 0.
+    With xp=numpy it is built on the host from numpy arrays; with torch, on
+    the scene tensors' device."""
+    if xp is np:
+        geo = np.asarray(scene.geo_n, np.float32)
+        glen = np.linalg.norm(geo, axis=-1, keepdims=True)
+        mat = np.asarray(scene.mat_id)
+        zero = np.zeros((geo.shape[0], 1), np.float32)
+        cat = lambda cols: np.concatenate(
+            [np.asarray(c, np.float32) for c in cols], axis=1)
+    else:
+        geo = scene.geo_n
+        glen = torch.sqrt(_dot3(geo, geo))[:, None]
+        mat = scene.mat_id.long()
+        zero = geo.new_zeros((geo.shape[0], 1))
+        cat = lambda cols: torch.cat([c.to(torch.float32) for c in cols],
+                                     dim=1)
+    geo_unit = geo / xp.where(glen > 0.0, glen, 1.0)
+    return cat([scene.p0, scene.k_u, scene.k_v, scene.n0, scene.n1,
+                scene.n2, geo_unit, scene.mat_ka[mat], scene.mat_kd[mat],
+                scene.mat_ks[mat], scene.mat_ns[mat][:, None], zero])
+
+
+def prepare(scene, origins: torch.Tensor, dirs: torch.Tensor, hits: Hits,
+            cfg: RenderConfig = DEFAULT_CONFIG,
+            table: torch.Tensor | None = None) -> ShadePrep:
+    """Hit points, normals, material rows and shadow queries for every ray
+    (origins (3,) shared or (C, 3); dirs (C, 3)). `table` is pack_table()
+    on the scene's device; pass it pre-built, or it is built here. The one
+    gather `table[tri]` is an exact index."""
+    if table is None:
+        table = pack_table(scene)
+    t = torch.where(hits.valid, hits.t, 0.0)  # keep hit-point math finite
+    tri = torch.clamp_min(hits.tri, 0).long() # clamp miss sentinels
+    g = table[tri]                            # (C, 32) the one gather
+
+    def col(name, w=3):
+        return g[:, _TBL[name]:_TBL[name] + w]
+
+    if origins.dim() == 1:
+        origins = origins[None, :]
+    x = origins + t[:, None] * dirs
+    # (x - p0) . k is better conditioned than x . k + c (edge-scale).
+    rel = x - col("p0")
+    u = _dot3(rel, col("k_u"))
+    v = _dot3(rel, col("k_v"))
+    r1 = 1.0 - u - v
+    normal = _normalize(r1[:, None] * col("n0") + u[:, None] * col("n1")
+                        + v[:, None] * col("n2"))
+
+    # Shadow ray per light: origin offset along the light direction
+    # (tracer.go:64) plus a float32-robustness lift along the geometric
+    # normal, signed toward the light's side of the surface.
+    geo = col("geo_n")
+    origin, ldir, t_max = [], [], []
+    for li in range(scene.light_pos.shape[0]):
+        to_light = scene.light_pos[li][None, :] - x
+        ldist = torch.sqrt(_dot3(to_light, to_light))
+        d = to_light / ldist[:, None]
+        side = torch.where(_dot3(geo, d) >= 0.0, 1.0, -1.0)
+        origin.append(x + cfg.shadow_offset * d
+                      + (cfg.shadow_normal_offset * side)[:, None] * geo)
+        ldir.append(d)
+        t_max.append(ldist - cfg.shadow_offset)
+    stack = lambda a, shape: (torch.stack(a) if a
+                              else x.new_zeros((0,) + shape))
+    c = x.shape[0]
+    return ShadePrep(x=x, normal=normal, geo_n=geo,
+                     ka=col("ka"), kd=col("kd"), ks=col("ks"),
+                     ns=col("ns", 1)[:, 0],
+                     queries=ShadowQueries(origin=stack(origin, (c, 3)),
+                                           ldir=stack(ldir, (c, 3)),
+                                           t_max=stack(t_max, (c,))))
+
+
+def shade_core(scene, cam_pos: torch.Tensor, prep: ShadePrep, hits: Hits,
+               lit: torch.Tensor) -> torch.Tensor:
+    """Accumulate Phong lighting given per-light lit flags (L, C). cam_pos
+    is the specular viewer: (3,) for primary rays (the camera) or (C, 3)
+    per ray for reflection bounces (the previous hit point)."""
+    view = cam_pos[None, :] if cam_pos.dim() == 1 else cam_pos
+    cam_dir = _normalize(view - prep.x)        # V, toward the viewer
+    colour = prep.ka
+    for li in range(scene.light_col.shape[0]):
+        ldir = prep.queries.ldir[li]
+        l_dot_n = _dot3(ldir, prep.normal)
+        diff = torch.clamp_min(l_dot_n, 0.0)
+        refl = 2.0 * l_dot_n[:, None] * prep.normal - ldir
+        spec = torch.pow(torch.clamp_min(_dot3(refl, cam_dir), 0.0),
+                         prep.ns)
+        contrib = ((prep.kd * diff[:, None] + prep.ks * spec[:, None])
+                   * scene.light_col[li][None, :])
+        colour = colour + torch.where(lit[li][:, None], contrib, 0.0)
+    colour = torch.clamp_max(colour, 1.0)  # saturating adds -> one clamp
+    return torch.where(hits.valid[:, None], colour, 0.0)
+
+
+def shade(scene, cam_pos: torch.Tensor, origins: torch.Tensor,
+          dirs: torch.Tensor, hits: Hits, cfg: RenderConfig = DEFAULT_CONFIG,
+          table: torch.Tensor | None = None) -> torch.Tensor:
+    """Dense-path shading: answers the shadow queries with
+    intersect.any_hit. origins (3,) shared or (C, 3); dirs (C, 3); returns
+    (C, 3) float32, black for rays that hit nothing."""
+    prep = prepare(scene, origins, dirs, hits, cfg, table)
+    q = prep.queries
+    lit = [~intersect.any_hit(scene, q.origin[li], q.ldir[li], q.t_max[li],
+                              exclude=hits.tri)
+           for li in range(q.origin.shape[0])]
+    lit = (torch.stack(lit) if lit
+           else torch.zeros((0, dirs.shape[0]), dtype=torch.bool,
+                            device=dirs.device))
+    return shade_core(scene, cam_pos, prep, hits, lit)
 
 
 def table_rows_device(tris16, p0_t, n_t, mat_id, mat_ka, mat_kd, mat_ks,

@@ -2,17 +2,23 @@
 
   python -m distributed_raytracer_tpu_torch SCENE.json WIDTH HEIGHT [options]
 
-The counterpart of distributed_raytracer_tpu/run.py's default path: the
-single-device block-BVH renderer (`--mode culled`, with `--bounces N`
-Whitted reflection bounces, or `--animate-objects`: object 0 orbits
-through per-frame scene diffs) on an explicit device (`--device`, default
-cuda). With no display, the interactive loop becomes a scripted camera
+The counterpart of distributed_raytracer_tpu/run.py, on an explicit
+device (`--device`, default cuda). Modes:
+  sequential - the single-device dense sweep (ops/render.render_frame)
+  culled     - the single-device block-BVH renderer, with `--bounces N`
+               Whitted reflection bounces, or `--animate-objects`: object 0
+               orbits through per-frame scene diffs
+  sharded    - the dense sweep with the rays row-partitioned over
+               `--devices N` ranks (parallel/render_sharded.py); the ranks
+               are a device list, rank i on cuda:(i % cards), so N ranks
+               may share one card, or all on the CPU with --device cpu With no display, the interactive loop becomes a scripted camera
 animation (default: orbit, the reference's benchmark motion); frames can
 be written as PNGs, and the exit report reproduces the master's FPS
 statistics (master/main.go:285-325) plus Mrays/s.
 
-The JAX package's other modes, `--serve` and `--multihost` are not ported
-yet; asking for one exits with a message that says so.
+The JAX package's other modes (sharded-bvh, halo, ring), `--serve` and
+`--multihost` are not ported yet; asking for one exits with a message that
+says so.
 """
 
 from __future__ import annotations
@@ -34,9 +40,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("width", type=int)
     p.add_argument("height", type=int)
     p.add_argument("--mode", choices=_MODES, default="culled",
-                   help="only culled is ported")
+                   help="sequential, culled and sharded are ported")
     p.add_argument("--bounces", type=int, default=0,
                    help="Whitted reflection bounces (culled mode)")
+    p.add_argument("--devices", type=int, default=None,
+                   help="rank count for --mode sharded")
     p.add_argument("--animate-objects", action="store_true",
                    help="orbit object 0 via per-frame SceneDiffs (the "
                         "reference's per-WorkOrder EnvMutables, "
@@ -64,8 +72,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+_PORTED_MODES = ("sequential", "culled", "sharded")
+
+
 def _unported(args) -> str | None:
-    if args.mode != "culled":
+    if args.mode not in _PORTED_MODES:
         return f"--mode {args.mode}"
     if args.serve:
         return "--serve"
@@ -92,12 +103,12 @@ def main(argv=None) -> int:
     what = _unported(args)
     if what is not None:
         raise SystemExit(f"{what} is not yet ported to "
-                         "distributed_raytracer_tpu_torch (only --mode "
-                         "culled, with --bounces or --animate-objects, "
-                         "is); use distributed_raytracer_tpu for it")
+                         "distributed_raytracer_tpu_torch (--mode "
+                         "sequential, culled and sharded are); use "
+                         "distributed_raytracer_tpu for it")
     if args.bounces < 0:
         raise SystemExit(f"--bounces {args.bounces}: must be >= 0")
-    if args.animate_objects and args.bounces:
+    if args.animate_objects and (args.mode != "culled" or args.bounces):
         # The JAX package's message (its halo/ring modes are not ported).
         raise SystemExit("--animate-objects supports --mode "
                          "culled/halo/ring (--bounces on halo/ring)")
@@ -110,7 +121,23 @@ def main(argv=None) -> int:
     scene = load_scene(args.scene)
     w, h = args.width, args.height
 
-    if args.animate_objects:
+    if args.mode in ("sequential", "sharded"):
+        # The dense sweep; --bounces applies to culled mode only, as in the
+        # JAX CLI.
+        from distributed_raytracer_tpu_torch.ops.render import (render_frame,
+                                                                scene_on)
+        from distributed_raytracer_tpu_torch.parallel import render_sharded
+
+        if args.mode == "sequential":
+            arrays = scene_on(scene.bake(), args.device)
+            render = lambda cam: render_frame(arrays, cam, w, h)
+        else:
+            mesh = render_sharded.default_mesh(args.devices, args.device)
+            arrays = scene_on(scene.bake(), mesh[0])
+            sharded = render_sharded.make_sharded_renderer(w, h, mesh=mesh)
+            render = lambda cam: sharded(arrays, cam)
+        render_k = lambda k, cam: render(cam)
+    elif args.animate_objects:
         # Per-frame object/light diffs through the frozen pipeline
         # (ops/render_dynamic.py), block size 128 as in the JAX CLI.
         from distributed_raytracer_tpu_torch.ops.render_dynamic import (

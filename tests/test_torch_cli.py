@@ -2,8 +2,10 @@
 
 `python -m distributed_raytracer_tpu_torch` renders the tetra scene on the
 CPU and must write the frames the port's own render() (render_bounced()
-with --bounces, render_dynamic() with --animate-objects) gives; the modes
-that are not ported yet exit non-zero with a message that names them. The
+with --bounces, render_dynamic() with --animate-objects, render_frame()
+with --mode sequential, the sharded renderer with --mode sharded) gives;
+the modes that are not ported yet exit non-zero with a message that names
+them. The
 runtime
 helpers copied from the JAX package (FPS statistics, PNG encoding, the orbit
 path) must give identical results.
@@ -70,9 +72,9 @@ def test_cli_writes_the_frames_render_gives(scene_path, tmp_path):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--mode", "sequential"], "--mode sequential"),
+    (["--mode", "sharded-bvh"], "--mode sharded-bvh"),
     (["--mode", "ring"], "--mode ring"),
-    (["--mode", "sharded"], "--mode sharded"),
+    (["--mode", "halo", "--devices", "2"], "--mode halo"),
     (["--serve", "127.0.0.1:0"], "--serve"),
     (["--multihost"], "--multihost"),
 ])
@@ -128,12 +130,42 @@ def test_cli_animate_objects_writes_render_dynamic_frames(scene_path,
     assert len(frames) == 3
 
 
-def test_cli_animate_objects_refuses_bounces(scene_path):
+@pytest.mark.parametrize("flags", [["--bounces", "1"],
+                                   ["--mode", "sequential"]])
+def test_cli_animate_objects_refuses_bounces(scene_path, flags):
     with pytest.raises(SystemExit) as exc:
-        run.main([scene_path, "64", "48", "--animate-objects", "--bounces",
-                  "1", "--device", "cpu"])
+        run.main([scene_path, "64", "48", "--animate-objects", *flags,
+                  "--device", "cpu"])
     assert exc.value.code == ("--animate-objects supports --mode "
                               "culled/halo/ring (--bounces on halo/ring)")
+
+
+@pytest.mark.parametrize("flags", [["--mode", "sequential"],
+                                   ["--mode", "sharded", "--devices", "4"]])
+def test_cli_dense_modes_write_render_frame(scene_path, tmp_path, capsys,
+                                            flags):
+    """The dense sweep, on one device or row-sharded over 4 CPU ranks,
+    writes the frames render_frame gives."""
+    from distributed_raytracer_tpu_torch.ops.render import (render_frame,
+                                                            scene_on)
+
+    out = str(tmp_path / "frames")
+    assert run.main([scene_path, "64", "48", *flags, "--frames", "2",
+                     "--fps-target", "0", "--device", "cpu", "--out", out,
+                     "--radius", "3"]) == 0
+    report = capsys.readouterr().out
+    assert "Mean FPS" in report and "Throughput" in report
+    scene = load_scene(scene_path)
+    arrays = scene_on(scene.bake(), "cpu")
+    poses = animation.orbit_camera_path(scene.camera, 2, radius=3.0)
+    for k, cam in enumerate(poses):
+        want = render_frame(arrays, cam, 64, 48)
+        got = jframebuffer.read_png(os.path.join(out, f"frame_{k:05d}.png"))
+        # Sharding may round the shading differently by an ulp: a u8
+        # channel then differs by at most 1.
+        diff = np.abs(got.astype(int) - framebuffer.to_u8(want.numpy()))
+        assert diff.max() <= (0 if flags[1] == "sequential" else 1)
+        assert got.max() > 0
 
 
 def test_unported_mode_exits_nonzero(scene_path):

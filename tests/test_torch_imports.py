@@ -6,13 +6,21 @@ import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# Every module of the package is imported; these must be among them.
+MODULES = ["ops.render", "ops.intersect", "ops.shade", "ops.colour",
+           "ops.raygen", "ops.ring_trace", "ops.bsr_trace", "parallel",
+           "parallel.mesh", "parallel.tile", "parallel.render_sharded",
+           "parallel.ring", "run"]
+
 CHECK = """
 import importlib, pkgutil, sys
 import distributed_raytracer_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-assert len(names) >= 20, names
+want = ["distributed_raytracer_tpu_torch." + m for m in %r]
+assert not set(want) - set(names), sorted(set(want) - set(names))
+assert len(names) >= 28, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "distributed_raytracer_tpu.")))
@@ -20,7 +28,7 @@ assert not bad, bad
 from distributed_raytracer_tpu_torch.ops import _build
 assert not _build._libs
 print("imported", len(names))
-"""
+""" % (MODULES,)
 
 
 def test_port_imports_no_jax():

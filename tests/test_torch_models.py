@@ -4,6 +4,7 @@ the flat bake, the BVH bake, procedural scenes and `from_reference`.
 These modules are numpy copies of the JAX package's, so every field must be
 bit-equal (no tolerance)."""
 
+import collections
 import dataclasses
 
 import numpy as np
@@ -142,6 +143,26 @@ def test_from_reference_round_trip(scene_dir):
     bad = ref[1]._replace(block_lo=ref[1].block_lo[:-1])
     with pytest.raises(ValueError, match="block_lo"):
         tscene.from_reference(ref[0], bad)
+
+
+def test_arrays_from_reference(scene_dir):
+    """The flat JAX bake (no BVH), as the dense, sharded and ring renderers
+    take it: every field bit-equal; a wrong field, dtype or shape is
+    refused, not converted."""
+    want, got = load_pair(scene_dir, "two_tetra")
+    ref = want.bake()
+    arrays = tscene.arrays_from_reference(ref)
+    assert isinstance(arrays, tscene.SceneArrays)
+    assert_tuple_equal(arrays, got.bake())
+    bad = ref._replace(plane_d=ref.plane_d.astype(np.float64))
+    with pytest.raises(ValueError, match="plane_d"):
+        tscene.arrays_from_reference(bad)
+    bad = ref._replace(light_col=ref.light_col[:1])
+    with pytest.raises(ValueError, match="light_col"):
+        tscene.arrays_from_reference(bad)
+    other = collections.namedtuple("Other", ref._fields[:-1])
+    with pytest.raises(ValueError, match="fields differ"):
+        tscene.arrays_from_reference(other(*ref[:-1]))
 
 
 def test_procedural_scenes_match():
