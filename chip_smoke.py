@@ -6,20 +6,30 @@
 Builds the traversal kernels from csrc/ and runs on cuda:0:
 
   1. Kernels against their plain PyTorch versions on the paths' real
-     inputs, each with exit_every 0 and 32, on the same CUDA tensors:
-     nearest ids equal on every ray, t equal where the ids agree (both round
-     identically: the kernels are built with -fmad=false), any-hit flags
-     equal, unvisited tiles left at init.
+     inputs, each with exit_every 0 and 32, on the same CUDA tensors: every
+     output torch.equal, unvisited tiles included, and K1/K2's bit for bit
+     (t compared as int32; the kernels are built with -fmad=false and
+     round as the plain versions do). Each launch's line gives its live items, pairs, items per
+     tile (mean, p99, max over tiles with items), its bound (the pair
+     math's FP32 operations over 67 TFLOP/s, or its bytes over 3.35 TB/s,
+     whichever is larger) and the kernel's share of it. Kernel times are
+     device times: CUDA events around 20 calls queued behind a sleep
+     kernel (every launch of a call counted); the synchronized call's
+     median of 20 is printed beside them.
      - K1 and K2 (shared origin) on the launches of one 640x480 render() of
-       icosphere_scene(6) (81,920 triangles, 3 lights). Times are medians
-       of 20 calls after warm-up, each synchronized.
+       icosphere_scene(6) (81,920 triangles, 3 lights).
+     - K1 and K2 on utils/trace_cases.edge_case_launch (rays at shared
+       vertices and edges, grazing and dead rays, zero rows, ties,
+       t = -0.0, exclusion, finite seeds, a tile seeded as hit, t_max at
+       the hit, tiles of 0, 1 and more than 4 chunks of items, slots past
+       count) at rt 256 and 1024, tb 64 and 128.
      - K3n (per-ray origins) on the bounce-1 nearest launch of one depth-2
        render_bounced() of the 1920x1080 sphere grid
        (instanced_grid(icosphere_scene(3), 4): 16 mirrored spheres, 20,480
-       triangles), and K3a (its any-hit twin, which no renderer path calls)
-       on the same rays with t_max set to K3n's finite hit t. Kernel times
-       are medians of 20 calls; the plain versions take seconds at this
-       size, so theirs are medians of 3.
+       triangles), K3a (its any-hit twin, which no renderer path calls)
+       on the same rays with t_max set to K3n's finite hit t, and K2 on
+       that frame's largest shadow launch. The plain versions take seconds
+       at this size, so their times are medians of 3.
   2. The 640x480 frame end to end: render(), freeze(), a 16-pose orbit
      through render_fast(verify=True), one render_fast under CUDA's
      sync-debug "error" mode (it must not wait on the device), and the
@@ -96,7 +106,10 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
 
 Prints the versions, the card's name and power limit, the build time and
 each kernel's registers and spills, each phase's numbers, one JSON line of
-per-kernel results and, last, one JSON line {"ok": true, "device": {...}}.
+per-kernel results (launches on the paths, max_abs_err, ms, plain_ms,
+bound_ms, bound_by, share_of_bound, library_ms: null, no single PyTorch
+call computes any of them) and, last, one JSON line {"ok": true, "device":
+{...}}.
 Exits non-zero without that line on any failure, when CUDA is not
 available, or when run outside the repository.
 """
@@ -148,6 +161,60 @@ KERNELS = {
 }
 
 
+# Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): FP32
+# outside the tensor cores and HBM3 bandwidth. Bounds are reckoned against
+# them.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# FP32 operations per (ray, triangle) pair (csrc/pair_math.cuh), by origin
+# form: den 5, the division 1, u 7, v 7, u + v 1 with a shared origin; the
+# three origin dots and their folds add 18 with per-ray origins.
+OPS_PER_PAIR = {True: 21, False: 39}
+
+
+def tensor_bytes(x) -> int:
+    """Bytes of every tensor in x (a tensor, or a tuple/list of them)."""
+    if isinstance(x, (tuple, list)):
+        return sum(tensor_bytes(a) for a in x)
+    return x.numel() * x.element_size() if hasattr(x, "numel") else 0
+
+
+def bound_ms(pairs: int, shared: bool, n_bytes: int):
+    """(least time in ms, "operations" or "bytes"): the larger of the pair
+    math over the FP32 peak and the bytes moved over the memory rate."""
+    ops = pairs * OPS_PER_PAIR[shared] / PEAK_FP32 * 1e3
+    mem = n_bytes / PEAK_BYTES * 1e3
+    return (ops, "operations") if ops >= mem else (mem, "bytes")
+
+
+def worklist_stats(args, kwargs, nearest: bool) -> dict:
+    """A traversal launch's live items, pairs, items per tile over the
+    tiles that have items (torch.bincount of the live tile ids: mean, p99,
+    max) and its bound (inputs read once, the outputs written once)."""
+    import torch
+
+    rays, tile_ids, count = args[0], args[3], args[6]
+    n = min(int(count.item()), tile_ids.shape[0])
+    per = torch.bincount(tile_ids[:n].long())
+    per = per[per > 0].double()
+    pairs = n * kwargs["rt"] * kwargs["tb"]
+    out_bytes = rays.shape[1] * (8 if nearest else 4)
+    ms, by = bound_ms(pairs, kwargs["shared_origin"],
+                      tensor_bytes(args) + out_bytes)
+    return {"items": n, "pairs": pairs, "tiles": int(per.numel()),
+            "mean": float(per.mean()) if n else 0.0,
+            "p99": float(torch.quantile(per, 0.99)) if n else 0.0,
+            "max": int(per.max()) if n else 0, "bound_ms": ms,
+            "bound_by": by}
+
+
+def stats_line(s: dict) -> str:
+    return (f"live items {s['items']} ({s['pairs'] / 1e9:.4f} G pairs) in "
+            f"{s['tiles']} tiles; items per tile mean {s['mean']:.2f}, p99 "
+            f"{s['p99']:.0f}, max {s['max']}; bound {s['bound_ms']:.4f} ms "
+            f"({s['bound_by']})")
+
+
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -179,21 +246,42 @@ def time_ms(fn, repeats: int = REPEATS, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, calls: int = REPEATS) -> float:
+    """Device time of one `fn()` in ms: CUDA events around `calls` calls
+    queued back to back behind a sleep kernel, so the host's enqueue time
+    stays out of it (every launch of the call is counted)."""
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
 def print_ptxas(log: str) -> None:
     """One line per kernel instantiation from nvcc's -Xptxas -v output."""
     name, spill = None, ""
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(nearest|any)_kernelILi(\d+)ELb([01])E", m.group(1))
+            k = re.search(r"(nearest|any)_(chunk|rays)_kernelILi(\d+)E",
+                          m.group(1))
             x = re.search(r"(nearest|any)_mxu_kernelILi(\d+)E", m.group(1))
             g = re.search(r"ring_step_kernelILi(\d+)ELb([01])E", m.group(1))
-            name = (f"{k.group(1)}_kernel<RPT={k.group(2)}, shared="
-                    f"{'true' if k.group(3) == '1' else 'false'}>" if k
+            e = re.search(r"\d(seed_keys|unpack_keys)E", m.group(1))
+            name = (f"{k.group(1)}_{k.group(2)}_kernel<RPT={k.group(3)}>" if k
                     else f"{x.group(1)}_mxu_kernel<NT={x.group(2)}>" if x
                     else f"ring_step_kernel<RPT={g.group(1)}, any="
                          f"{'true' if g.group(2) == '1' else 'false'}>" if g
-                    else m.group(1))
+                    else e.group(1) if e else m.group(1))
             spill = ""
         elif "spill" in line:
             spill = line.strip()
@@ -252,15 +340,33 @@ def visited_rays(args, kwargs):
     return v[:, None].expand(-1, rt).reshape(-1)
 
 
-def compare_kernel(bsr_trace, key, args, kwargs, plain_repeats=REPEATS):
+def bits_equal(got, want, bits: bool = True) -> bool:
+    """Outputs (a tensor or a tuple) torch.equal; with `bits`, float32 is
+    compared as int32, so -0.0 and +0.0 differ."""
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
+               if bits and g.dtype == torch.float32 else torch.equal(g, w)
+               for g, w in zip(got, want))
+
+
+def compare_kernel(bsr_trace, key, args, kwargs, plain_repeats=REPEATS,
+                   tag=None):
     """One kernel against its plain version on (args, kwargs), with
-    exit_every 0 and 32; returns {"max_abs_err", "ms", "plain_ms"}."""
+    exit_every 0 and 32: every output torch.equal, bit for bit for the
+    shared-origin kernels (K3 leaves a t of -0.0 unnormalized, as its
+    first design did). Returns {"max_abs_err",
+    "ms" (device time of one call, every launch in it), "call_ms" (the
+    synchronized call, median of REPEATS), "plain_ms", "bound_ms",
+    "bound_by", "share_of_bound", "library_ms" (None: no PyTorch call
+    computes it)}."""
     import torch
 
     name = key.removesuffix("_rays")
     kernel = getattr(bsr_trace, name)
     plain = getattr(bsr_trace, name + "_ref")
-    vis = visited_rays(args, kwargs)
     err = 0.0
     for exit_every in (0, 32):
         kw = dict(kwargs, exit_every=exit_every)
@@ -269,35 +375,37 @@ def compare_kernel(bsr_trace, key, args, kwargs, plain_repeats=REPEATS):
         torch.cuda.synchronize()
         if name == "bsr_nearest":
             (gt, gi), (wt, wi) = got, want
-            bad = int((gi != wi)[vis].sum())
-            check(bad == 0, f"{key} exit_every={exit_every}: {bad} ids "
-                            "differ on visited tiles")
-            both = vis & torch.isfinite(wt)
+            bad = int((gi != wi).sum())
+            both = torch.isfinite(wt) & (gi == wi)
             diff = (gt - wt).abs()[both]
             e = float(diff.max()) if diff.numel() else 0.0
-            check(e == 0.0, f"{key} exit_every={exit_every}: t differs "
-                            f"by {e} where the ids agree")
-            check(bool(torch.equal(gi, wi) and torch.equal(gt[~vis],
-                                                           wt[~vis])),
-                  f"{key}: unvisited tiles differ from init")
         else:
             bad = int((got != want).sum())
-            check(bad == 0, f"{key} exit_every={exit_every}: {bad} "
-                            "any-hit flags differ")
             e = float((got - want).abs().max())
+        check(bad == 0 and bits_equal(got, want, kwargs["shared_origin"]),
+              f"{tag or key} exit_every={exit_every}: {bad} ids or flags "
+              f"differ, t by up to {e}")
         err = max(err, e)
-    ms = time_ms(lambda: kernel(*args, **kwargs))
+    ms = device_ms(lambda: kernel(*args, **kwargs))
+    call_ms = time_ms(lambda: kernel(*args, **kwargs))
     plain_ms = time_ms(lambda: plain(*args, **kwargs),
                        repeats=plain_repeats,
                        warmup=1 if plain_repeats < REPEATS else 2)
-    n = int(args[6].item())
-    print(f"[phase 1] {KERNELS[key][0]} {key}: R={args[0].shape[1]} "
-          f"T={args[2].shape[0]} W={args[3].shape[0]} live items={n} "
-          f"({n * kwargs['rt'] * kwargs['tb'] / 1e9:.3f} G pairs) "
-          f"exit_every(main path)={kwargs['exit_every']} max_abs_err={err} "
-          f"kernel {ms:.4f} ms (median of {REPEATS}), plain {plain_ms:.4f} "
-          f"ms (median of {plain_repeats})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    st = worklist_stats(args, kwargs, name == "bsr_nearest")
+    share = st["bound_ms"] / ms
+    print(f"[phase 1] {tag or KERNELS[key][0] + ' ' + key}: "
+          f"R={args[0].shape[1]} T={args[2].shape[0]} W={args[3].shape[0]} "
+          f"rt={kwargs['rt']} tb={kwargs['tb']} exit_every(path)="
+          f"{kwargs['exit_every']}; {stats_line(st)}; "
+          f"{'bit-equal' if kwargs['shared_origin'] else 'torch.equal'} to "
+          f"the plain version at exit_every 0 and 32; kernel {ms:.4f} ms "
+          f"(device, mean of {REPEATS} calls) = {share:.2%} of its bound, "
+          f"{call_ms:.4f} ms synchronized (median of {REPEATS}); plain "
+          f"{plain_ms:.4f} ms (median of {plain_repeats})")
+    return {"max_abs_err": err, "ms": ms, "call_ms": call_ms,
+            "plain_ms": plain_ms, "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"], "share_of_bound": share,
+            "library_ms": None}
 
 
 def phase_kernels(renderer, scene, bsr_trace):
@@ -312,9 +420,40 @@ def phase_kernels(renderer, scene, bsr_trace):
             for key in ("bsr_nearest", "bsr_any")}
 
 
+def phase_edge_cases(bsr_trace) -> None:
+    """Phase 1, K1 and K2 on utils/trace_cases.edge_case_launch (shared
+    vertices and edges, grazing and dead rays, zero rows, ties, t = -0.0,
+    exclusion, finite seeds, a tile seeded as hit, t_max at the hit, a
+    tile of more than 4 chunks, slots past count) at rt 256 and 1024, tb 64
+    and 128, exit_every 0 and 32: bit for bit."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.utils import trace_cases
+
+    for rt in (256, 1024):
+        for tb in (64, 128):
+            L = trace_cases.edge_case_launch(rt, tb).to("cuda")
+            for exit_every in (0, 32):
+                kw = dict(L.kwargs, exit_every=exit_every)
+                for name, args in (("bsr_nearest", L.nearest_args()),
+                                   ("bsr_any", L.any_args())):
+                    got = getattr(bsr_trace, name)(*args, **kw)
+                    want = getattr(bsr_trace, name + "_ref")(*args, **kw)
+                    check(bits_equal(got, want),
+                          f"{name} on the edge cases (rt={rt}, tb={tb}, "
+                          f"exit_every={exit_every}) differs")
+            n = int(L.count.item())
+            print(f"[phase 1] edge cases rt={rt} tb={tb}: R="
+                  f"{L.rays.shape[1]} T={L.tris.shape[0]} "
+                  f"W={L.tile_ids.shape[0]} live items={n}, items per tile "
+                  f"{torch.bincount(L.tile_ids[:n].long()).tolist()}; K1 "
+                  "and K2 bit-equal to the plain versions at exit_every 0 "
+                  "and 32")
+
+
 def phase_kernels_rays(renderer, scene, bsr_trace):
-    """Phase 1, K3n and K3a: the per-ray-origin kernels on the bounce-1
-    nearest launch of the bounced 1080p frame."""
+    """Phase 1, K3n and K3a on the bounce-1 nearest launch of the bounced
+    1080p frame, and K2 on the frame's largest shadow launch."""
     import torch
 
     seen = {}
@@ -337,6 +476,11 @@ def phase_kernels_rays(renderer, scene, bsr_trace):
                                          "exit_every")}
     results["bsr_any_rays"] = compare_kernel(
         bsr_trace, "bsr_any_rays", any_args, any_kwargs, PLAIN_REPEATS_BIG)
+    shadows = seen["bsr_any"]
+    big = max(range(len(shadows)),
+              key=lambda i: int(shadows[i][0][6].item()))
+    compare_kernel(bsr_trace, "bsr_any", *shadows[big], PLAIN_REPEATS_BIG,
+                   tag=f"K2 bsr_any, bounced 1080p frame, bounce {big}")
     return results
 
 
@@ -567,16 +711,21 @@ def compare_mxu(bsr_trace, key, args, kwargs, twin):
     m2 = time_ms(lambda: kernel(*args, **kwargs))
     t2 = time_ms(lambda: kernel(*t_args, **t_kwargs))
     plain_ms = time_ms(lambda: plain(*args, **kwargs))
-    n = int(args[6].item())
+    ms = device_ms(lambda: kernel(*args, **kwargs))
+    st = worklist_stats(args, kwargs, name == "bsr_nearest")
     print(f"[phase 1c] {KERNELS[key][0]} {key}: R={args[0].shape[1]} "
-          f"W={args[3].shape[0]} live items={n} "
-          f"({n * kwargs['rt'] * kwargs['tb'] / 1e9:.3f} G pairs) "
-          f"exit_every(main path)={kwargs['exit_every']}; kernel {m1:.4f} / "
+          f"W={args[3].shape[0]} exit_every(main path)="
+          f"{kwargs['exit_every']}; {stats_line(st)}; kernel {m1:.4f} / "
           f"{m2:.4f} ms, {KERNELS[name][0]} on the same work {t1:.4f} / "
           f"{t2:.4f} ms (order {KERNELS[name][0]}, {KERNELS[key][0]}, "
-          f"{KERNELS[key][0]}, {KERNELS[name][0]}; medians of {REPEATS}); "
-          f"plain {plain_ms:.4f} ms; max_abs_err {err}")
-    return {"max_abs_err": err, "ms": m1, "plain_ms": plain_ms,
+          f"{KERNELS[key][0]}, {KERNELS[name][0]}; synchronized medians of "
+          f"{REPEATS}); kernel {ms:.4f} ms device (mean of {REPEATS} "
+          f"calls) = {st['bound_ms'] / ms:.2%} of its bound; plain "
+          f"{plain_ms:.4f} ms; max_abs_err {err}")
+    return {"max_abs_err": err, "ms": ms, "call_ms": m1,
+            "plain_ms": plain_ms, "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"],
+            "share_of_bound": st["bound_ms"] / ms, "library_ms": None,
             "twin_ms": t1}
 
 
@@ -885,10 +1034,22 @@ def phase_ring_kernels(grid, ring_trace):
                     line += (f"; step kernel {k_ms:.4f} ms (mean of {nk}), "
                              f"step copy {c_ms:.4f} ms (mean of {nc}), "
                              f"{share:.1%} of copy time under a kernel")
+                # Every resident ray against every shard's triangles.
+                pairs = (sum(x.shape[1] for x in rays)
+                         * sum(x.shape[0] for x in args[2]))
+                out_bytes = sum(x.shape[1] for x in rays) * (
+                    8 if name == "ring_nearest" else 4)
+                b_ms, b_by = bound_ms(pairs, False, tensor_bytes(args[1:4])
+                                      + out_bytes)
                 line += (f"; transport {ms:.3f} ms per query (median of 10),"
-                         f" plain {plain_ms:.3f} ms (the compared call)")
+                         f" plain {plain_ms:.3f} ms (the compared call); "
+                         f"{pairs / 1e9:.3f} G pairs, bound {b_ms:.4f} ms "
+                         f"({b_by}), {b_ms / ms:.2%} of it")
                 results[name] = {"max_abs_err": 0.0, "ms": ms,
-                                 "plain_ms": plain_ms}
+                                 "plain_ms": plain_ms, "bound_ms": b_ms,
+                                 "bound_by": b_by,
+                                 "share_of_bound": b_ms / ms,
+                                 "library_ms": None}
             print(line)
     return results
 
@@ -1073,6 +1234,7 @@ def main() -> int:
                          device="cuda", use_mxu=True)
 
     kernels = phase_kernels(renderer, scene, bsr_trace)
+    phase_edge_cases(bsr_trace)
     kernels.update(phase_kernels_rays(bounced, grid, bsr_trace))
     kernels.update(phase_kernels_mxu(mxu, renderer, scene, bsr_trace))
     launches, plain0 = phase_frame(renderer, scene, bsr_trace)

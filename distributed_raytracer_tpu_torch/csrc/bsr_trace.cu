@@ -1,48 +1,47 @@
 // Block-sparse ray-triangle traversal kernels for Hopper (sm_90a).
 //
 // What each function replaces (distributed_raytracer_tpu/ops/pallas/bsr_trace.py):
-//   nearest_kernel<RPT, true>   <- _nearest_kernel with _pair_math(shared_origin=True)
-//                                  (K1, reached through bsr_nearest; primary rays)
-//   any_kernel<RPT, true>       <- _any_kernel with _pair_math(shared_origin=True)
-//                                  (K2, reached through bsr_any; all lights' shadow
-//                                  rays in one launch)
-//   nearest_kernel<RPT, false>  <- _nearest_kernel with _pair_math(shared_origin=False)
-//                                  (K3n: every nearest query of the bounced frame,
-//                                  whose reflection rays each have their own origin)
-//   any_kernel<RPT, false>      <- _any_kernel with _pair_math(shared_origin=False)
-//                                  (K3a: per-ray-origin any hit; the renderer has no
-//                                  caller for it, shadows reverse to the light)
-//   nearest_mxu_kernel<NT>      <- _nearest_mxu_kernel with _pair_math_mxu (K4:
-//                                  primary rays under use_mxu=True)
-//   any_mxu_kernel<NT>          <- _any_mxu_kernel (K5: every shadow launch under
-//                                  use_mxu=True)
-// K4 and K5 are described at their definitions below.
+//   nearest_chunk_kernel    <- _nearest_kernel (:356) with _pair_math(shared_origin=True)
+//                              (:217) (K1, reached through bsr_nearest; primary rays)
+//   any_chunk_kernel        <- _any_kernel (:411) with _pair_math(shared_origin=True)
+//                              (K2, reached through bsr_any; all lights' shadow rays
+//                              in one launch)
+//   nearest_rays_kernel     <- _nearest_kernel with _pair_math(shared_origin=False)
+//                              (K3n: every nearest query of the bounced frame, whose
+//                              reflection rays each have their own origin)
+//   any_rays_kernel         <- _any_kernel with _pair_math(shared_origin=False)
+//                              (K3a: per-ray-origin any hit; the renderer has no
+//                              caller for it, shadows reverse to the light)
+//   nearest_mxu_kernel<NT>  <- _nearest_mxu_kernel with _pair_math_mxu (K4:
+//                              primary rays under use_mxu=True)
+//   any_mxu_kernel<NT>      <- _any_mxu_kernel (K5: every shadow launch under
+//                              use_mxu=True)
+// K1/K2 and K4/K5 are described at their definitions below.
 //
 // All walk a flat, tile-major work list of (ray tile of rt rays, triangle
 // block of tb triangles) items made by ops/cull.py and evaluate the
 // Baldwin-Weber test for every (ray, triangle) pair of each item. Triangle
 // rows are 16 floats [nx ny nz w | kux kuy kuz w_u | kvx kvy kvz w_v | 0 0 0 0].
-// With a shared origin (kShared) they are the pack_tris_origin layout: the
+// With a shared origin (K1, K2) they are the pack_tris_origin layout: the
 // launch's common ray origin is folded in, w = plane_d - n.o, w_u = ku.o + c_u,
-// w_v = kv.o + c_v. Otherwise they are the static pack_tris layout
+// w_v = kv.o + c_v. Otherwise (K3n, K3a) they are the static pack_tris layout
 // (w = plane_d, w_u = c_u, w_v = c_v) and each ray's origin is read from ray
 // rows 0..2 and dotted in per pair.
 //
-// What bounds them on this card: the shared-origin pair math is about 30
-// FP32 operations per (ray, triangle) pair (15 multiply-adds for the three
-// direction dots, one division, the products with t, eight compares) and
-// the fold; per-ray origins add about 18 (three origin dots and their
-// folds). Against that, 48 bytes of triangle data are shared by all rt rays
-// of the tile: a tb = 64 block is 3 KB (4 KB as staged, with its zero
-// columns), re-read once per work item by one thread block. So the kernels
-// are bound by FP32 instruction throughput and the division, not by
-// memory: one item is rt * tb = 32K pairs for 4 KB read.
+// What bounds them on this card: the pair math (pair_math.cuh) is 21 FP32
+// operations per (ray, triangle) pair with a shared origin (den 5, the
+// division 1, u 7, v 7, u + v 1) and seven compares; per-ray origins add
+// 18 (three origin dots and their folds). Against that, 48 bytes of
+// triangle data are shared by all rt rays of the tile: a tb = 64 block is
+// 3 KB (4 KB as staged, with its zero columns), re-read once per work item.
+// So the kernels are bound by FP32 instruction throughput and the IEEE
+// division, not by memory: one item is rt * tb = 32K pairs for 4 KB read.
 //
-// The design for that, simple first:
+// The per-ray-origin kernels (K3n, K3a), simple first:
 //   - One thread block of 128 threads per ray tile (grid = number of ray
-//     tiles). Each thread owns rt / 128 rays and keeps their direction (and
-//     origin, without kShared), best t / best id (or hit flag) in registers,
-//     seeded from init.
+//     tiles). Each thread owns rt / 128 rays and keeps their origin and
+//     direction, best t / best id (or hit flag) in registers, seeded from
+//     init.
 //   - The work list is sorted by tile, so a block finds its own contiguous
 //     run of items with a binary search over tile_ids[0, min(count, W)).
 //     `count` is read from device memory: the host never learns it.
@@ -59,7 +58,9 @@
 //     chained segments of 16,384 items).
 //   - Every ray of every tile is written; tiles without items keep init
 //     (the TPU kernel left them undefined; callers mask them either way).
-//   - No TMA, no wgmma, no persistent blocks yet.
+// One block per tile makes a kernel last as long as its longest tile's
+// run: the shared-origin kernels were redesigned for that (below); these
+// keep the first design.
 //
 // Numerics. Built without --use_fast_math: the validity test relies on IEEE
 // division by a zero den (inf or NaN) and on NaN comparing false (a dead
@@ -74,8 +75,9 @@
 // previous bounce's triangle, which keeps a reflection ray off its own
 // surface only if both versions agree on every id.
 //
-// The C interface returns cudaGetLastError() after the launch; the launch
-// is asynchronous on the caller's stream and allocates nothing.
+// The C interface returns cudaGetLastError() after the launches; they are
+// asynchronous on the caller's stream and allocate nothing (scratch comes
+// from the wrapper).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -104,8 +106,8 @@ struct WorkArgs {
   int exit_every;
 };
 
-// One thread's RPT rays: origins (per-ray form only) and directions.
-template <int RPT, bool kShared>
+// One thread's RPT rays of a K3 block: origins and directions.
+template <int RPT>
 struct RayRegs {
   float ox[RPT], oy[RPT], oz[RPT], dx[RPT], dy[RPT], dz[RPT];
 
@@ -113,9 +115,9 @@ struct RayRegs {
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
       const int64_t r = first + j * kThreads;
-      ox[j] = kShared ? 0.0f : p.rays[r];
-      oy[j] = kShared ? 0.0f : p.rays[p.n_rays + r];
-      oz[j] = kShared ? 0.0f : p.rays[2 * p.n_rays + r];
+      ox[j] = p.rays[r];
+      oy[j] = p.rays[p.n_rays + r];
+      oz[j] = p.rays[2 * p.n_rays + r];
       dx[j] = p.rays[3 * p.n_rays + r];
       dy[j] = p.rays[4 * p.n_rays + r];
       dz[j] = p.rays[5 * p.n_rays + r];
@@ -155,18 +157,18 @@ __device__ __forceinline__ void stage_block(const float4* __restrict__ tris,
   __syncthreads();
 }
 
-template <int RPT, bool kShared>
+template <int RPT>
 __global__ void __launch_bounds__(kThreads)
-    nearest_kernel(const WorkArgs p, const float* __restrict__ init_t,
-                   const int* __restrict__ init_i, float* __restrict__ out_t,
-                   int* __restrict__ out_i) {
+    nearest_rays_kernel(const WorkArgs p, const float* __restrict__ init_t,
+                        const int* __restrict__ init_i,
+                        float* __restrict__ out_t, int* __restrict__ out_i) {
   extern __shared__ float4 tri_s[];
   __shared__ int run[2];
   __shared__ float warp_max[kThreads / 32];
 
   const int tile = blockIdx.x;
   const int64_t first = (int64_t)tile * (kThreads * RPT) + threadIdx.x;
-  RayRegs<RPT, kShared> ray;
+  RayRegs<RPT> ray;
   ray.load(p, first);
   float bt[RPT];
   int bi[RPT], ex[RPT];
@@ -199,7 +201,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < RPT; ++j) {
         float t;
         const bool valid =
-            pair_math<kShared>(a, b, c, ray.ox[j], ray.oy[j], ray.oz[j],
+            pair_math<false>(a, b, c, ray.ox[j], ray.oy[j], ray.oz[j],
                                ray.dx[j], ray.dy[j], ray.dz[j], &t) &&
             g != ex[j];
         const float cand = valid ? t : INFINITY;
@@ -235,16 +237,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int RPT, bool kShared>
+template <int RPT>
 __global__ void __launch_bounds__(kThreads)
-    any_kernel(const WorkArgs p, const int* __restrict__ init,
-               int* __restrict__ out) {
+    any_rays_kernel(const WorkArgs p, const int* __restrict__ init,
+                    int* __restrict__ out) {
   extern __shared__ float4 tri_s[];
   __shared__ int run[2];
 
   const int tile = blockIdx.x;
   const int64_t first = (int64_t)tile * (kThreads * RPT) + threadIdx.x;
-  RayRegs<RPT, kShared> ray;
+  RayRegs<RPT> ray;
   ray.load(p, first);
   float tmax[RPT];
   int hit[RPT], ex[RPT];
@@ -274,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < RPT; ++j) {
         if (hit[j]) continue;  // an occluded ray stays occluded
         float t;
-        if (pair_math<kShared>(a, b, c, ray.ox[j], ray.oy[j], ray.oz[j],
+        if (pair_math<false>(a, b, c, ray.ox[j], ray.oy[j], ray.oz[j],
                                ray.dx[j], ray.dy[j], ray.dz[j], &t) &&
             g != ex[j] && t <= tmax[j])
           hit[j] = 1;
@@ -290,6 +292,356 @@ __global__ void __launch_bounds__(kThreads)
   }
 #pragma unroll
   for (int j = 0; j < RPT; ++j) out[first + j * kThreads] = hit[j];
+}
+
+// ---------------------------------------------------------------------------
+// K1 and K2: the shared-origin kernels on an item-chunk grid.
+//
+// Measured on the H100 (PERF.md), the first design (one block of 128
+// threads per ray tile, like K3 above) lasted as long as its longest tile's
+// run of items: a block takes ~33 us per 32K-pair item with only ~2.5 warps
+// per scheduler to hide the dependent FP32 chains and the division, and
+// the 640x480 frame's K1 launch has 330 tiles with items, 21 on average
+// and 42 at most. So the grid is over the work list instead:
+//   - ceil(W / chunk) blocks of 128 threads; block b takes the live items
+//     [b*chunk, min((b+1)*chunk, count)) (count read on the device; a block
+//     past it exits). The wrapper passes chunk = 2 (ops/bsr_trace.py CHUNK:
+//     1 to 4 measured within 9% of each other, longer chunks slower). A
+//     heavy tile is spread over many blocks on many SMs, and every SM keeps
+//     ~7 blocks (28 warps) busy to the end.
+//   - A block still holds one ray tile's rt rays at a time, rt / 128 per
+//     thread, in registers. The list is tile-major, so a chunk spans one
+//     tile or a few: where the tile changes, the block flushes its rays'
+//     results and loads the next tile's rays.
+//   - Results merge across blocks exactly, in any order. Nearest: a 64-bit
+//     atomicMin on the plain version's key (bits(t + 0.0) << 32) | id
+//     (ops/bsr_trace.py _keys) in an (R,) scratch the wrapper allocates:
+//     seed_keys writes init's keys, the chunks fold into them, unpack_keys
+//     writes (out_t, out_i); three launches per call, so the result is the
+//     plain version's bit for bit whatever the schedule. A thread first
+//     folds each of its rays over one item in registers (rows in
+//     increasing id, so a strict < keeps the lowest id of a tie), merges
+//     the item into the ray's key once, and issues one atomic per changed
+//     ray per tile run. Any hit: out starts as a copy of init
+//     (cudaMemcpyAsync), and a block stores 1 for each ray it found hit
+//     (every writer writes the same 1); one copy and one launch per call.
+//   - Tiles the work list does not name keep init (their keys or flags are
+//     never touched).
+//   - Staging is asynchronous: triangle blocks go into a two-slot ring in
+//     shared memory as 16-byte cp.async copies, one commit group per item.
+//     While item w is tested, item w+1's block is in flight; at the top of
+//     each item a thread waits for its own copies and ONE __syncthreads
+//     publishes everyone's and frees the other slot for the next copy.
+//     cp.async rather than the 1-D TMA bulk copy: a 4 KB block is two
+//     16-byte copies per thread, the one barrier per item is needed anyway
+//     (slot reuse, and K2's vote below), and there is no mbarrier phase to
+//     track; the copies cost nothing next to 32K pairs of math.
+//   - Nearest reads its rays' current keys from the scratch when it loads
+//     a tile: init, and whatever other blocks already merged. Keys only
+//     fall, so starting from them is exact, and they give the front-to-back
+//     skip (exit_every > 0) a bound at once: the block skips an item whose
+//     conservative entry distance exceeds every ray's best t by more than
+//     1e-4, with the bound refreshed every exit_every items tested.
+//   - Any hit reads its rays' flags when it loads a tile (flags only go
+//     from 0 to 1), folds the all-hit vote into the item's barrier
+//     (__syncthreads_and: a tile whose rays are all hit skips its remaining
+//     items), skips an item for a warp whose rays are all hit, and leaves
+//     the row loop once they all are.
+// The pair math is pair_math<true> as before (-fmad=false, IEEE division),
+// so K1 and K2 equal bsr_nearest_ref / bsr_any_ref bit for bit.
+//
+// Where that leaves them (PERF.md): the 640x480 frame's K1 launch is
+// 0.227 G pairs, 0.071 ms of FP32 operations at the 67 TFLOP/s peak; it
+// takes ~0.38 ms, 19% of that. The inner loop issues ~43 instructions per
+// pair (the 21 operations, 8 compares, ~10 for the IEEE division and its
+// slow-path branch, the fold), so even at full issue it would take ~0.29
+// ms; it runs at ~3/4 of that rate. K2 is alike (17%).
+// ---------------------------------------------------------------------------
+
+constexpr int kElemThreads = 256;  // seed_keys, unpack_keys
+
+// The plain version's key: (bits(t + 0.0) << 32) | id, the id sign-extended
+// as torch's int64 cast does. For t >= 0 or inf and 0 <= id < 2^31 it
+// orders pairs as (t, id) lexicographically; adding 0.0 turns -0.0 into
+// +0.0, which compare equal.
+__device__ __forceinline__ long long make_key(float t, int id) {
+  const unsigned long long hi =
+      (unsigned long long)(unsigned)__float_as_int(__fadd_rn(t, 0.0f)) << 32;
+  return (long long)(hi | (unsigned long long)(long long)id);
+}
+
+// A key's halves as (t, id) registers, and back, bit for bit.
+__device__ __forceinline__ void split_key(long long k, float* t, int* id) {
+  *t = __int_as_float((int)((unsigned long long)k >> 32));
+  *id = (int)(unsigned)k;
+}
+
+__device__ __forceinline__ long long join_key(float t, int id) {
+  return (long long)(((unsigned long long)(unsigned)__float_as_int(t) << 32) |
+                     (unsigned)id);
+}
+
+__global__ void seed_keys(const float* __restrict__ init_t,
+                          const int* __restrict__ init_i,
+                          long long* __restrict__ keys, int64_t n) {
+  const int64_t r = (int64_t)blockIdx.x * kElemThreads + threadIdx.x;
+  if (r < n) keys[r] = make_key(init_t[r], init_i[r]);
+}
+
+__global__ void unpack_keys(const long long* __restrict__ keys,
+                            float* __restrict__ out_t,
+                            int* __restrict__ out_i, int64_t n) {
+  const int64_t r = (int64_t)blockIdx.x * kElemThreads + threadIdx.x;
+  if (r < n) split_key(keys[r], out_t + r, out_i + r);
+}
+
+// Issues the 16-byte copies of triangle block `block` (tb rows of four
+// float4) into a ring slot as one commit group.
+__device__ __forceinline__ void stage_async(const float4* __restrict__ tris,
+                                            int block, int tb, float4* slot) {
+  const float4* src = tris + (int64_t)block * tb * 4;
+  for (int k = threadIdx.x; k < tb * 4; k += kThreads) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(slot + k);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(src + k)
+                 : "memory");
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits for this thread's copies; the __syncthreads that follows makes
+// every thread's copies visible.
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A block's chunk of live items [lo, hi); empty past count.
+struct Chunk {
+  int lo, hi;
+  __device__ __forceinline__ Chunk(const WorkArgs& p, int chunk) {
+    const int n = min(max(*p.count, 0), p.n_items);
+    lo = min((int)blockIdx.x * chunk, n);
+    hi = min(lo + chunk, n);
+  }
+};
+
+// One thread's RPT rays of the block's current tile: directions and
+// exclusion ids (the origin is folded into the triangle rows).
+template <int RPT>
+struct TileRays {
+  float dx[RPT], dy[RPT], dz[RPT];
+  int ex[RPT];
+
+  static __device__ __forceinline__ int64_t ray(int tile, int j) {
+    return (int64_t)tile * (kThreads * RPT) + threadIdx.x + j * kThreads;
+  }
+
+  __device__ __forceinline__ void load(const WorkArgs& p, int tile) {
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const int64_t r = ray(tile, j);
+      dx[j] = p.rays[3 * p.n_rays + r];
+      dy[j] = p.rays[4 * p.n_rays + r];
+      dz[j] = p.rays[5 * p.n_rays + r];
+      ex[j] = p.excl[r];
+    }
+  }
+};
+
+// Block-wide max of the rays' best t (a NaN seed counts as inf: it bounds
+// nothing).
+template <int RPT>
+__device__ float block_max(const float (&bt)[RPT], float* warp_max) {
+  float m = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < RPT; ++j) m = fmaxf(m, bt[j] == bt[j] ? bt[j] : INFINITY);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
+  if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
+  __syncthreads();
+  float b = warp_max[0];
+#pragma unroll
+  for (int k = 1; k < kThreads / 32; ++k) b = fmaxf(b, warp_max[k]);
+  __syncthreads();  // warp_max is rewritten at the next refresh
+  return b;
+}
+
+template <int RPT>
+__global__ void __launch_bounds__(kThreads)
+    nearest_chunk_kernel(const WorkArgs p, int chunk,
+                         long long* __restrict__ keys) {
+  extern __shared__ float4 ring[];  // two slots of tb * 4 float4
+  __shared__ float warp_max[kThreads / 32];
+
+  const Chunk c(p, chunk);
+  if (c.lo == c.hi) return;
+  const int slot4 = p.tb * 4;
+  const int gid0 = *p.gid_base;
+  stage_async(p.tris, p.block_ids[c.lo], p.tb, ring);
+
+  TileRays<RPT> ray;
+  float bt[RPT];  // the rays' keys as (t, id) halves
+  int bi[RPT];
+  unsigned changed = 0;  // bit j: ray j's key fell in this tile run
+  int tile = -1;
+  float bound = INFINITY;  // block-uniform
+  int tested = 0;
+
+  for (int w = c.lo; w < c.hi; ++w) {
+    const int t = p.tile_ids[w];
+    if (t != tile) {  // block-uniform
+      if (tile >= 0) {
+#pragma unroll
+        for (int j = 0; j < RPT; ++j)
+          if (changed >> j & 1u)
+            atomicMin(keys + ray.ray(tile, j), join_key(bt[j], bi[j]));
+      }
+      tile = t;
+      ray.load(p, tile);
+#pragma unroll
+      for (int j = 0; j < RPT; ++j)
+        split_key(__ldcg(keys + ray.ray(tile, j)), &bt[j], &bi[j]);
+      changed = 0;
+      if (p.exit_every) {
+        bound = block_max<RPT>(bt, warp_max);
+        tested = 0;
+      }
+    }
+    wait_staged();
+    __syncthreads();  // item w's block is in; the other slot is free
+    if (w + 1 < c.hi)
+      stage_async(p.tris, p.block_ids[w + 1], p.tb,
+                  ring + ((w + 1 - c.lo) & 1) * slot4);
+    // Front-to-back skip: every ray's best hit is nearer than this block.
+    if (p.exit_every && !(p.entry[w] <= bound + kExitSlack)) continue;
+    const float4* tri_s = ring + ((w - c.lo) & 1) * slot4;
+    const int g0 = gid0 + p.block_ids[w] * p.tb;
+    // The item's (t, id) minimum per ray; a pair that misses counts as
+    // (inf, id), so an item without a hit gives (inf, g0).
+    float it[RPT];
+    int ii[RPT];
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      it[j] = INFINITY;
+      ii[j] = g0;
+    }
+#pragma unroll 2
+    for (int row = 0; row < p.tb; ++row) {
+      const float4 a = tri_s[4 * row];
+      const float4 b = tri_s[4 * row + 1];
+      const float4 cc = tri_s[4 * row + 2];
+      const int g = g0 + row;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        float tt;
+        if (pair_math<true>(a, b, cc, 0.0f, 0.0f, 0.0f, ray.dx[j], ray.dy[j],
+                            ray.dz[j], &tt) &&
+            g != ray.ex[j] && tt < it[j]) {
+          it[j] = tt;
+          ii[j] = g;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) {
+      const long long k = make_key(it[j], ii[j]);
+      if (k < join_key(bt[j], bi[j])) {
+        split_key(k, &bt[j], &bi[j]);
+        changed |= 1u << j;
+      }
+    }
+    if (p.exit_every && ++tested % p.exit_every == 0)
+      bound = block_max<RPT>(bt, warp_max);
+  }
+#pragma unroll
+  for (int j = 0; j < RPT; ++j)
+    if (changed >> j & 1u)
+      atomicMin(keys + ray.ray(tile, j), join_key(bt[j], bi[j]));
+}
+
+template <int RPT>
+__global__ void __launch_bounds__(kThreads)
+    any_chunk_kernel(const WorkArgs p, int chunk, int* __restrict__ out) {
+  extern __shared__ float4 ring[];  // two slots of tb * 4 float4
+
+  const Chunk c(p, chunk);
+  if (c.lo == c.hi) return;
+  const int slot4 = p.tb * 4;
+  const int gid0 = *p.gid_base;
+  stage_async(p.tris, p.block_ids[c.lo], p.tb, ring);
+
+  TileRays<RPT> ray;
+  float tmax[RPT];
+  int hit[RPT];
+  unsigned found = 0;  // bit j: ray j found hit in this tile run
+  int tile = -1;
+
+  for (int w = c.lo; w < c.hi; ++w) {
+    const int t = p.tile_ids[w];
+    if (t != tile) {  // block-uniform
+      if (tile >= 0) {
+#pragma unroll
+        for (int j = 0; j < RPT; ++j)
+          if (found >> j & 1u) out[ray.ray(tile, j)] = 1;
+      }
+      tile = t;
+      ray.load(p, tile);
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        const int64_t r = ray.ray(tile, j);
+        tmax[j] = p.rays[6 * p.n_rays + r];
+        hit[j] = __ldcg(out + r);  // init, or set by another block
+      }
+      found = 0;
+    }
+    wait_staged();
+    int all = 1;
+#pragma unroll
+    for (int j = 0; j < RPT; ++j) all &= hit[j] != 0;
+    // Item w's block is in, the other slot is free, and the vote: once
+    // every ray of the tile is hit, its later items change nothing.
+    const int tile_done = __syncthreads_and(all);
+    if (w + 1 < c.hi)
+      stage_async(p.tris, p.block_ids[w + 1], p.tb,
+                  ring + ((w + 1 - c.lo) & 1) * slot4);
+    if (tile_done || __all_sync(0xffffffffu, all)) continue;
+    const float4* tri_s = ring + ((w - c.lo) & 1) * slot4;
+    const int g0 = gid0 + p.block_ids[w] * p.tb;
+#pragma unroll 2
+    for (int row = 0; row < p.tb; ++row) {
+      const float4 a = tri_s[4 * row];
+      const float4 b = tri_s[4 * row + 1];
+      const float4 cc = tri_s[4 * row + 2];
+      const int g = g0 + row;
+      int rest = 0;
+#pragma unroll
+      for (int j = 0; j < RPT; ++j) {
+        if (hit[j]) continue;  // an occluded ray stays occluded
+        float tt;
+        if (pair_math<true>(a, b, cc, 0.0f, 0.0f, 0.0f, ray.dx[j], ray.dy[j],
+                            ray.dz[j], &tt) &&
+            g != ray.ex[j] && tt <= tmax[j]) {
+          hit[j] = 1;
+          found |= 1u << j;
+        }
+        rest |= hit[j] == 0;
+      }
+      // The warp leaves the item once all of its rays are hit.
+      if ((row & 15) == 15 && !__any_sync(0xffffffffu, rest)) break;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < RPT; ++j)
+    if (found >> j & 1u) out[ray.ray(tile, j)] = 1;
+}
+
+// Dynamic shared memory above the 48 KB default needs an opt-in.
+template <typename Fn>
+cudaError_t allow_smem(Fn fn, size_t bytes) {
+  if (bytes <= 48 * 1024 - 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 // ---------------------------------------------------------------------------
@@ -677,33 +1029,54 @@ __global__ void __launch_bounds__(kMxuThreads)
     }
 }
 
-// Rays per thread (RPT = rt / 128) and the origin form are template
-// parameters; these pick the instantiation for a launch.
+// Rays per thread (RPT = rt / 128) is a template parameter of K3n/K3a;
+// these pick the instantiation for a launch.
 using NearestFn = void (*)(WorkArgs, const float*, const int*, float*, int*);
 using AnyFn = void (*)(WorkArgs, const int*, int*);
 
-template <bool kShared>
-NearestFn nearest_for(int rt) {
+NearestFn nearest_rays_for(int rt) {
   switch (rt) {
-    case 128: return nearest_kernel<1, kShared>;
-    case 256: return nearest_kernel<2, kShared>;
-    case 512: return nearest_kernel<4, kShared>;
-    case 1024: return nearest_kernel<8, kShared>;
+    case 128: return nearest_rays_kernel<1>;
+    case 256: return nearest_rays_kernel<2>;
+    case 512: return nearest_rays_kernel<4>;
+    case 1024: return nearest_rays_kernel<8>;
     default: return nullptr;
   }
 }
 
-template <bool kShared>
-AnyFn any_for(int rt) {
+AnyFn any_rays_for(int rt) {
   switch (rt) {
-    case 128: return any_kernel<1, kShared>;
-    case 256: return any_kernel<2, kShared>;
-    case 512: return any_kernel<4, kShared>;
-    case 1024: return any_kernel<8, kShared>;
+    case 128: return any_rays_kernel<1>;
+    case 256: return any_rays_kernel<2>;
+    case 512: return any_rays_kernel<4>;
+    case 1024: return any_rays_kernel<8>;
     default: return nullptr;
   }
 }
 
+// K1/K2: RPT = rt / 128 as well.
+using NearestChunkFn = void (*)(WorkArgs, int, long long*);
+using AnyChunkFn = void (*)(WorkArgs, int, int*);
+
+NearestChunkFn nearest_chunk_for(int rt) {
+  switch (rt) {
+    case 128: return nearest_chunk_kernel<1>;
+    case 256: return nearest_chunk_kernel<2>;
+    case 512: return nearest_chunk_kernel<4>;
+    case 1024: return nearest_chunk_kernel<8>;
+    default: return nullptr;
+  }
+}
+
+AnyChunkFn any_chunk_for(int rt) {
+  switch (rt) {
+    case 128: return any_chunk_kernel<1>;
+    case 256: return any_chunk_kernel<2>;
+    case 512: return any_chunk_kernel<4>;
+    case 1024: return any_chunk_kernel<8>;
+    default: return nullptr;
+  }
+}
 using NearestMxuFn = void (*)(MxuArgs, const float*, const int*, float*,
                               int*);
 using AnyMxuFn = void (*)(MxuArgs, const int*, int*);
@@ -753,17 +1126,75 @@ WorkArgs work_args(const float* rays, int64_t n_rays, const int* excl,
 
 extern "C" {
 
-// rt must be 128, 256, 512 or 1024; shared != 0 selects the shared-origin
-// (pack_tris_origin) form, 0 the per-ray-origin (pack_tris) form. The
-// Python wrapper (ops/bsr_trace.py) checks every shape, dtype, device,
-// alignment and contiguity before calling.
+// rt must be 128, 256, 512 or 1024. The Python wrapper (ops/bsr_trace.py)
+// checks every shape, dtype, device, alignment and contiguity before
+// calling.
+
+// K1: the shared-origin (pack_tris_origin) nearest hit on the chunk grid,
+// `chunk` >= 1 items per block; keys is an (n_rays,) int64 scratch. Three
+// launches: seed_keys, the chunks (when the list has slots), unpack_keys.
 int drt_bsr_nearest(const float* rays, int64_t n_rays, const int* excl,
                     const float* tris, const int* tile_ids,
                     const int* block_ids, const float* entry, const int* count,
                     int n_items, const float* init_t, const int* init_i,
-                    const int* gid_base, float* out_t, int* out_i, int rt,
-                    int tb, int exit_every, int shared, void* stream) {
-  const NearestFn fn = shared ? nearest_for<true>(rt) : nearest_for<false>(rt);
+                    const int* gid_base, long long* keys, float* out_t,
+                    int* out_i, int rt, int tb, int exit_every, int chunk,
+                    void* stream) {
+  const NearestChunkFn fn = nearest_chunk_for(rt);
+  if (fn == nullptr || chunk < 1) return cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)tb * 16 * sizeof(float);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  const WorkArgs p = work_args(rays, n_rays, excl, tris, tile_ids, block_ids,
+                               entry, count, n_items, gid_base, tb,
+                               exit_every);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const unsigned eg = (unsigned)((n_rays + kElemThreads - 1) / kElemThreads);
+  seed_keys<<<eg, kElemThreads, 0, s>>>(init_t, init_i, keys, n_rays);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (n_items > 0) {
+    fn<<<(n_items + chunk - 1) / chunk, kThreads, smem, s>>>(
+        p, chunk, keys);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  unpack_keys<<<eg, kElemThreads, 0, s>>>(keys, out_t, out_i, n_rays);
+  return cudaGetLastError();
+}
+
+// K2: the shared-origin any hit on the chunk grid. One device-to-device
+// copy of init into out, then the chunks (when the list has slots).
+int drt_bsr_any(const float* rays, int64_t n_rays, const int* excl,
+                const float* tris, const int* tile_ids, const int* block_ids,
+                const int* count, int n_items, const int* init,
+                const int* gid_base, int* out, int rt, int tb, int chunk,
+                void* stream) {
+  const AnyChunkFn fn = any_chunk_for(rt);
+  if (fn == nullptr || chunk < 1) return cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)tb * 16 * sizeof(float);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  const WorkArgs p = work_args(rays, n_rays, excl, tris, tile_ids, block_ids,
+                               nullptr, count, n_items, gid_base, tb, 0);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  err = cudaMemcpyAsync(out, init, n_rays * sizeof(int),
+                        cudaMemcpyDeviceToDevice, s);
+  if (err != cudaSuccess) return err;
+  if (n_items > 0)
+    fn<<<(n_items + chunk - 1) / chunk, kThreads, smem, s>>>(
+        p, chunk, out);
+  return cudaGetLastError();
+}
+
+// K3n and K3a: per-ray origins against the static pack_tris rows, one
+// block per ray tile.
+int drt_bsr_nearest_rays(const float* rays, int64_t n_rays, const int* excl,
+                         const float* tris, const int* tile_ids,
+                         const int* block_ids, const float* entry,
+                         const int* count, int n_items, const float* init_t,
+                         const int* init_i, const int* gid_base, float* out_t,
+                         int* out_i, int rt, int tb, int exit_every,
+                         void* stream) {
+  const NearestFn fn = nearest_rays_for(rt);
   if (fn == nullptr) return cudaErrorInvalidValue;
   const WorkArgs p = work_args(rays, n_rays, excl, tris, tile_ids, block_ids,
                                entry, count, n_items, gid_base, tb,
@@ -774,12 +1205,12 @@ int drt_bsr_nearest(const float* rays, int64_t n_rays, const int* excl,
   return cudaGetLastError();
 }
 
-int drt_bsr_any(const float* rays, int64_t n_rays, const int* excl,
-                const float* tris, const int* tile_ids, const int* block_ids,
-                const int* count, int n_items, const int* init,
-                const int* gid_base, int* out, int rt, int tb, int exit_every,
-                int shared, void* stream) {
-  const AnyFn fn = shared ? any_for<true>(rt) : any_for<false>(rt);
+int drt_bsr_any_rays(const float* rays, int64_t n_rays, const int* excl,
+                     const float* tris, const int* tile_ids,
+                     const int* block_ids, const int* count, int n_items,
+                     const int* init, const int* gid_base, int* out, int rt,
+                     int tb, int exit_every, void* stream) {
+  const AnyFn fn = any_rays_for(rt);
   if (fn == nullptr) return cudaErrorInvalidValue;
   const WorkArgs p = work_args(rays, n_rays, excl, tris, tile_ids, block_ids,
                                nullptr, count, n_items, gid_base, tb,

@@ -42,10 +42,15 @@ _p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 _SIGNATURES = {
     "bsr_trace": {
         "drt_bsr_nearest": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _p, _i32, _p,
-                                   _p, _p, _p, _p, _i32, _i32, _i32, _i32,
+                                   _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32,
                                    _p]),
         "drt_bsr_any": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _i32, _p, _p, _p,
-                               _i32, _i32, _i32, _i32, _p]),
+                               _i32, _i32, _i32, _p]),
+        "drt_bsr_nearest_rays": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _p, _i32,
+                                        _p, _p, _p, _p, _p, _i32, _i32, _i32,
+                                        _p]),
+        "drt_bsr_any_rays": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _i32, _p, _p,
+                                    _p, _i32, _i32, _i32, _p]),
         "drt_bsr_nearest_mxu": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _p, _p,
                                        _p, _i32, _p, _p, _p, _p, _p, _i32,
                                        _i32, _i32, _p]),

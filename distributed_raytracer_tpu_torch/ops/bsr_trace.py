@@ -49,8 +49,13 @@ BIG_TMAX = 3.4e38
 # The JAX package's work-list bucket granule (its SMEM segment length); kept
 # so both packages size identical buckets from identical counts.
 _BUCKET_SEGMENT = 16384
-# Threads per block of the CUDA kernels; rt / THREADS rays per thread.
+# Threads per block of the CUDA-core kernels (K1-K3); rt / THREADS rays
+# per thread.
 THREADS = 128
+# Work items per block of the shared-origin kernels (K1, K2), whose grid
+# runs over chunks of the work list (csrc/bsr_trace.cu); chosen on the H100
+# (PERF.md).
+CHUNK = 2
 # Pairs per chunk of the plain versions: bounds their peak memory (an
 # unchunked (W, tb, rt) pair tensor is gigabytes at frame sizes).
 _REF_CHUNK_PAIRS = 1 << 22
@@ -58,7 +63,9 @@ _REF_CHUNK_PAIRS = 1 << 22
 # Kernel launches per wrapper and triangle form ("_rays": per-ray origins;
 # "_mxu": the (A, scal) tuple on the tensor cores). Incremented only where
 # the CUDA kernel is launched, never by the plain versions; a caller resets
-# them to 0 to count the launches of one run.
+# them to 0 to count the launches of one run. One count per call: K1's call
+# is three device launches (seed the keys, the chunks, unpack), K2's a copy
+# of init and the chunks, every other form one launch.
 LAUNCHES = {"bsr_nearest": 0, "bsr_any": 0, "bsr_nearest_rays": 0,
             "bsr_any_rays": 0, "bsr_nearest_mxu": 0, "bsr_any_mxu": 0}
 
@@ -342,16 +349,25 @@ def bsr_nearest(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
     out_t, out_i = torch.empty_like(init_t), torch.empty_like(init_i)
     if r:
         lib = _build.load_library()
-        fn = lib.drt_bsr_nearest_mxu if mxu else lib.drt_bsr_nearest
-        form = () if mxu else (int(shared_origin),)
+        work = _work_ptrs(tris_packed, tile_ids, block_ids, ablock_ids, mxu)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            _build.launch(
-                "bsr_trace", fn, _ptr(rays_packed), r, _ptr(exclude),
-                *_work_ptrs(tris_packed, tile_ids, block_ids, ablock_ids,
-                            mxu), _ptr(entry), _ptr(count), w, _ptr(init_t),
-                _ptr(init_i), _ptr(gid_base), _ptr(out_t), _ptr(out_i), rt,
-                tb, exit_every, *form, stream)
+            head = (_ptr(rays_packed), r, _ptr(exclude), *work, _ptr(entry),
+                    _ptr(count), w, _ptr(init_t), _ptr(init_i),
+                    _ptr(gid_base))
+            tail = (_ptr(out_t), _ptr(out_i), rt, tb, exit_every)
+            if mxu:
+                _build.launch("bsr_trace", lib.drt_bsr_nearest_mxu, *head,
+                              *tail, stream)
+            elif shared_origin:
+                # The chunks merge through an int64 key per ray (three
+                # launches: seed, chunks, unpack).
+                keys = torch.empty(r, dtype=torch.int64, device=dev)
+                _build.launch("bsr_trace", lib.drt_bsr_nearest, *head,
+                              _ptr(keys, 8), *tail, CHUNK, stream)
+            else:
+                _build.launch("bsr_trace", lib.drt_bsr_nearest_rays, *head,
+                              *tail, stream)
         LAUNCHES[launch_key("bsr_nearest", shared_origin, mxu)] += 1
     return out_t, out_i
 
@@ -382,15 +398,22 @@ def bsr_any(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
     out = torch.empty_like(init)
     if r:
         lib = _build.load_library()
-        fn = lib.drt_bsr_any_mxu if mxu else lib.drt_bsr_any
-        form = () if mxu else (int(shared_origin),)
+        work = _work_ptrs(tris_packed, tile_ids, block_ids, ablock_ids, mxu)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            _build.launch(
-                "bsr_trace", fn, _ptr(rays_packed), r, _ptr(exclude),
-                *_work_ptrs(tris_packed, tile_ids, block_ids, ablock_ids,
-                            mxu), _ptr(count), w, _ptr(init), _ptr(gid_base),
-                _ptr(out), rt, tb, exit_every, *form, stream)
+            head = (_ptr(rays_packed), r, _ptr(exclude), *work, _ptr(count),
+                    w, _ptr(init), _ptr(gid_base), _ptr(out), rt, tb)
+            if mxu:
+                _build.launch("bsr_trace", lib.drt_bsr_any_mxu, *head,
+                              exit_every, stream)
+            elif shared_origin:
+                # Every ray's flag is tested as the chunks go; exit_every
+                # has nothing left to do.
+                _build.launch("bsr_trace", lib.drt_bsr_any, *head, CHUNK,
+                              stream)
+            else:
+                _build.launch("bsr_trace", lib.drt_bsr_any_rays, *head,
+                              exit_every, stream)
         LAUNCHES[launch_key("bsr_any", shared_origin, mxu)] += 1
     return out
 

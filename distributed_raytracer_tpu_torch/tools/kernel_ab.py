@@ -1,0 +1,391 @@
+"""Time the traversal kernels and the frames of this tree against another
+tree's, in turns, on one CUDA card.
+
+    python -m distributed_raytracer_tpu_torch.tools.kernel_ab \\
+        [--other DIR] [--cut] [--chunks 1,2,4] [--out FILE]
+
+The launches are recorded once, in this tree: K1 and K2 of one 640x480
+render() of icosphere_scene(6), and the three K2 launches and the bounce-1
+K3n launch of one depth-2 render_bounced() of the 1920x1080 sphere grid
+(instanced_grid(icosphere_scene(3), 4)). Each tree then times its own
+wrappers (ops/bsr_trace.bsr_nearest, bsr_any) on those inputs in a worker
+process of its own: the traversal kernels' device time per call from
+torch.profiler (the mean of 10 calls), and the call's device time from CUDA
+events (the mean of 20 calls queued behind a sleep). With --other DIR (a
+copy of another commit's distributed_raytracer_tpu_torch package, e.g.
+`git archive <commit> distributed_raytracer_tpu_torch | tar -x -C DIR`)
+the workers run in turns: other, this, this, other; each checks that its
+outputs equal the recorded plain-version outputs bit for bit. The frame
+workers, in the same turns, time render_fast() at an orbit pose of the
+640x480 frame (median of 30 synchronized calls) and the frozen bounced
+frame (median of 10), and profile each: the device's busy share of the
+profiled window and the device ms per frame of K1, K2, K3n and the rest.
+
+--cut also times, in every tree, the 640x480 K1 and K2 launches with
+every tile's run of items cut to its first cap items (how much the longest
+runs cost); --chunks times them at other chunk lengths
+(ops/bsr_trace.CHUNK) in this tree only.
+
+Prints one line per measurement, and writes them to --out FILE if given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+# Kernel names per table id, as the profiler reports them (this tree's and
+# earlier trees' instantiations).
+_CLASSES = (
+    ("K1", r"nearest_chunk_kernel|seed_keys|unpack_keys|"
+           r"nearest_kernel<\d+, true>"),
+    ("K2", r"any_chunk_kernel|any_kernel<\d+, true>"),
+    ("K3n", r"nearest_rays_kernel|nearest_kernel<\d+, false>"),
+)
+_TRAVERSAL = re.compile("|".join(p for _, p in _CLASSES))
+# --cut: the longest runs of items per tile allowed.
+CUT_CAPS = (64, 42, 32, 21, 16, 8, 4, 2, 1)
+
+
+def _kernel_class(name: str) -> str:
+    for k, pat in _CLASSES:
+        if re.search(pat, name):
+            return k
+    return "other"
+
+
+def _profile(fn, n: int):
+    """(busy share of the window, {class: device ms per call}, kernels per
+    call) over n calls of fn under torch.profiler."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f).get("traceEvents", [])
+                      if "ts" in e and "dur" in e]
+    dev = [e for e in events
+           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    window = (max(e["ts"] + e["dur"] for e in events)
+              - min(e["ts"] for e in events))
+    per = {}
+    for e in dev:
+        k = _kernel_class(e["name"])
+        per[k] = per.get(k, 0.0) + e["dur"] / 1e3 / n
+    kernels = sum(e.get("cat") == "kernel" for e in dev) / n
+    return busy / window, per, kernels
+
+
+def _events_ms(fn, calls: int = 20) -> float:
+    import torch
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
+
+
+def _traversal_ms(fn, n: int = 10) -> float:
+    """Device ms per call of the traversal kernels (profiler)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if _TRAVERSAL.search(e.key)) / 1e3 / n
+
+
+def _bits(x):
+    import torch
+
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _equal(got, want) -> bool:
+    import torch
+
+    got = got if isinstance(got, tuple) else (got,)
+    return all(torch.equal(_bits(g), _bits(w.to(g.device)))
+               for g, w in zip(got, want))
+
+
+# -- the worker, run inside a tree ------------------------------------------
+
+def _worker_kernels(path: str, cut: bool) -> list:
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops import _build, bsr_trace
+
+    _build.load_library()
+    rows = []
+    for i, rec in enumerate(torch.load(path)):
+        args = tuple(a.cuda() if isinstance(a, torch.Tensor) else a
+                     for a in rec["args"])
+        fn = getattr(bsr_trace, rec["wrapper"])
+        call = lambda: fn(*args, **rec["kwargs"])
+        same = _equal(call(), rec["want"])
+        row = {"tag": rec["tag"], "equal": same,
+               "kernel_ms": _traversal_ms(call), "call_ms": _events_ms(call)}
+        if cut and i < 2:                   # the 640x480 K1 and K2 launches
+            row["cut"] = []
+            for cap in CUT_CAPS:
+                short = _recut(args, cap)
+                row["cut"].append((cap, int(short[6].item()), _traversal_ms(
+                    lambda: fn(*short, **rec["kwargs"]))))
+        rows.append(row)
+    return rows
+
+
+def _worker_frames() -> dict:
+    import statistics
+    import time
+
+    import numpy as np
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.runtime import animation
+    from distributed_raytracer_tpu_torch.utils import scenes
+
+    def sync_ms(fn, n):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    scene = scenes.icosphere_scene(6)
+    r = CulledRenderer(scene, 640, 480, block_size="auto", device="cuda")
+    r.render(scene.camera, block=True)
+    r.freeze(scene.camera)
+    poses = animation.orbit_camera_path(scene.camera, 16, radius=3.0)
+    for cam in poses:
+        r.render_fast(cam)
+    out = {"render_fast_ms": sync_ms(lambda: r.render_fast(poses[1]), 30),
+           "render_fast": _profile(lambda: r.render_fast(poses[1]), 10)}
+    grid = scenes.instanced_grid(scenes.icosphere_scene(3), 4)
+    b = CulledRenderer(grid, 1920, 1080, block_size="auto", device="cuda")
+    fast = b.freeze_bounced(grid.camera, 2)
+    radius = float(np.linalg.norm(grid.camera.pos))
+    gp = animation.orbit_camera_path(grid.camera, 8, radius=radius,
+                                     revolutions=0.1)
+    for cam in gp:
+        fast(cam)
+    out["bounced_ms"] = sync_ms(lambda: fast(gp[1]), 10)
+    out["bounced"] = _profile(lambda: fast(gp[1]), 3)
+    return out
+
+
+# -- the parent process -------------------------------------------------------
+
+def _record(path: str) -> list:
+    """Records the launches and their plain-version outputs into path."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops import bsr_trace
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.utils import scenes
+
+    seen = {}
+    originals = {n: getattr(bsr_trace, n) for n in ("bsr_nearest",
+                                                    "bsr_any")}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            seen.setdefault((name, kwargs["shared_origin"]), []).append(
+                (args, dict(kwargs)))
+            return originals[name](*args, **kwargs)
+        return call
+
+    try:
+        for n in originals:
+            setattr(bsr_trace, n, recorder(n))
+        scene = scenes.icosphere_scene(6)
+        CulledRenderer(scene, 640, 480, block_size="auto",
+                       device="cuda").render(scene.camera, block=True)
+        main = dict(seen)
+        seen.clear()
+        grid = scenes.instanced_grid(scenes.icosphere_scene(3), 4)
+        CulledRenderer(grid, 1920, 1080, block_size="auto",
+                       device="cuda").render_bounced(grid.camera, 2,
+                                                     block=True)
+    finally:
+        for n, fn in originals.items():
+            setattr(bsr_trace, n, fn)
+    launches = [("K1 640x480 primary", "bsr_nearest",
+                 main[("bsr_nearest", True)][-1]),
+                ("K2 640x480 shadows", "bsr_any", main[("bsr_any", True)][-1])]
+    launches += [(f"K2 bounced 1080p bounce {i}", "bsr_any", c)
+                 for i, c in enumerate(seen[("bsr_any", True)])]
+    launches.append(("K3n bounced 1080p bounce 1", "bsr_nearest",
+                     seen[("bsr_nearest", False)][1]))
+    recs = []
+    for tag, wrapper, (args, kwargs) in launches:
+        want = getattr(bsr_trace, wrapper + "_ref")(*args, **kwargs)
+        want = want if isinstance(want, tuple) else (want,)
+        recs.append({"tag": tag, "wrapper": wrapper, "kwargs": kwargs,
+                     "args": tuple(a.cpu() if isinstance(a, torch.Tensor)
+                                   else a for a in args),
+                     "want": tuple(w.cpu() for w in want)})
+    torch.save(recs, path)
+    return launches
+
+
+def _run_worker(tree: str, mode: str, path: str = "",
+                cut: bool = False) -> object:
+    """Runs this file's worker with `tree` first on the import path."""
+    res = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--worker", mode,
+         "--tree", tree, "--launches", path] + ["--cut"] * cut,
+        capture_output=True, text=True, timeout=1200)
+    for line in res.stdout.splitlines():
+        if line.startswith("RESULT "):
+            return json.loads(line[7:])
+    raise RuntimeError(f"{mode} worker in {tree} failed:\n"
+                       f"{res.stderr[-3000:]}")
+
+
+def _recut(args, cap: int):
+    """The launch with every tile's run cut to its first cap items."""
+    import numpy as np
+    import torch
+
+    tile_ids = args[3]
+    n = int(args[6].reshape(-1)[0].item())
+    t = tile_ids[:n].cpu().numpy()
+    keep = np.nonzero(np.arange(n) - np.searchsorted(t, t) < cap)[0]
+    idx = np.concatenate([keep, np.full(len(tile_ids) - len(keep),
+                                        keep[-1])])
+    idx = torch.from_numpy(idx).to(tile_ids.device)
+    new = list(args)
+    for k in (3, 4, 5):
+        new[k] = args[k][idx].contiguous()
+    new[6] = torch.full((1,), len(keep), dtype=torch.int32,
+                        device=tile_ids.device)
+    return tuple(new)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other", help="another tree's package root")
+    ap.add_argument("--cut", action="store_true")
+    ap.add_argument("--chunks", default="")
+    ap.add_argument("--out")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--tree", help=argparse.SUPPRESS)
+    ap.add_argument("--launches", help=argparse.SUPPRESS)
+    a = ap.parse_args(argv)
+    if a.worker:
+        sys.path.insert(0, os.path.abspath(a.tree))
+        result = (_worker_kernels(a.launches, a.cut)
+                  if a.worker == "kernels" else _worker_frames())
+        print("RESULT " + json.dumps(result))
+        return 0
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("kernel_ab: CUDA is not available", file=sys.stderr)
+        return 1
+    here = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    sys.path.insert(0, here)
+    from distributed_raytracer_tpu_torch.ops import bsr_trace
+
+    lines = []
+
+    def say(s):
+        print(s, flush=True)
+        lines.append(s)
+
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    say(f"gpu: {card}; torch {torch.__version__}")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "launches.pt")
+        launches = _record(path)
+        turns = ([("other", a.other), ("this", here), ("this", here),
+                  ("other", a.other)] if a.other else [("this", here)])
+        runs = [(who, _run_worker(tree, "kernels", path, a.cut))
+                for who, tree in turns]
+        for i, (tag, wrapper, (args, kwargs)) in enumerate(launches):
+            n = int(args[6].reshape(-1)[0].item())
+            pairs = n * kwargs["rt"] * kwargs["tb"]
+            ops = 21 if kwargs["shared_origin"] else 39
+            bound = pairs * ops / 67e12 * 1e3
+            say(f"[kernels] {tag}: {n} live items, {pairs / 1e9:.4f} G "
+                f"pairs, bound {bound:.4f} ms (FP32 operations)")
+            for who, rows in runs:
+                r = rows[i]
+                say(f"    {who}: kernels {r['kernel_ms']:.4f} ms, call "
+                    f"{r['call_ms']:.4f} ms, {bound / r['kernel_ms']:.2%} "
+                    f"of the bound; equal to the plain version: "
+                    f"{r['equal']}")
+                for cap, items, ms in r.get("cut", ()):
+                    say(f"        runs cut to {cap} items per tile: {items} "
+                        f"items, kernels {ms:.4f} ms")
+        for who, tree in turns:
+            f = _run_worker(tree, "frames")
+            for key in ("render_fast", "bounced"):
+                busy, per, nk = f[key]
+                say(f"[frames] {who} {key}: {f[key + '_ms']:.3f} ms "
+                    f"synchronized (median); profiled: busy {busy:.3f}, "
+                    f"{nk:.0f} kernels per frame, device ms per frame "
+                    + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+                        per.items())))
+    for tag, wrapper, (args, kwargs) in launches[:2]:
+        fn = getattr(bsr_trace, wrapper)
+        chosen = bsr_trace.CHUNK
+        for chunk in (int(c) for c in a.chunks.split(",") if c):
+            bsr_trace.CHUNK = chunk
+            ms = _traversal_ms(lambda: fn(*args, **kwargs))
+            bsr_trace.CHUNK = chosen
+            say(f"[chunks] {tag}, {chunk} items per block: kernels "
+                f"{ms:.4f} ms")
+    say(f"gpu: {card}")
+    if a.out:
+        os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
+        with open(a.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,273 @@
+"""Hard inputs for the shared-origin traversal kernels (K1, K2).
+
+`edge_case_launch` builds one launch of `bsr_nearest` / `bsr_any` from a
+seed, with numpy, aimed at the places where a kernel can round, order or
+schedule differently from the plain versions:
+  - two unit icospheres (subdivision 3) in front of each other, seen from
+    an off-axis origin; rays aimed exactly at shared vertices and at points
+    along shared edges (the BARY_EPS band of two or six triangles at once),
+    grazing rays at the silhouette, rays through the faces, misses, and
+    dead rays (zero direction);
+  - a copy of the most-hit triangle block (every hit in it ties at one t
+    with a second id), a block whose two triangles contain the origin in
+    their plane (every ray with d_z != 0 hits them at t = +0.0 or -0.0),
+    and an all-zero block (den = 0 against every ray);
+  - exclusion ids (a ray's own nearest triangle, random ids, none), a
+    nonzero gid_base, finite init seeds (a whole tile, a share of rays,
+    ties with the best hit), a tile seeded as hit, t_max at, below and
+    above the nearest hit;
+  - a tile-major work list with tiles of no item, one item, a few, all
+    blocks, and more than 4 * chunk items (blocks repeat), and live-looking
+    slots past `count`; `entry` is each item's least valid t, so the
+    front-to-back skip (exit_every > 0) has real work and stays exact.
+The nearest and any-hit launches share the rays (row 6 carries t_max).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from distributed_raytracer_tpu_torch.models.camera import Camera
+from distributed_raytracer_tpu_torch.models.scene import Scene, SceneObject
+from distributed_raytracer_tpu_torch.ops import bsr_trace
+from distributed_raytracer_tpu_torch.utils import scenes
+
+N_TILES = 8
+ORIGIN = (0.31, -0.22, 3.4)
+GID_BASE = 5
+_PAST_COUNT = 10  # live-looking slots past count
+
+
+@dataclasses.dataclass
+class EdgeCaseLaunch:
+    rays: torch.Tensor       # (8, R): shared origin, directions, t_max
+    exclude: torch.Tensor    # (R,) int32
+    tris: torch.Tensor       # (T, 16) pack_tris_origin rows
+    tile_ids: torch.Tensor   # (W,) int32
+    block_ids: torch.Tensor  # (W,) int32
+    entry: torch.Tensor      # (W,) float32
+    count: torch.Tensor      # (1,) int32, < W
+    init_t: torch.Tensor     # (R,) float32
+    init_i: torch.Tensor     # (R,) int32
+    init_hit: torch.Tensor   # (R,) int32, 0/1
+    gid_base: torch.Tensor   # (1,) int32
+    rt: int
+    tb: int
+
+    @property
+    def kwargs(self) -> dict:
+        return {"rt": self.rt, "tb": self.tb, "shared_origin": True}
+
+    def nearest_args(self) -> tuple:
+        return (self.rays, self.exclude, self.tris, self.tile_ids,
+                self.block_ids, self.entry, self.count, self.init_t,
+                self.init_i, self.gid_base)
+
+    def any_args(self) -> tuple:
+        return (self.rays, self.exclude, self.tris, self.tile_ids,
+                self.block_ids, self.entry, self.count, self.init_hit,
+                self.gid_base)
+
+    def to(self, device) -> "EdgeCaseLaunch":
+        return dataclasses.replace(self, **{
+            f.name: getattr(self, f.name).to(device)
+            for f in dataclasses.fields(self)
+            if isinstance(getattr(self, f.name), torch.Tensor)})
+
+    def visited(self) -> torch.Tensor:
+        """(R,) bool: rays of the tiles the live slots name."""
+        n = int(self.count.item())
+        v = torch.zeros(self.rays.shape[1] // self.rt, dtype=torch.bool,
+                        device=self.rays.device)
+        v[self.tile_ids[:n].long()] = True
+        return v.repeat_interleave(self.rt)
+
+
+def _two_spheres() -> Scene:
+    base = scenes.icosphere_scene(3)
+    mesh = base.meshes["ico"]
+    return Scene(meshes={"ico": mesh},
+                 objects=[SceneObject(1, "ico", np.zeros(3)),
+                          SceneObject(2, "ico", np.array([0.7, 0.45, -2.2]))],
+                 light_pos=base.light_pos, light_col=base.light_col,
+                 camera=Camera.create(ORIGIN, [0.0, 0.0, -1.0], 1.0))
+
+
+def _targets(rng, scene: Scene, n: int) -> np.ndarray:
+    """(n, 3) float64 ray directions from ORIGIN, by kind: shared
+    vertices, points on shared edges, the silhouette, faces, misses, dead."""
+    o = np.asarray(ORIGIN)
+    mesh = scene.meshes["ico"]
+    verts = np.concatenate([mesh.vertices + obj.pos for obj in scene.objects])
+    faces = np.concatenate([mesh.faces_v + k * len(mesh.vertices)
+                            for k in range(len(scene.objects))])
+    kind = rng.choice(6, size=n, p=[0.2, 0.25, 0.1, 0.3, 0.1, 0.05])
+    d = np.zeros((n, 3))
+    for k, m in enumerate(np.bincount(kind, minlength=6)):
+        sel = kind == k
+        if k == 0:                                   # shared vertices
+            tgt = verts[rng.integers(0, len(verts), m)]
+        elif k == 1:                                 # along shared edges
+            f = faces[rng.integers(0, len(faces), m)]
+            e = rng.integers(0, 3, m)
+            a = verts[f[np.arange(m), e]]
+            b = verts[f[np.arange(m), (e + 1) % 3]]
+            frac = rng.choice([0.5, 1 / 3, 0.25, 0.0], size=m)
+            frac = np.where(rng.uniform(size=m) < 0.25, rng.uniform(size=m),
+                            frac)
+            tgt = a + frac[:, None] * (b - a)
+        elif k == 2:                                 # the silhouette
+            nrm = mesh.vertices / np.linalg.norm(mesh.vertices, axis=1,
+                                                 keepdims=True)
+            v0 = mesh.vertices
+            cos = np.einsum("ij,ij->i", nrm, o - v0) / np.linalg.norm(
+                o - v0, axis=1)
+            rim = v0[np.argsort(np.abs(cos))[:64]]
+            tgt = rim[rng.integers(0, len(rim), m)]
+        elif k == 3:                                 # through the faces
+            f = faces[rng.integers(0, len(faces), m)]
+            w = rng.dirichlet(np.ones(3), m)
+            tgt = np.einsum("nk,nkj->nj", w, verts[f])
+        elif k == 4:                                 # misses
+            tgt = o + rng.normal(size=(m, 3)) + np.array([0, 0, 3.0])
+        else:                                        # dead rays
+            d[sel] = 0.0
+            continue
+        d[sel] = tgt - o
+    unit = rng.uniform(size=n) < 0.5
+    d[unit] /= np.maximum(np.linalg.norm(d[unit], axis=1, keepdims=True),
+                          1e-30)
+    return d
+
+
+def _origin_plane_block(tb: int) -> np.ndarray:
+    """A block whose first two rows contain the origin in their plane (w =
+    +0.0 and -0.0, u = v = 0.25 for every ray): t = +-0.0 wherever d_z !=
+    0. The other rows are zero."""
+    blk = np.zeros((tb, 16), np.float32)
+    for r, w in ((0, 0.0), (1, -0.0)):
+        blk[r, :12] = [0, 0, 1, w, 1, 0, 0, 0.25, 0, 1, 0, 0.25]
+    return blk
+
+
+def _dense_items(rays, exclude, tris, gid_base, rt, tb):
+    """Per (tile, block) of every pair: (valid count, least valid t)."""
+    n_tiles, n_blocks = rays.shape[1] // rt, tris.shape[0] // tb
+    t_ids = torch.arange(n_tiles).repeat_interleave(n_blocks)
+    b_ids = torch.arange(n_blocks).repeat(n_tiles)
+    hits = torch.zeros(len(t_ids), dtype=torch.int64)
+    least = torch.full((len(t_ids),), float("inf"))
+    step = max(1, (1 << 22) // (rt * tb))
+    for s in range(0, len(t_ids), step):
+        e = min(s + step, len(t_ids))
+        t, valid, _, _ = bsr_trace._pairs(
+            rays, exclude, tris, t_ids[s:e], b_ids[s:e], b_ids[s:e],
+            gid_base.long(), rt, tb, True)
+        hits[s:e] = valid.sum(dim=(1, 2))
+        least[s:e] = torch.where(valid, t, float("inf")).amin(dim=(1, 2))
+    return hits.reshape(n_tiles, n_blocks), least.reshape(n_tiles, n_blocks)
+
+
+def edge_case_launch(rt: int = 512, tb: int = 64, chunk: int | None = None,
+                     seed: int = 0) -> EdgeCaseLaunch:
+    """The launch, on the CPU (`.to(device)` moves it). `chunk` (default
+    bsr_trace.CHUNK) sizes the heavy tile: more than 4 * chunk items."""
+    chunk = bsr_trace.CHUNK if chunk is None else chunk
+    rng = np.random.default_rng(seed)
+    scene = _two_spheres()
+    static = torch.from_numpy(bsr_trace.pack_tris(scene.bake()))
+    o = torch.tensor(ORIGIN, dtype=torch.float32)
+    rows = bsr_trace.pack_tris_origin(static, o).numpy()
+    n_scene = rows.shape[0] // tb
+    r = N_TILES * rt
+    d = torch.from_numpy(_targets(rng, scene, r).astype(np.float32))
+    gid_base = torch.tensor([GID_BASE], dtype=torch.int32)
+    no_excl = torch.full((r,), -1, dtype=torch.int32)
+    rays = bsr_trace.pack_rays_rows(o, d.T.contiguous())
+
+    # The most-hit scene block, copied: its hits tie at one t with a
+    # second id. Then the origin-plane block and an all-zero block.
+    hits, _ = _dense_items(rays, no_excl, torch.from_numpy(rows), gid_base,
+                           rt, tb)
+    busy = int(hits.sum(0).argmax())
+    dup, plane, zero = n_scene, n_scene + 1, n_scene + 2
+    rows = np.concatenate([rows, rows[busy * tb:(busy + 1) * tb],
+                           _origin_plane_block(tb),
+                           np.zeros((tb, 16), np.float32)])
+    tris = torch.from_numpy(rows)
+    n_blocks = rows.shape[0] // tb
+
+    # Each ray's nearest hit over every block, without exclusion.
+    every = torch.arange(n_blocks, dtype=torch.int32)
+    dense = (torch.arange(N_TILES, dtype=torch.int32).repeat_interleave(
+        n_blocks), every.repeat(N_TILES))
+    near_kw = dict(rt=rt, tb=tb, shared_origin=True)
+    scene_only = dense[1] != plane
+    best_t, best_i = bsr_trace.bsr_nearest_ref(
+        rays, no_excl, tris, dense[0][scene_only], dense[1][scene_only],
+        torch.zeros(int(scene_only.sum())), gid_base=gid_base, **near_kw)
+    hit = torch.isfinite(best_t).numpy()
+
+    # Exclusion: a quarter of the rays exclude their own nearest triangle,
+    # a tenth a random id.
+    u = rng.uniform(size=r)
+    excl = np.where((u < 0.25) & hit, best_i.numpy(), -1)
+    excl = np.where((u >= 0.25) & (u < 0.35),
+                    rng.integers(0, rows.shape[0], r) + GID_BASE, excl)
+    exclude = torch.from_numpy(excl.astype(np.int32))
+
+    # t_max: at, below and above the nearest hit; unbounded otherwise.
+    bt = best_t.numpy()
+    u = rng.uniform(size=r)
+    tmax = np.where(u < 0.2, bt, np.where(u < 0.6, bt * rng.uniform(
+        0.5, 1.5, r), bsr_trace.BIG_TMAX))
+    rays[6] = torch.from_numpy(np.where(np.isfinite(tmax), tmax,
+                                        bsr_trace.BIG_TMAX).astype(np.float32))
+
+    # Seeds: tile 3 and a fifth of the rays start from a finite nearest
+    # (some tie the best hit's t); tile 6 and a tenth start as hit.
+    tile = np.arange(r) // rt
+    u = rng.uniform(size=r)
+    seeded = ((u < 0.2) | (tile == 3)) & hit
+    tie = seeded & (u < 0.05)
+    init_t = np.where(seeded, np.where(tie, bt, bt * rng.uniform(0.5, 1.5, r)),
+                      np.inf).astype(np.float32)
+    init_i = np.where(seeded, rng.integers(0, rows.shape[0], r),
+                      bsr_trace.BIG_IDX).astype(np.int32)
+    init_hit = ((rng.uniform(size=r) < 0.1) | (tile == 6)).astype(np.int32)
+
+    # The work list, tile by tile.
+    hits, least = _dense_items(rays, exclude, tris, gid_base, rt, tb)
+    hits, least = hits.numpy(), least.numpy()
+    scene_blocks = np.arange(n_scene)
+    ranked = lambda t: scene_blocks[np.argsort(-hits[t, :n_scene],
+                                               kind="stable")]
+    heavy = np.resize(np.concatenate([[dup], scene_blocks, [zero]]),
+                      max(4 * chunk + 5, n_scene + 2))
+    runs = {
+        0: ranked(0)[:1],
+        2: heavy,
+        3: rng.permutation(np.concatenate([scene_blocks, [dup, zero]])),
+        4: ranked(4)[:2],
+        6: np.concatenate([ranked(6)[:6], [plane]]),
+        7: np.concatenate([[dup], scene_blocks, [zero]]),
+    }
+    t_ids = np.concatenate([np.full(len(b), t) for t, b in runs.items()])
+    b_ids = np.concatenate(list(runs.values()))
+    count = len(t_ids)
+    # Past count: slots that would change tiles 1 and 5 if they ran.
+    t_ids = np.concatenate([t_ids, np.repeat([1, 5], _PAST_COUNT // 2)])
+    b_ids = np.concatenate([b_ids, np.resize(ranked(1)[:_PAST_COUNT // 2],
+                                             _PAST_COUNT)])
+    entry = np.where(np.arange(len(t_ids)) < count,
+                     least[t_ids, b_ids], 0.0).astype(np.float32)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
+    return EdgeCaseLaunch(
+        rays=rays, exclude=exclude, tris=tris, tile_ids=i32(t_ids),
+        block_ids=i32(b_ids), entry=torch.from_numpy(entry),
+        count=i32([count]), init_t=torch.from_numpy(init_t),
+        init_i=torch.from_numpy(init_i), init_hit=torch.from_numpy(init_hit),
+        gid_base=gid_base, rt=rt, tb=tb)

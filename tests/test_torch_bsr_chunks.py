@@ -1,0 +1,114 @@
+"""The premise of the shared-origin kernels' chunk grid (csrc/bsr_trace.cu,
+K1 and K2), tested with the plain versions on the CPU.
+
+The kernels split the work list into consecutive chunks of C items, fold
+each chunk on its own and merge the chunks into the result: nearest hits by
+the minimum of the int64 key (bits(t + 0.0) << 32) | id, seeded from init;
+any-hit flags by OR over init. The merge is order-free, so it must equal
+the whole list's result bit for bit whatever C is. The inputs are
+utils/trace_cases.edge_case_launch's: ties between two ids at one t, hits
+at t = -0.0, tiles without items (which keep init), chunks that straddle
+tiles, slots past count.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from distributed_raytracer_tpu_torch.ops import bsr_trace as tbsr
+from distributed_raytracer_tpu_torch.utils import trace_cases
+
+RT, TB = 256, 64
+
+
+@pytest.fixture(scope="module")
+def launch():
+    return trace_cases.edge_case_launch(RT, TB, chunk=8)
+
+
+def chunk_args(L, s, e):
+    """The launch's work list cut to the items [s, e), with default
+    init."""
+    return (L.rays, L.exclude, L.tris, L.tile_ids[s:e].contiguous(),
+            L.block_ids[s:e].contiguous(), L.entry[s:e].contiguous())
+
+
+def unpack(keys):
+    t = (keys >> 32).to(torch.int32).view(torch.float32)
+    return t, (keys & 0xFFFFFFFF).to(torch.int32)
+
+
+@pytest.mark.parametrize("query", ["nearest", "any"])
+@pytest.mark.parametrize("chunk", [1, 3, 8])
+def test_chunk_merge_equals_whole_list(launch, chunk, query):
+    L = launch
+    n = int(L.count)
+    starts = range(0, n, chunk)
+    assert any(len(set(L.tile_ids[s:s + chunk].tolist())) > 1
+               for s in starts) or chunk == 1      # chunks straddle tiles
+    if query == "nearest":
+        whole_t, whole_i = tbsr.bsr_nearest_ref(*L.nearest_args(),
+                                                **L.kwargs)
+        merged = tbsr._keys(L.init_t, L.init_i)
+        for s in starts:
+            t, i = tbsr.bsr_nearest_ref(*chunk_args(L, s, min(s + chunk, n)),
+                                        gid_base=L.gid_base, **L.kwargs)
+            merged = torch.minimum(merged, tbsr._keys(t, i))
+        got_t, got_i = unpack(merged)
+        assert torch.equal(got_t.view(torch.int32),
+                           whole_t.view(torch.int32))
+        assert torch.equal(got_i, whole_i)
+    else:
+        whole = tbsr.bsr_any_ref(*L.any_args(), **L.kwargs)
+        merged = L.init_hit.clone()
+        for s in starts:
+            merged |= tbsr.bsr_any_ref(*chunk_args(L, s, min(s + chunk, n)),
+                                       gid_base=L.gid_base, **L.kwargs)
+        assert torch.equal(merged, whole)
+
+
+def test_edge_case_launch_holds_its_cases(launch):
+    """The cases the merge test relies on are really in the inputs."""
+    L = launch
+    n = int(L.count)
+    t_ids, b_ids = L.tile_ids.numpy(), L.block_ids.numpy()
+    per_tile = np.bincount(t_ids[:n], minlength=trace_cases.N_TILES)
+    assert (per_tile == 0).sum() >= 2 and (per_tile == 1).any()
+    assert per_tile.max() > 4 * 8                   # more than 4 chunks of 8
+    assert len(t_ids) > n and set(t_ids[n:]) <= {1, 5}
+    best_t, best_i = tbsr.bsr_nearest_ref(*L.nearest_args(), **L.kwargs)
+    vis = L.visited()
+    # Tiles without items keep init (-0.0 would come back as +0.0).
+    assert torch.equal(best_t[~vis], L.init_t[~vis] + 0.0)
+    assert torch.equal(best_i[~vis], L.init_i[~vis])
+    # Hits at t = -0.0 (the origin-plane block, d_z < 0) and at +0.0.
+    plane = L.tris.shape[0] // TB - 2
+    t, valid, _, ray = tbsr._pairs(L.rays, L.exclude, L.tris,
+                                   torch.tensor([6]), torch.tensor([plane]),
+                                   torch.tensor([plane]), L.gid_base.long(),
+                                   RT, TB, True)
+    zero = valid & (t == 0)
+    assert (zero & torch.signbit(t)).any() and (zero & ~torch.signbit(t)).any()
+    # Ties: the copied block's hits equal the original's to the bit.
+    dup = plane - 1
+    src = np.nonzero((L.tris[dup * TB:(dup + 1) * TB] ==
+                      L.tris[:dup * TB].reshape(dup, TB, 16)).all(-1).all(-1)
+                     .numpy())[0]
+    assert len(src) == 1
+    tt, vv, _, _ = tbsr._pairs(L.rays, torch.full_like(L.exclude, -1),
+                               L.tris, torch.tensor([2, 2]),
+                               torch.tensor([int(src[0]), dup]),
+                               torch.tensor([int(src[0]), dup]),
+                               L.gid_base.long(), RT, TB, True)
+    assert vv[0].any() and torch.equal(torch.where(vv[0], tt[0], 0.0),
+                                       torch.where(vv[1], tt[1], 0.0))
+    # The heavy tile lists the copy first; where a ray does not exclude the
+    # original, the original's lower id wins the tie.
+    heavy = slice(2 * RT, 3 * RT)
+    base = int(L.gid_base)
+    won = best_i[heavy] - base
+    excl = L.exclude[heavy] - base
+    in_src = lambda x: (x >= src[0] * TB) & (x < (src[0] + 1) * TB)
+    in_dup = (won >= dup * TB) & (won < (dup + 1) * TB)
+    assert in_src(won).any()
+    assert not (in_dup & ~in_src(excl)).any()

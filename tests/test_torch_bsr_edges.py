@@ -1,0 +1,161 @@
+"""The shared-origin traversal on hard inputs (utils/trace_cases): rays
+aimed exactly at shared vertices and edges, grazing rays, dead rays, zero
+padding rows, ties, t = -0.0, exclusion, finite seeds, t_max at the hit.
+
+On the CPU the port's plain versions (bsr_nearest_ref, bsr_any_ref) are
+held against the JAX package's Pallas kernels in interpret mode, as
+tests/test_torch_bsr_trace.py runs them. XLA's CPU backend contracts the
+pair math's sums into fused multiply-adds, so on these inputs its t, u and
+v may differ from the port's in the last bits. The test finds the rays
+where that can change a result, from the port's own pair math over each
+ray's live items, counts them and bounds them:
+  - a pair with a barycentric (u, v or u + v) within 1e-6 of a BARY_EPS
+    bound, no farther than the ray's nearest hit (any hit: its t_max);
+  - two candidates (triangles, or a triangle and the init seed) whose t
+    agree to rtol 1e-6 at the ray's nearest hit; any hit: a valid pair
+    whose t agrees with t_max to rtol 1e-6;
+  - a grazing hit no farther than that, whose den = n.d cancels so far
+    (sum |n_i d_i| > 2^23 * 1e-6 |den|) that t itself is uncertain beyond
+    rtol 1e-6.
+On every other ray of the visited tiles, ids and any-hit flags must be
+equal and t must agree to rtol 1e-6. Every list holds far fewer than the
+16,384 items past which the JAX reference loses results.
+
+On a card (`cuda` marker), K1 and K2 must equal the plain versions bit for
+bit on the same inputs at every ray tile and triangle block they take.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from distributed_raytracer_tpu.ops.pallas import bsr_trace as jbsr
+from distributed_raytracer_tpu_torch.ops import bsr_trace as tbsr
+from distributed_raytracer_tpu_torch.utils import trace_cases
+
+EPS = tbsr.BARY_EPS
+RTOL = 1e-6
+# sum |n_i d_i| / |den| above which t is uncertain beyond RTOL (f32).
+SHAKY = RTOL * 2.0 ** 23
+# At most this share of the visited rays may be set aside: the launch aims
+# about half its rays at vertices and edges on purpose.
+AMBIGUOUS_SHARE = 0.4
+
+
+def ambiguous(L):
+    """((R,) bool for the nearest query, (R,) bool for the any-hit query):
+    rays whose result may differ under fused multiply-adds."""
+    rt, tb = L.rt, L.tb
+    r = L.rays.shape[1]
+    n = int(L.count)
+    tris = L.tris.reshape(-1, tb, 16)
+    d = L.rays[3:6].T
+    near = torch.zeros(r, dtype=torch.bool)
+    any_hit = torch.zeros(r, dtype=torch.bool)
+    tile_ids = L.tile_ids[:n]
+    for tile in torch.unique(tile_ids).tolist():
+        blocks = L.block_ids[:n][tile_ids == tile].long()
+        tr = tris[blocks].reshape(-1, 16)                     # (P, 16)
+        gid = (int(L.gid_base) + blocks[:, None] * tb
+               + torch.arange(tb)).reshape(-1)
+        sl = slice(tile * rt, (tile + 1) * rt)
+
+        def dot(c0):                                          # (rt, P)
+            k = tr[None, :, c0:c0 + 3] * d[sl, None, :]
+            return k[..., 0] + k[..., 1] + k[..., 2], k.abs().sum(-1)
+
+        den, den_abs = dot(0)
+        kud, _ = dot(4)
+        kvd, _ = dot(8)
+        t = tr[None, :, 3] / den
+        u = tr[None, :, 7] + t * kud
+        v = tr[None, :, 11] + t * kvd
+        uv = u + v
+        valid = ((den != 0) & (t >= 0) & (u >= -EPS) & (u <= 1 + EPS)
+                 & (uv >= -EPS) & (uv <= 1 + EPS) & (v >= -EPS)
+                 & (gid[None, :] != L.exclude[sl, None]))
+        margin = torch.stack([u + EPS, 1 + EPS - u, v + EPS, uv + EPS,
+                              1 + EPS - uv]).abs().amin(0)
+        edge = (margin <= RTOL) & (t >= 0)
+        shaky = valid & (den_abs > SHAKY * den.abs())
+        best = torch.where(valid, t, float("inf")).amin(1)
+        seed = L.init_t[sl]
+        m = torch.minimum(best, seed)[:, None]
+        close = (t - m).abs() <= RTOL * m
+        ties = (valid & close).sum(1) + ((seed - best).abs()
+                                         <= RTOL * best).int() >= 2
+        reach = t <= m * (1 + RTOL)
+        near[sl] = ties | ((edge | shaky) & reach).any(1)
+        tmax = L.rays[6, sl, None]
+        at_tmax = valid & ((t - tmax).abs() <= RTOL * tmax)
+        any_hit[sl] = (at_tmax | ((edge | shaky)
+                                  & (t <= tmax * (1 + RTOL)))).any(1)
+    return near, any_hit
+
+
+@pytest.mark.parametrize("exit_every", [0, 32])
+@pytest.mark.parametrize("rt,tb", [(256, 64), (512, 128)])
+def test_edge_cases_match_pallas(rt, tb, exit_every):
+    L = trace_cases.edge_case_launch(rt, tb)
+    n = int(L.count)
+    j = lambda a: jnp.asarray(a.numpy())
+    common = (j(L.rays), j(L.exclude), j(L.tris), j(L.tile_ids),
+              j(L.block_ids), j(L.entry), jnp.int32(n))
+    static = dict(rt=rt, tb=tb, w_pad=len(L.tile_ids), interpret=True,
+                  shared_origin=True, exit_every=exit_every)
+    wt, wi = jbsr.bsr_nearest(*common, j(L.init_t), j(L.init_i),
+                              jnp.int32(int(L.gid_base)), **static)
+    wa = jbsr.bsr_any(*common, j(L.init_hit), jnp.int32(int(L.gid_base)),
+                      **static)
+    kw = dict(L.kwargs, exit_every=exit_every)
+    gt, gi = tbsr.bsr_nearest_ref(*L.nearest_args(), **kw)
+    ga = tbsr.bsr_any_ref(*L.any_args(), **kw)
+    wt, wi, wa = np.asarray(wt), np.asarray(wi), np.asarray(wa)
+    gt, gi, ga = gt.numpy(), gi.numpy(), ga.numpy()
+
+    vis = L.visited().numpy()
+    near, any_hit = (a.numpy() for a in ambiguous(L))
+    n_vis = vis.sum()
+    for name, amb in (("nearest", near), ("any hit", any_hit)):
+        print(f"{name}: {(amb & vis).sum()} of {n_vis} visited rays set "
+              "aside")
+        assert (amb & vis).sum() <= AMBIGUOUS_SHARE * n_vis, name
+    keep = vis & ~near
+    np.testing.assert_array_equal(gi[keep], wi[keep])
+    fin = np.isfinite(wt[keep])
+    np.testing.assert_array_equal(np.isfinite(gt[keep]), fin)
+    np.testing.assert_allclose(gt[keep][fin], wt[keep][fin], rtol=RTOL,
+                               atol=0)
+    keep = vis & ~any_hit
+    np.testing.assert_array_equal(ga[keep], wa[keep])
+    # The inputs do hit, miss and shadow.
+    assert 0.2 < fin.mean() < 0.95
+    assert 0 < ga[keep].sum() < keep.sum()
+
+
+@pytest.mark.cuda
+def test_cuda_kernels_match_plain_versions_on_edge_cases():
+    """On a card: K1 and K2 equal their plain versions bit for bit, with and
+    without the front-to-back skip, at every rt and tb; one count each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    for rt in (256, 512, 1024):
+        for tb in (64, 128):
+            L = trace_cases.edge_case_launch(rt, tb).to("cuda")
+            for exit_every in (0, 32):
+                kw = dict(L.kwargs, exit_every=exit_every)
+                before = dict(tbsr.LAUNCHES)
+                gt, gi = tbsr.bsr_nearest(*L.nearest_args(), **kw)
+                ga = tbsr.bsr_any(*L.any_args(), **kw)
+                assert tbsr.LAUNCHES == dict(
+                    before, bsr_nearest=before["bsr_nearest"] + 1,
+                    bsr_any=before["bsr_any"] + 1)
+                wt, wi = tbsr.bsr_nearest_ref(*L.nearest_args(), **kw)
+                wa = tbsr.bsr_any_ref(*L.any_args(), **kw)
+                torch.cuda.synchronize()
+                case = (rt, tb, exit_every)
+                assert torch.equal(gt.view(torch.int32),
+                                   wt.view(torch.int32)), case
+                assert torch.equal(gi, wi), case
+                assert torch.equal(ga, wa), case

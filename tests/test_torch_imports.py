@@ -10,7 +10,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["ops.render", "ops.intersect", "ops.shade", "ops.colour",
            "ops.raygen", "ops.ring_trace", "ops.bsr_trace", "parallel",
            "parallel.mesh", "parallel.tile", "parallel.render_sharded",
-           "parallel.ring", "run"]
+           "parallel.ring", "run", "utils.trace_cases"]
 
 CHECK = """
 import importlib, pkgutil, sys
