@@ -7,9 +7,9 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
 
   1. Kernels against their plain PyTorch versions on the paths' real
      inputs, each with exit_every 0 and 32, on the same CUDA tensors: every
-     output torch.equal, unvisited tiles included, and K1/K2's bit for bit
-     (t compared as int32; the kernels are built with -fmad=false and
-     round as the plain versions do). Each launch's line gives its live items, pairs, items per
+     output bit for bit, unvisited tiles included (t compared as int32; the
+     kernels are built with -fmad=false and round as the plain versions
+     do). Each launch's line gives its live items, pairs, items per
      tile (mean, p99, max over tiles with items), its bound (the pair
      math's FP32 operations over 67 TFLOP/s, or its bytes over 3.35 TB/s,
      whichever is larger) and the kernel's share of it. Kernel times are
@@ -18,18 +18,21 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      median of 20 is printed beside them.
      - K1 and K2 (shared origin) on the launches of one 640x480 render() of
        icosphere_scene(6) (81,920 triangles, 3 lights).
-     - K1 and K2 on utils/trace_cases.edge_case_launch (rays at shared
-       vertices and edges, grazing and dead rays, zero rows, ties,
+     - K1 and K2 (shared origin), K3n and K3a (per-ray origins) on
+       utils/trace_cases.edge_case_launch in both origin forms (rays at
+       shared vertices and edges, grazing and dead rays, zero rows, ties,
        t = -0.0, exclusion, finite seeds, a tile seeded as hit, t_max at
        the hit, tiles of 0, 1 and more than 4 chunks of items, slots past
-       count) at rt 256 and 1024, tb 64 and 128.
-     - K3n (per-ray origins) on the bounce-1 nearest launch of one depth-2
-       render_bounced() of the 1920x1080 sphere grid
-       (instanced_grid(icosphere_scene(3), 4): 16 mirrored spheres, 20,480
-       triangles), K3a (its any-hit twin, which no renderer path calls)
-       on the same rays with t_max set to K3n's finite hit t, and K2 on
-       that frame's largest shadow launch. The plain versions take seconds
-       at this size, so their times are medians of 3.
+       count; per ray, origins on the spheres' surfaces excluding their own
+       triangle) at rt 256 and 1024, tb 64 and 128.
+     - K3n (per-ray origins) on each of the three nearest launches (bounces
+       0, 1, 2) of one depth-2 render_bounced() of the 1920x1080 sphere
+       grid (instanced_grid(icosphere_scene(3), 4): 16 mirrored spheres,
+       20,480 triangles), K3a (its any-hit twin, which no renderer path
+       calls) on the bounce-1 rays with t_max set to K3n's finite hit t,
+       and K2 on that frame's largest shadow launch. The plain versions
+       take seconds at this size, so their times are medians of 3 (of 1
+       for bounces 0 and 2); the JSON line carries bounce 1's K3n.
   2. The 640x480 frame end to end: render(), freeze(), a 16-pose orbit
      through render_fast(verify=True), one render_fast under CUDA's
      sync-debug "error" mode (it must not wait on the device), and the
@@ -272,16 +275,19 @@ def print_ptxas(log: str) -> None:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            k = re.search(r"(nearest|any)_(chunk|rays)_kernelILi(\d+)E",
+            b = lambda x: "true" if x == "1" else "false"
+            k = re.search(r"(nearest|any)_chunk_kernelILi(\d+)ELb([01])E",
                           m.group(1))
             x = re.search(r"(nearest|any)_mxu_kernelILi(\d+)E", m.group(1))
             g = re.search(r"ring_step_kernelILi(\d+)ELb([01])E", m.group(1))
-            e = re.search(r"\d(seed_keys|unpack_keys)E", m.group(1))
-            name = (f"{k.group(1)}_{k.group(2)}_kernel<RPT={k.group(3)}>" if k
+            e = re.search(r"\d(seed_keys|unpack_keys)ILb([01])E", m.group(1))
+            name = (f"{k.group(1)}_chunk_kernel<RPT={k.group(2)}, shared="
+                    f"{b(k.group(3))}>" if k
                     else f"{x.group(1)}_mxu_kernel<NT={x.group(2)}>" if x
                     else f"ring_step_kernel<RPT={g.group(1)}, any="
-                         f"{'true' if g.group(2) == '1' else 'false'}>" if g
-                    else e.group(1) if e else m.group(1))
+                         f"{b(g.group(2))}>" if g
+                    else f"{e.group(1)}<shared={b(e.group(2))}>" if e
+                    else m.group(1))
             spill = ""
         elif "spill" in line:
             spill = line.strip()
@@ -340,24 +346,22 @@ def visited_rays(args, kwargs):
     return v[:, None].expand(-1, rt).reshape(-1)
 
 
-def bits_equal(got, want, bits: bool = True) -> bool:
-    """Outputs (a tensor or a tuple) torch.equal; with `bits`, float32 is
-    compared as int32, so -0.0 and +0.0 differ."""
+def bits_equal(got, want) -> bool:
+    """Outputs (a tensor or a tuple) torch.equal, float32 compared as int32
+    (so -0.0 and +0.0 differ)."""
     import torch
 
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     return all(torch.equal(g.view(torch.int32), w.view(torch.int32))
-               if bits and g.dtype == torch.float32 else torch.equal(g, w)
+               if g.dtype == torch.float32 else torch.equal(g, w)
                for g, w in zip(got, want))
 
 
 def compare_kernel(bsr_trace, key, args, kwargs, plain_repeats=REPEATS,
                    tag=None):
     """One kernel against its plain version on (args, kwargs), with
-    exit_every 0 and 32: every output torch.equal, bit for bit for the
-    shared-origin kernels (K3 leaves a t of -0.0 unnormalized, as its
-    first design did). Returns {"max_abs_err",
+    exit_every 0 and 32: every output bit for bit. Returns {"max_abs_err",
     "ms" (device time of one call, every launch in it), "call_ms" (the
     synchronized call, median of REPEATS), "plain_ms", "bound_ms",
     "bound_by", "share_of_bound", "library_ms" (None: no PyTorch call
@@ -382,7 +386,7 @@ def compare_kernel(bsr_trace, key, args, kwargs, plain_repeats=REPEATS,
         else:
             bad = int((got != want).sum())
             e = float((got - want).abs().max())
-        check(bad == 0 and bits_equal(got, want, kwargs["shared_origin"]),
+        check(bad == 0 and bits_equal(got, want),
               f"{tag or key} exit_every={exit_every}: {bad} ids or flags "
               f"differ, t by up to {e}")
         err = max(err, e)
@@ -396,9 +400,8 @@ def compare_kernel(bsr_trace, key, args, kwargs, plain_repeats=REPEATS,
     print(f"[phase 1] {tag or KERNELS[key][0] + ' ' + key}: "
           f"R={args[0].shape[1]} T={args[2].shape[0]} W={args[3].shape[0]} "
           f"rt={kwargs['rt']} tb={kwargs['tb']} exit_every(path)="
-          f"{kwargs['exit_every']}; {stats_line(st)}; "
-          f"{'bit-equal' if kwargs['shared_origin'] else 'torch.equal'} to "
-          f"the plain version at exit_every 0 and 32; kernel {ms:.4f} ms "
+          f"{kwargs['exit_every']}; {stats_line(st)}; bit-equal to the "
+          f"plain version at exit_every 0 and 32; kernel {ms:.4f} ms "
           f"(device, mean of {REPEATS} calls) = {share:.2%} of its bound, "
           f"{call_ms:.4f} ms synchronized (median of {REPEATS}); plain "
           f"{plain_ms:.4f} ms (median of {plain_repeats})")
@@ -421,39 +424,45 @@ def phase_kernels(renderer, scene, bsr_trace):
 
 
 def phase_edge_cases(bsr_trace) -> None:
-    """Phase 1, K1 and K2 on utils/trace_cases.edge_case_launch (shared
-    vertices and edges, grazing and dead rays, zero rows, ties, t = -0.0,
-    exclusion, finite seeds, a tile seeded as hit, t_max at the hit, a
-    tile of more than 4 chunks, slots past count) at rt 256 and 1024, tb 64
-    and 128, exit_every 0 and 32: bit for bit."""
+    """Phase 1, K1 and K2 (shared origin), K3n and K3a (per-ray origins) on
+    utils/trace_cases.edge_case_launch (shared vertices and edges, grazing
+    and dead rays, zero rows, ties, t = -0.0, exclusion, finite seeds, a
+    tile seeded as hit, t_max at the hit, a tile of more than 4 chunks,
+    slots past count; per ray, surface origins excluding their triangle) at
+    rt 256 and 1024, tb 64 and 128, exit_every 0 and 32: bit for bit."""
     import torch
 
     from distributed_raytracer_tpu_torch.utils import trace_cases
 
-    for rt in (256, 1024):
-        for tb in (64, 128):
-            L = trace_cases.edge_case_launch(rt, tb).to("cuda")
-            for exit_every in (0, 32):
-                kw = dict(L.kwargs, exit_every=exit_every)
-                for name, args in (("bsr_nearest", L.nearest_args()),
-                                   ("bsr_any", L.any_args())):
-                    got = getattr(bsr_trace, name)(*args, **kw)
-                    want = getattr(bsr_trace, name + "_ref")(*args, **kw)
-                    check(bits_equal(got, want),
-                          f"{name} on the edge cases (rt={rt}, tb={tb}, "
-                          f"exit_every={exit_every}) differs")
-            n = int(L.count.item())
-            print(f"[phase 1] edge cases rt={rt} tb={tb}: R="
-                  f"{L.rays.shape[1]} T={L.tris.shape[0]} "
-                  f"W={L.tile_ids.shape[0]} live items={n}, items per tile "
-                  f"{torch.bincount(L.tile_ids[:n].long()).tolist()}; K1 "
-                  "and K2 bit-equal to the plain versions at exit_every 0 "
-                  "and 32")
+    for shared in (True, False):
+        ids = ("K1", "K2") if shared else ("K3n", "K3a")
+        for rt in (256, 1024):
+            for tb in (64, 128):
+                L = trace_cases.edge_case_launch(
+                    rt, tb, shared_origin=shared).to("cuda")
+                for exit_every in (0, 32):
+                    kw = dict(L.kwargs, exit_every=exit_every)
+                    for k, name, args in (
+                            (ids[0], "bsr_nearest", L.nearest_args()),
+                            (ids[1], "bsr_any", L.any_args())):
+                        got = getattr(bsr_trace, name)(*args, **kw)
+                        want = getattr(bsr_trace, name + "_ref")(*args, **kw)
+                        check(bits_equal(got, want),
+                              f"{k} on the edge cases (rt={rt}, tb={tb}, "
+                              f"exit_every={exit_every}) differs")
+                n = int(L.count.item())
+                print(f"[phase 1] edge cases, {ids[0]} and {ids[1]}, rt={rt} "
+                      f"tb={tb}: R={L.rays.shape[1]} T={L.tris.shape[0]} "
+                      f"W={L.tile_ids.shape[0]} live items={n}, items per "
+                      f"tile {torch.bincount(L.tile_ids[:n].long()).tolist()}"
+                      "; bit-equal to the plain versions at exit_every 0 and "
+                      "32")
 
 
 def phase_kernels_rays(renderer, scene, bsr_trace):
-    """Phase 1, K3n and K3a on the bounce-1 nearest launch of the bounced
-    1080p frame, and K2 on the frame's largest shadow launch."""
+    """Phase 1, K3n on the three nearest launches of the bounced 1080p
+    frame, K3a on the bounce-1 rays, and K2 on the frame's largest shadow
+    launch."""
     import torch
 
     seen = {}
@@ -464,9 +473,15 @@ def phase_kernels_rays(renderer, scene, bsr_trace):
                                    f"launches for depth {DEPTH}")
     check(renderer._last_bounce_counts[1][renderer.n_levels] > 0,
           "bounce 1 has no hit tiles")
+    results = {}
+    for bounce, (args, kwargs) in enumerate(calls):
+        r = compare_kernel(bsr_trace, "bsr_nearest_rays", args, kwargs,
+                           PLAIN_REPEATS_BIG if bounce == 1 else 1,
+                           tag=f"K3n bsr_nearest_rays, bounced 1080p frame, "
+                               f"bounce {bounce}")
+        if bounce == 1:
+            results["bsr_nearest_rays"] = r
     args, kwargs = calls[1]
-    results = {"bsr_nearest_rays": compare_kernel(
-        bsr_trace, "bsr_nearest_rays", args, kwargs, PLAIN_REPEATS_BIG)}
     # K3a: the same rays and exclude ids, t_max = K3n's finite hit t.
     best_t, _ = bsr_trace.bsr_nearest(*args, **kwargs)
     rays = args[0].clone()

@@ -1,32 +1,39 @@
 // Block-sparse ray-triangle traversal kernels for Hopper (sm_90a).
 //
 // What each function replaces (distributed_raytracer_tpu/ops/pallas/bsr_trace.py):
-//   nearest_chunk_kernel    <- _nearest_kernel (:356) with _pair_math(shared_origin=True)
-//                              (:217) (K1, reached through bsr_nearest; primary rays)
-//   any_chunk_kernel        <- _any_kernel (:411) with _pair_math(shared_origin=True)
-//                              (K2, reached through bsr_any; all lights' shadow rays
-//                              in one launch)
-//   nearest_rays_kernel     <- _nearest_kernel with _pair_math(shared_origin=False)
-//                              (K3n: every nearest query of the bounced frame, whose
-//                              reflection rays each have their own origin)
-//   any_rays_kernel         <- _any_kernel with _pair_math(shared_origin=False)
-//                              (K3a: per-ray-origin any hit; the renderer has no
-//                              caller for it, shadows reverse to the light)
-//   nearest_mxu_kernel<NT>  <- _nearest_mxu_kernel with _pair_math_mxu (K4:
-//                              primary rays under use_mxu=True)
-//   any_mxu_kernel<NT>      <- _any_mxu_kernel (K5: every shadow launch under
-//                              use_mxu=True)
-// K1/K2 and K4/K5 are described at their definitions below.
+//   nearest_chunk_kernel<RPT, true>   <- _nearest_kernel (:356) with
+//                                        _pair_math(shared_origin=True) (:217)
+//                                        (K1, reached through bsr_nearest;
+//                                        primary rays)
+//   any_chunk_kernel<RPT, true>       <- _any_kernel (:411), shared origin (K2,
+//                                        reached through bsr_any; all lights'
+//                                        shadow rays in one launch)
+//   nearest_chunk_kernel<RPT, false>  <- _nearest_kernel with
+//                                        _pair_math(shared_origin=False) (K3n:
+//                                        every nearest query of the bounced
+//                                        frame, whose reflection rays each
+//                                        have their own origin)
+//   any_chunk_kernel<RPT, false>      <- _any_kernel, shared_origin=False (K3a:
+//                                        per-ray-origin any hit; the renderer
+//                                        has no caller for it, shadows reverse
+//                                        to the light)
+//   nearest_mxu_kernel<NT>            <- _nearest_mxu_kernel with _pair_math_mxu
+//                                        (K4: primary rays under use_mxu=True)
+//   any_mxu_kernel<NT>                <- _any_mxu_kernel (K5: every shadow
+//                                        launch under use_mxu=True)
+// K4/K5 are described at their definitions below.
 //
 // All walk a flat, tile-major work list of (ray tile of rt rays, triangle
 // block of tb triangles) items made by ops/cull.py and evaluate the
 // Baldwin-Weber test for every (ray, triangle) pair of each item. Triangle
 // rows are 16 floats [nx ny nz w | kux kuy kuz w_u | kvx kvy kvz w_v | 0 0 0 0].
-// With a shared origin (K1, K2) they are the pack_tris_origin layout: the
-// launch's common ray origin is folded in, w = plane_d - n.o, w_u = ku.o + c_u,
-// w_v = kv.o + c_v. Otherwise (K3n, K3a) they are the static pack_tris layout
-// (w = plane_d, w_u = c_u, w_v = c_v) and each ray's origin is read from ray
-// rows 0..2 and dotted in per pair.
+// Two origin forms, one kernel body each for nearest and any hit, chosen by
+// the template flag kShared. With a shared origin (K1, K2) the rows are the
+// pack_tris_origin layout: the launch's common ray origin is folded in,
+// w = plane_d - n.o, w_u = ku.o + c_u, w_v = kv.o + c_v. With per-ray origins
+// (K3n, K3a) they are the static pack_tris layout (w = plane_d, w_u = c_u,
+// w_v = c_v) and each ray's origin is read from ray rows 0..2 and dotted in
+// per pair.
 //
 // What bounds them on this card: the pair math (pair_math.cuh) is 21 FP32
 // operations per (ray, triangle) pair with a shared origin (den 5, the
@@ -37,31 +44,6 @@
 // So the kernels are bound by FP32 instruction throughput and the IEEE
 // division, not by memory: one item is rt * tb = 32K pairs for 4 KB read.
 //
-// The per-ray-origin kernels (K3n, K3a), simple first:
-//   - One thread block of 128 threads per ray tile (grid = number of ray
-//     tiles). Each thread owns rt / 128 rays and keeps their origin and
-//     direction, best t / best id (or hit flag) in registers, seeded from
-//     init.
-//   - The work list is sorted by tile, so a block finds its own contiguous
-//     run of items with a binary search over tile_ids[0, min(count, W)).
-//     `count` is read from device memory: the host never learns it.
-//   - Per item the block stages the triangle block in shared memory (tb
-//     float4 rows of 4, 16-byte loads), then each thread tests its rays
-//     against all tb triangles: a shared-memory read is a broadcast, and
-//     each triangle's 12 floats serve rt / 128 rays from registers.
-//   - Early exit (exit_every = K > 0): after every K items, the nearest
-//     kernel takes the block-wide max of the best t and skips later items
-//     whose conservative entry distance exceeds it by more than 1e-4; the
-//     any-hit kernel stops once __syncthreads_and says every ray is hit.
-//     Both skips are exact: a skipped item cannot win or tie.
-//   - The whole work list runs in one launch, however long (the TPU kernel
-//     chained segments of 16,384 items).
-//   - Every ray of every tile is written; tiles without items keep init
-//     (the TPU kernel left them undefined; callers mask them either way).
-// One block per tile makes a kernel last as long as its longest tile's
-// run: the shared-origin kernels were redesigned for that (below); these
-// keep the first design.
-//
 // Numerics. Built without --use_fast_math: the validity test relies on IEEE
 // division by a zero den (inf or NaN) and on NaN comparing false (a dead
 // ray, scattered back as a zero direction, has den == 0 against every
@@ -71,9 +53,9 @@
 // (and the JAX reference) in the last bit, flipping hit decisions on shared
 // edges. With it, the pair math (pair_math.cuh) is the operation order
 // of _pair_math (bsr_trace.py:236-248), rounded after every operation,
-// and matches the plain version bit for bit. That matters most for the exclusion of the
-// previous bounce's triangle, which keeps a reflection ray off its own
-// surface only if both versions agree on every id.
+// and matches the plain version bit for bit. That matters most for the
+// exclusion of the previous bounce's triangle, which keeps a reflection ray
+// off its own surface only if both versions agree on every id.
 //
 // The C interface returns cudaGetLastError() after the launches; they are
 // asynchronous on the caller's stream and allocate nothing (scratch comes
@@ -106,25 +88,6 @@ struct WorkArgs {
   int exit_every;
 };
 
-// One thread's RPT rays of a K3 block: origins and directions.
-template <int RPT>
-struct RayRegs {
-  float ox[RPT], oy[RPT], oz[RPT], dx[RPT], dy[RPT], dz[RPT];
-
-  __device__ __forceinline__ void load(const WorkArgs& p, int64_t first) {
-#pragma unroll
-    for (int j = 0; j < RPT; ++j) {
-      const int64_t r = first + j * kThreads;
-      ox[j] = p.rays[r];
-      oy[j] = p.rays[p.n_rays + r];
-      oz[j] = p.rays[2 * p.n_rays + r];
-      dx[j] = p.rays[3 * p.n_rays + r];
-      dy[j] = p.rays[4 * p.n_rays + r];
-      dz[j] = p.rays[5 * p.n_rays + r];
-    }
-  }
-};
-
 // First index in [lo, hi) with a[i] >= key (a ascending).
 __device__ int lower_bound(const int* __restrict__ a, int lo, int hi,
                            int key) {
@@ -150,176 +113,36 @@ __device__ void find_run(const WorkArgs& p, int tile, int* run) {
   __syncthreads();
 }
 
-__device__ __forceinline__ void stage_block(const float4* __restrict__ tris,
-                                            int block, int tb, float4* tri_s) {
-  const float4* src = tris + (int64_t)block * tb * 4;
-  for (int k = threadIdx.x; k < tb * 4; k += kThreads) tri_s[k] = src[k];
-  __syncthreads();
-}
-
-template <int RPT>
-__global__ void __launch_bounds__(kThreads)
-    nearest_rays_kernel(const WorkArgs p, const float* __restrict__ init_t,
-                        const int* __restrict__ init_i,
-                        float* __restrict__ out_t, int* __restrict__ out_i) {
-  extern __shared__ float4 tri_s[];
-  __shared__ int run[2];
-  __shared__ float warp_max[kThreads / 32];
-
-  const int tile = blockIdx.x;
-  const int64_t first = (int64_t)tile * (kThreads * RPT) + threadIdx.x;
-  RayRegs<RPT> ray;
-  ray.load(p, first);
-  float bt[RPT];
-  int bi[RPT], ex[RPT];
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int64_t r = first + j * kThreads;
-    bt[j] = init_t[r];
-    bi[j] = init_i[r];
-    ex[j] = p.excl[r];
-  }
-  find_run(p, tile, run);
-  const int lo = run[0], hi = run[1];
-  const int gid0 = *p.gid_base;
-  float bound = INFINITY;  // block-uniform
-  int done = 0;
-
-  for (int w = lo; w < hi; ++w) {
-    // Front-to-back skip: every ray's best hit is nearer than this block.
-    if (p.exit_every && !(p.entry[w] <= bound + kExitSlack)) continue;
-    const int block = p.block_ids[w];
-    stage_block(p.tris, block, p.tb, tri_s);
-    const int g0 = gid0 + block * p.tb;
-#pragma unroll 2
-    for (int row = 0; row < p.tb; ++row) {
-      const float4 a = tri_s[4 * row];
-      const float4 b = tri_s[4 * row + 1];
-      const float4 c = tri_s[4 * row + 2];
-      const int g = g0 + row;
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        float t;
-        const bool valid =
-            pair_math<false>(a, b, c, ray.ox[j], ray.oy[j], ray.oz[j],
-                               ray.dx[j], ray.dy[j], ray.dz[j], &t) &&
-            g != ex[j];
-        const float cand = valid ? t : INFINITY;
-        // Lexicographic (t, id) minimum: ties go to the lowest global id,
-        // so the result does not depend on the order items are visited.
-        if (cand < bt[j] || (cand == bt[j] && g < bi[j])) {
-          bt[j] = cand;
-          bi[j] = g;
-        }
-      }
-    }
-    __syncthreads();  // tri_s is overwritten by the next item
-    if (p.exit_every && ++done % p.exit_every == 0) {
-      float m = bt[0];
-#pragma unroll
-      for (int j = 1; j < RPT; ++j) m = fmaxf(m, bt[j]);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, off));
-      if ((threadIdx.x & 31) == 0) warp_max[threadIdx.x >> 5] = m;
-      __syncthreads();
-      bound = warp_max[0];
-#pragma unroll
-      for (int k = 1; k < kThreads / 32; ++k) bound = fmaxf(bound, warp_max[k]);
-      __syncthreads();  // warp_max is rewritten at the next refresh
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int64_t r = first + j * kThreads;
-    out_t[r] = bt[j];
-    out_i[r] = bi[j];
-  }
-}
-
-template <int RPT>
-__global__ void __launch_bounds__(kThreads)
-    any_rays_kernel(const WorkArgs p, const int* __restrict__ init,
-                    int* __restrict__ out) {
-  extern __shared__ float4 tri_s[];
-  __shared__ int run[2];
-
-  const int tile = blockIdx.x;
-  const int64_t first = (int64_t)tile * (kThreads * RPT) + threadIdx.x;
-  RayRegs<RPT> ray;
-  ray.load(p, first);
-  float tmax[RPT];
-  int hit[RPT], ex[RPT];
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) {
-    const int64_t r = first + j * kThreads;
-    tmax[j] = p.rays[6 * p.n_rays + r];
-    hit[j] = init[r];
-    ex[j] = p.excl[r];
-  }
-  find_run(p, tile, run);
-  const int lo = run[0], hi = run[1];
-  const int gid0 = *p.gid_base;
-  int done = 0;
-
-  for (int w = lo; w < hi; ++w) {
-    const int block = p.block_ids[w];
-    stage_block(p.tris, block, p.tb, tri_s);
-    const int g0 = gid0 + block * p.tb;
-#pragma unroll 2
-    for (int row = 0; row < p.tb; ++row) {
-      const float4 a = tri_s[4 * row];
-      const float4 b = tri_s[4 * row + 1];
-      const float4 c = tri_s[4 * row + 2];
-      const int g = g0 + row;
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) {
-        if (hit[j]) continue;  // an occluded ray stays occluded
-        float t;
-        if (pair_math<false>(a, b, c, ray.ox[j], ray.oy[j], ray.oz[j],
-                               ray.dx[j], ray.dy[j], ray.dz[j], &t) &&
-            g != ex[j] && t <= tmax[j])
-          hit[j] = 1;
-      }
-    }
-    __syncthreads();  // tri_s is overwritten by the next item
-    if (p.exit_every && ++done % p.exit_every == 0) {
-      int all = 1;
-#pragma unroll
-      for (int j = 0; j < RPT; ++j) all &= hit[j] != 0;
-      if (__syncthreads_and(all)) break;  // every ray of the tile is hit
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < RPT; ++j) out[first + j * kThreads] = hit[j];
-}
-
 // ---------------------------------------------------------------------------
-// K1 and K2: the shared-origin kernels on an item-chunk grid.
+// K1, K2, K3n, K3a: the CUDA-core kernels on an item-chunk grid.
 //
 // Measured on the H100 (PERF.md), the first design (one block of 128
-// threads per ray tile, like K3 above) lasted as long as its longest tile's
-// run of items: a block takes ~33 us per 32K-pair item with only ~2.5 warps
-// per scheduler to hide the dependent FP32 chains and the division, and
-// the 640x480 frame's K1 launch has 330 tiles with items, 21 on average
-// and 42 at most. So the grid is over the work list instead:
+// threads per ray tile, walking that tile's run of items) lasted as long as
+// its longest tile's run: a block takes ~33 us per 32K-pair item with only
+// ~2.5 warps per scheduler to hide the dependent FP32 chains and the
+// division, and the runs are skewed (the 640x480 frame's K1 launch: 21
+// items per tile on average, 42 at most; the bounced 1080p frame's bounce-1
+// K3n launch: 63 on average, 342 at most). So the grid is over the work
+// list instead:
 //   - ceil(W / chunk) blocks of 128 threads; block b takes the live items
 //     [b*chunk, min((b+1)*chunk, count)) (count read on the device; a block
-//     past it exits). The wrapper passes chunk = 2 (ops/bsr_trace.py CHUNK:
-//     1 to 4 measured within 9% of each other, longer chunks slower). A
-//     heavy tile is spread over many blocks on many SMs, and every SM keeps
-//     ~7 blocks (28 warps) busy to the end.
+//     past it exits). The wrapper passes chunk = 2 (ops/bsr_trace.py CHUNK,
+//     chosen by sweeps on the card for both origin forms). A heavy tile is
+//     spread over many blocks on many SMs, and every SM keeps several
+//     blocks busy to the end.
 //   - A block still holds one ray tile's rt rays at a time, rt / 128 per
-//     thread, in registers. The list is tile-major, so a chunk spans one
-//     tile or a few: where the tile changes, the block flushes its rays'
-//     results and loads the next tile's rays.
+//     thread, in registers (directions, exclusion ids and, per-ray form,
+//     origins). The list is tile-major, so a chunk spans one tile or a
+//     few: where the tile changes, the block flushes its rays' results and
+//     loads the next tile's rays.
 //   - Results merge across blocks exactly, in any order. Nearest: a 64-bit
 //     atomicMin on the plain version's key (bits(t + 0.0) << 32) | id
 //     (ops/bsr_trace.py _keys) in an (R,) scratch the wrapper allocates:
 //     seed_keys writes init's keys, the chunks fold into them, unpack_keys
 //     writes (out_t, out_i); three launches per call, so the result is the
-//     plain version's bit for bit whatever the schedule. A thread first
-//     folds each of its rays over one item in registers (rows in
+//     plain version's bit for bit whatever the schedule (a hit at t = -0.0
+//     comes back as +0.0, as the plain version's keys give it). A thread
+//     first folds each of its rays over one item in registers (rows in
 //     increasing id, so a strict < keeps the lowest id of a tie), merges
 //     the item into the ray's key once, and issues one atomic per changed
 //     ray per tile run. Any hit: out starts as a copy of init
@@ -334,28 +157,35 @@ __global__ void __launch_bounds__(kThreads)
 //     publishes everyone's and frees the other slot for the next copy.
 //     cp.async rather than the 1-D TMA bulk copy: a 4 KB block is two
 //     16-byte copies per thread, the one barrier per item is needed anyway
-//     (slot reuse, and K2's vote below), and there is no mbarrier phase to
-//     track; the copies cost nothing next to 32K pairs of math.
+//     (slot reuse, and the any-hit vote below), and there is no mbarrier
+//     phase to track; the copies cost nothing next to 32K pairs of math.
 //   - Nearest reads its rays' current keys from the scratch when it loads
 //     a tile: init, and whatever other blocks already merged. Keys only
 //     fall, so starting from them is exact, and they give the front-to-back
 //     skip (exit_every > 0) a bound at once: the block skips an item whose
-//     conservative entry distance exceeds every ray's best t by more than
-//     1e-4, with the bound refreshed every exit_every items tested.
+//     conservative entry distance (ops/cull.py, from the tile's hull of
+//     origins and directions in either form) exceeds every ray's best t by
+//     more than 1e-4, with the bound refreshed every exit_every items
+//     tested. Such an item can neither win nor tie.
 //   - Any hit reads its rays' flags when it loads a tile (flags only go
 //     from 0 to 1), folds the all-hit vote into the item's barrier
 //     (__syncthreads_and: a tile whose rays are all hit skips its remaining
 //     items), skips an item for a warp whose rays are all hit, and leaves
-//     the row loop once they all are.
-// The pair math is pair_math<true> as before (-fmad=false, IEEE division),
-// so K1 and K2 equal bsr_nearest_ref / bsr_any_ref bit for bit.
+//     the row loop once they all are. exit_every has nothing left to do.
+// The pair math is pair_math<kShared> (-fmad=false, IEEE division), so the
+// four kernels equal bsr_nearest_ref / bsr_any_ref bit for bit.
 //
 // Where that leaves them (PERF.md): the 640x480 frame's K1 launch is
 // 0.227 G pairs, 0.071 ms of FP32 operations at the 67 TFLOP/s peak; it
 // takes ~0.38 ms, 19% of that. The inner loop issues ~43 instructions per
-// pair (the 21 operations, 8 compares, ~10 for the IEEE division and its
-// slow-path branch, the fold), so even at full issue it would take ~0.29
-// ms; it runs at ~3/4 of that rate. K2 is alike (17%).
+// pair with a shared origin (the 21 operations, 8 compares, ~10 for the
+// IEEE division and its slow-path branch, the fold), so even at full issue
+// it would take ~0.29 ms; it runs at ~3/4 of that rate. K2 is alike (17%).
+// Per-ray origins add the 18 origin operations per pair to the same loop:
+// ~65 instructions per pair, so K3n's bounce-1 launch of the bounced 1080p
+// frame (2.9 G pairs, a 1.69 ms bound) takes ~6.2 ms, 27% of its bound, at
+// ~90% of full issue; K3a alike (25%). The 64-bit atomics of the merge
+// (5.7 M in that launch) cost nothing measurable next to the pair math.
 // ---------------------------------------------------------------------------
 
 constexpr int kElemThreads = 256;  // seed_keys, unpack_keys
@@ -381,6 +211,10 @@ __device__ __forceinline__ long long join_key(float t, int id) {
                      (unsigned)id);
 }
 
+// seed_keys and unpack_keys do the same work in both origin forms; each
+// form has its own instantiation so that a profile books them to the query
+// (K1 or K3n) that issued them.
+template <bool kShared>
 __global__ void seed_keys(const float* __restrict__ init_t,
                           const int* __restrict__ init_i,
                           long long* __restrict__ keys, int64_t n) {
@@ -388,6 +222,7 @@ __global__ void seed_keys(const float* __restrict__ init_t,
   if (r < n) keys[r] = make_key(init_t[r], init_i[r]);
 }
 
+template <bool kShared>
 __global__ void unpack_keys(const long long* __restrict__ keys,
                             float* __restrict__ out_t,
                             int* __restrict__ out_i, int64_t n) {
@@ -425,11 +260,13 @@ struct Chunk {
   }
 };
 
-// One thread's RPT rays of the block's current tile: directions and
-// exclusion ids (the origin is folded into the triangle rows).
-template <int RPT>
+// One thread's RPT rays of the block's current tile: directions, exclusion
+// ids and, with per-ray origins (kShared false), origins. With a shared
+// origin the origin is folded into the triangle rows; ox, oy, oz are then
+// never loaded or read, and the compiler keeps no registers for them.
+template <int RPT, bool kShared>
 struct TileRays {
-  float dx[RPT], dy[RPT], dz[RPT];
+  float ox[RPT], oy[RPT], oz[RPT], dx[RPT], dy[RPT], dz[RPT];
   int ex[RPT];
 
   static __device__ __forceinline__ int64_t ray(int tile, int j) {
@@ -440,11 +277,29 @@ struct TileRays {
 #pragma unroll
     for (int j = 0; j < RPT; ++j) {
       const int64_t r = ray(tile, j);
+      if constexpr (!kShared) {
+        ox[j] = p.rays[r];
+        oy[j] = p.rays[p.n_rays + r];
+        oz[j] = p.rays[2 * p.n_rays + r];
+      }
       dx[j] = p.rays[3 * p.n_rays + r];
       dy[j] = p.rays[4 * p.n_rays + r];
       dz[j] = p.rays[5 * p.n_rays + r];
       ex[j] = p.excl[r];
     }
+  }
+
+  // Ray j against the triangle row (a, b, c): the Baldwin-Weber test
+  // (pair_math.cuh), *t the pair's t. The caller tests the exclusion id
+  // after it, as the shared-origin loops always did: with the test folded
+  // into this helper, the any-hit loop compiled to more compares and ran
+  // slower on the H100.
+  __device__ __forceinline__ bool pair(const float4 a, const float4 b,
+                                       const float4 c, int j,
+                                       float* t) const {
+    return pair_math<kShared>(a, b, c, kShared ? 0.0f : ox[j],
+                              kShared ? 0.0f : oy[j], kShared ? 0.0f : oz[j],
+                              dx[j], dy[j], dz[j], t);
   }
 };
 
@@ -467,7 +322,7 @@ __device__ float block_max(const float (&bt)[RPT], float* warp_max) {
   return b;
 }
 
-template <int RPT>
+template <int RPT, bool kShared>
 __global__ void __launch_bounds__(kThreads)
     nearest_chunk_kernel(const WorkArgs p, int chunk,
                          long long* __restrict__ keys) {
@@ -480,7 +335,7 @@ __global__ void __launch_bounds__(kThreads)
   const int gid0 = *p.gid_base;
   stage_async(p.tris, p.block_ids[c.lo], p.tb, ring);
 
-  TileRays<RPT> ray;
+  TileRays<RPT, kShared> ray;
   float bt[RPT];  // the rays' keys as (t, id) halves
   int bi[RPT];
   unsigned changed = 0;  // bit j: ray j's key fell in this tile run
@@ -535,9 +390,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int j = 0; j < RPT; ++j) {
         float tt;
-        if (pair_math<true>(a, b, cc, 0.0f, 0.0f, 0.0f, ray.dx[j], ray.dy[j],
-                            ray.dz[j], &tt) &&
-            g != ray.ex[j] && tt < it[j]) {
+        if (ray.pair(a, b, cc, j, &tt) && g != ray.ex[j] && tt < it[j]) {
           it[j] = tt;
           ii[j] = g;
         }
@@ -560,7 +413,7 @@ __global__ void __launch_bounds__(kThreads)
       atomicMin(keys + ray.ray(tile, j), join_key(bt[j], bi[j]));
 }
 
-template <int RPT>
+template <int RPT, bool kShared>
 __global__ void __launch_bounds__(kThreads)
     any_chunk_kernel(const WorkArgs p, int chunk, int* __restrict__ out) {
   extern __shared__ float4 ring[];  // two slots of tb * 4 float4
@@ -571,7 +424,7 @@ __global__ void __launch_bounds__(kThreads)
   const int gid0 = *p.gid_base;
   stage_async(p.tris, p.block_ids[c.lo], p.tb, ring);
 
-  TileRays<RPT> ray;
+  TileRays<RPT, kShared> ray;
   float tmax[RPT];
   int hit[RPT];
   unsigned found = 0;  // bit j: ray j found hit in this tile run
@@ -619,9 +472,8 @@ __global__ void __launch_bounds__(kThreads)
       for (int j = 0; j < RPT; ++j) {
         if (hit[j]) continue;  // an occluded ray stays occluded
         float tt;
-        if (pair_math<true>(a, b, cc, 0.0f, 0.0f, 0.0f, ray.dx[j], ray.dy[j],
-                            ray.dz[j], &tt) &&
-            g != ray.ex[j] && tt <= tmax[j]) {
+        if (ray.pair(a, b, cc, j, &tt) && g != ray.ex[j] &&
+            tt <= tmax[j]) {
           hit[j] = 1;
           found |= 1u << j;
         }
@@ -1029,54 +881,33 @@ __global__ void __launch_bounds__(kMxuThreads)
     }
 }
 
-// Rays per thread (RPT = rt / 128) is a template parameter of K3n/K3a;
-// these pick the instantiation for a launch.
-using NearestFn = void (*)(WorkArgs, const float*, const int*, float*, int*);
-using AnyFn = void (*)(WorkArgs, const int*, int*);
-
-NearestFn nearest_rays_for(int rt) {
-  switch (rt) {
-    case 128: return nearest_rays_kernel<1>;
-    case 256: return nearest_rays_kernel<2>;
-    case 512: return nearest_rays_kernel<4>;
-    case 1024: return nearest_rays_kernel<8>;
-    default: return nullptr;
-  }
-}
-
-AnyFn any_rays_for(int rt) {
-  switch (rt) {
-    case 128: return any_rays_kernel<1>;
-    case 256: return any_rays_kernel<2>;
-    case 512: return any_rays_kernel<4>;
-    case 1024: return any_rays_kernel<8>;
-    default: return nullptr;
-  }
-}
-
-// K1/K2: RPT = rt / 128 as well.
+// Rays per thread (RPT = rt / 128) and the origin form are template
+// parameters of K1/K2/K3n/K3a; these pick the instantiation for a launch.
 using NearestChunkFn = void (*)(WorkArgs, int, long long*);
 using AnyChunkFn = void (*)(WorkArgs, int, int*);
 
+template <bool kShared>
 NearestChunkFn nearest_chunk_for(int rt) {
   switch (rt) {
-    case 128: return nearest_chunk_kernel<1>;
-    case 256: return nearest_chunk_kernel<2>;
-    case 512: return nearest_chunk_kernel<4>;
-    case 1024: return nearest_chunk_kernel<8>;
+    case 128: return nearest_chunk_kernel<1, kShared>;
+    case 256: return nearest_chunk_kernel<2, kShared>;
+    case 512: return nearest_chunk_kernel<4, kShared>;
+    case 1024: return nearest_chunk_kernel<8, kShared>;
     default: return nullptr;
   }
 }
 
+template <bool kShared>
 AnyChunkFn any_chunk_for(int rt) {
   switch (rt) {
-    case 128: return any_chunk_kernel<1>;
-    case 256: return any_chunk_kernel<2>;
-    case 512: return any_chunk_kernel<4>;
-    case 1024: return any_chunk_kernel<8>;
+    case 128: return any_chunk_kernel<1, kShared>;
+    case 256: return any_chunk_kernel<2, kShared>;
+    case 512: return any_chunk_kernel<4, kShared>;
+    case 1024: return any_chunk_kernel<8, kShared>;
     default: return nullptr;
   }
 }
+
 using NearestMxuFn = void (*)(MxuArgs, const float*, const int*, float*,
                               int*);
 using AnyMxuFn = void (*)(MxuArgs, const int*, int*);
@@ -1122,6 +953,50 @@ WorkArgs work_args(const float* rays, int64_t n_rays, const int* excl,
                   exit_every};
 }
 
+// The nearest query in one origin form: seed_keys, the chunks (when the
+// list has slots), unpack_keys.
+template <bool kShared>
+cudaError_t nearest_chunks(const WorkArgs& p, const float* init_t,
+                           const int* init_i, long long* keys, float* out_t,
+                           int* out_i, int rt, int chunk, cudaStream_t s) {
+  const NearestChunkFn fn = nearest_chunk_for<kShared>(rt);
+  if (fn == nullptr || chunk < 1) return cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)p.tb * 16 * sizeof(float);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  const unsigned eg =
+      (unsigned)((p.n_rays + kElemThreads - 1) / kElemThreads);
+  seed_keys<kShared><<<eg, kElemThreads, 0, s>>>(init_t, init_i, keys,
+                                                 p.n_rays);
+  if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  if (p.n_items > 0) {
+    fn<<<(p.n_items + chunk - 1) / chunk, kThreads, smem, s>>>(p, chunk,
+                                                               keys);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+  }
+  unpack_keys<kShared><<<eg, kElemThreads, 0, s>>>(keys, out_t, out_i,
+                                                   p.n_rays);
+  return cudaGetLastError();
+}
+
+// The any-hit query in one origin form: a device-to-device copy of init
+// into out, then the chunks (when the list has slots).
+template <bool kShared>
+cudaError_t any_chunks(const WorkArgs& p, const int* init, int* out, int rt,
+                       int chunk, cudaStream_t s) {
+  const AnyChunkFn fn = any_chunk_for<kShared>(rt);
+  if (fn == nullptr || chunk < 1) return cudaErrorInvalidValue;
+  const size_t smem = 2 * (size_t)p.tb * 16 * sizeof(float);
+  cudaError_t err = allow_smem(fn, smem);
+  if (err != cudaSuccess) return err;
+  err = cudaMemcpyAsync(out, init, p.n_rays * sizeof(int),
+                        cudaMemcpyDeviceToDevice, s);
+  if (err != cudaSuccess) return err;
+  if (p.n_items > 0)
+    fn<<<(p.n_items + chunk - 1) / chunk, kThreads, smem, s>>>(p, chunk, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1130,7 +1005,8 @@ extern "C" {
 // checks every shape, dtype, device, alignment and contiguity before
 // calling.
 
-// K1: the shared-origin (pack_tris_origin) nearest hit on the chunk grid,
+// K1 (shared != 0: pack_tris_origin rows) and K3n (shared == 0: static
+// pack_tris rows, per-ray origins): the nearest hit on the chunk grid,
 // `chunk` >= 1 items per block; keys is an (n_rays,) int64 scratch. Three
 // launches: seed_keys, the chunks (when the list has slots), unpack_keys.
 int drt_bsr_nearest(const float* rays, int64_t n_rays, const int* excl,
@@ -1139,86 +1015,30 @@ int drt_bsr_nearest(const float* rays, int64_t n_rays, const int* excl,
                     int n_items, const float* init_t, const int* init_i,
                     const int* gid_base, long long* keys, float* out_t,
                     int* out_i, int rt, int tb, int exit_every, int chunk,
-                    void* stream) {
-  const NearestChunkFn fn = nearest_chunk_for(rt);
-  if (fn == nullptr || chunk < 1) return cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)tb * 16 * sizeof(float);
-  cudaError_t err = allow_smem(fn, smem);
-  if (err != cudaSuccess) return err;
+                    int shared, void* stream) {
   const WorkArgs p = work_args(rays, n_rays, excl, tris, tile_ids, block_ids,
                                entry, count, n_items, gid_base, tb,
                                exit_every);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned eg = (unsigned)((n_rays + kElemThreads - 1) / kElemThreads);
-  seed_keys<<<eg, kElemThreads, 0, s>>>(init_t, init_i, keys, n_rays);
-  if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  if (n_items > 0) {
-    fn<<<(n_items + chunk - 1) / chunk, kThreads, smem, s>>>(
-        p, chunk, keys);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  }
-  unpack_keys<<<eg, kElemThreads, 0, s>>>(keys, out_t, out_i, n_rays);
-  return cudaGetLastError();
+  return shared ? nearest_chunks<true>(p, init_t, init_i, keys, out_t, out_i,
+                                       rt, chunk, s)
+                : nearest_chunks<false>(p, init_t, init_i, keys, out_t, out_i,
+                                        rt, chunk, s);
 }
 
-// K2: the shared-origin any hit on the chunk grid. One device-to-device
-// copy of init into out, then the chunks (when the list has slots).
+// K2 (shared != 0) and K3a (shared == 0): the any hit on the chunk grid.
+// One device-to-device copy of init into out, then the chunks (when the
+// list has slots).
 int drt_bsr_any(const float* rays, int64_t n_rays, const int* excl,
                 const float* tris, const int* tile_ids, const int* block_ids,
                 const int* count, int n_items, const int* init,
                 const int* gid_base, int* out, int rt, int tb, int chunk,
-                void* stream) {
-  const AnyChunkFn fn = any_chunk_for(rt);
-  if (fn == nullptr || chunk < 1) return cudaErrorInvalidValue;
-  const size_t smem = 2 * (size_t)tb * 16 * sizeof(float);
-  cudaError_t err = allow_smem(fn, smem);
-  if (err != cudaSuccess) return err;
+                int shared, void* stream) {
   const WorkArgs p = work_args(rays, n_rays, excl, tris, tile_ids, block_ids,
                                nullptr, count, n_items, gid_base, tb, 0);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemcpyAsync(out, init, n_rays * sizeof(int),
-                        cudaMemcpyDeviceToDevice, s);
-  if (err != cudaSuccess) return err;
-  if (n_items > 0)
-    fn<<<(n_items + chunk - 1) / chunk, kThreads, smem, s>>>(
-        p, chunk, out);
-  return cudaGetLastError();
-}
-
-// K3n and K3a: per-ray origins against the static pack_tris rows, one
-// block per ray tile.
-int drt_bsr_nearest_rays(const float* rays, int64_t n_rays, const int* excl,
-                         const float* tris, const int* tile_ids,
-                         const int* block_ids, const float* entry,
-                         const int* count, int n_items, const float* init_t,
-                         const int* init_i, const int* gid_base, float* out_t,
-                         int* out_i, int rt, int tb, int exit_every,
-                         void* stream) {
-  const NearestFn fn = nearest_rays_for(rt);
-  if (fn == nullptr) return cudaErrorInvalidValue;
-  const WorkArgs p = work_args(rays, n_rays, excl, tris, tile_ids, block_ids,
-                               entry, count, n_items, gid_base, tb,
-                               exit_every);
-  const size_t smem = (size_t)tb * 16 * sizeof(float);
-  fn<<<(int)(n_rays / rt), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, init_t, init_i, out_t, out_i);
-  return cudaGetLastError();
-}
-
-int drt_bsr_any_rays(const float* rays, int64_t n_rays, const int* excl,
-                     const float* tris, const int* tile_ids,
-                     const int* block_ids, const int* count, int n_items,
-                     const int* init, const int* gid_base, int* out, int rt,
-                     int tb, int exit_every, void* stream) {
-  const AnyFn fn = any_rays_for(rt);
-  if (fn == nullptr) return cudaErrorInvalidValue;
-  const WorkArgs p = work_args(rays, n_rays, excl, tris, tile_ids, block_ids,
-                               nullptr, count, n_items, gid_base, tb,
-                               exit_every);
-  const size_t smem = (size_t)tb * 16 * sizeof(float);
-  fn<<<(int)(n_rays / rt), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      p, init, out);
-  return cudaGetLastError();
+  return shared ? any_chunks<true>(p, init, out, rt, chunk, s)
+                : any_chunks<false>(p, init, out, rt, chunk, s);
 }
 
 // The tensor-core forms (K4, K5): dirs is pack_dirs's (3T, 8) A, indexed

@@ -43,14 +43,9 @@ _SIGNATURES = {
     "bsr_trace": {
         "drt_bsr_nearest": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _p, _i32, _p,
                                    _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32,
-                                   _p]),
+                                   _i32, _p]),
         "drt_bsr_any": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _i32, _p, _p, _p,
-                               _i32, _i32, _i32, _p]),
-        "drt_bsr_nearest_rays": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _p, _i32,
-                                        _p, _p, _p, _p, _p, _i32, _i32, _i32,
-                                        _p]),
-        "drt_bsr_any_rays": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _i32, _p, _p,
-                                    _p, _i32, _i32, _i32, _p]),
+                               _i32, _i32, _i32, _i32, _p]),
         "drt_bsr_nearest_mxu": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _p, _p,
                                        _p, _i32, _p, _p, _p, _p, _p, _i32,
                                        _i32, _i32, _p]),

@@ -52,8 +52,9 @@ _BUCKET_SEGMENT = 16384
 # Threads per block of the CUDA-core kernels (K1-K3); rt / THREADS rays
 # per thread.
 THREADS = 128
-# Work items per block of the shared-origin kernels (K1, K2), whose grid
-# runs over chunks of the work list (csrc/bsr_trace.cu); chosen on the H100
+# Work items per block of the CUDA-core kernels (K1, K2 with a shared
+# origin; K3n, K3a with per-ray origins), whose grid runs over chunks of the
+# work list (csrc/bsr_trace.cu); chosen on the H100 for both origin forms
 # (PERF.md).
 CHUNK = 2
 # Pairs per chunk of the plain versions: bounds their peak memory (an
@@ -63,9 +64,10 @@ _REF_CHUNK_PAIRS = 1 << 22
 # Kernel launches per wrapper and triangle form ("_rays": per-ray origins;
 # "_mxu": the (A, scal) tuple on the tensor cores). Incremented only where
 # the CUDA kernel is launched, never by the plain versions; a caller resets
-# them to 0 to count the launches of one run. One count per call: K1's call
-# is three device launches (seed the keys, the chunks, unpack), K2's a copy
-# of init and the chunks, every other form one launch.
+# them to 0 to count the launches of one run. One count per call: a nearest
+# call of either origin form (K1, K3n) is three device launches (seed the
+# keys, the chunks, unpack), an any-hit call (K2, K3a) a copy of init and
+# the chunks, a tensor-core call (K4, K5) one launch.
 LAUNCHES = {"bsr_nearest": 0, "bsr_any": 0, "bsr_nearest_rays": 0,
             "bsr_any_rays": 0, "bsr_nearest_mxu": 0, "bsr_any_mxu": 0}
 
@@ -359,15 +361,13 @@ def bsr_nearest(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
             if mxu:
                 _build.launch("bsr_trace", lib.drt_bsr_nearest_mxu, *head,
                               *tail, stream)
-            elif shared_origin:
+            else:
                 # The chunks merge through an int64 key per ray (three
                 # launches: seed, chunks, unpack).
                 keys = torch.empty(r, dtype=torch.int64, device=dev)
                 _build.launch("bsr_trace", lib.drt_bsr_nearest, *head,
-                              _ptr(keys, 8), *tail, CHUNK, stream)
-            else:
-                _build.launch("bsr_trace", lib.drt_bsr_nearest_rays, *head,
-                              *tail, stream)
+                              _ptr(keys, 8), *tail, CHUNK, int(shared_origin),
+                              stream)
         LAUNCHES[launch_key("bsr_nearest", shared_origin, mxu)] += 1
     return out_t, out_i
 
@@ -406,14 +406,11 @@ def bsr_any(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
             if mxu:
                 _build.launch("bsr_trace", lib.drt_bsr_any_mxu, *head,
                               exit_every, stream)
-            elif shared_origin:
+            else:
                 # Every ray's flag is tested as the chunks go; exit_every
                 # has nothing left to do.
                 _build.launch("bsr_trace", lib.drt_bsr_any, *head, CHUNK,
-                              stream)
-            else:
-                _build.launch("bsr_trace", lib.drt_bsr_any_rays, *head,
-                              exit_every, stream)
+                              int(shared_origin), stream)
         LAUNCHES[launch_key("bsr_any", shared_origin, mxu)] += 1
     return out
 

@@ -5,9 +5,11 @@ tree's, in turns, on one CUDA card.
         [--other DIR] [--cut] [--chunks 1,2,4] [--out FILE]
 
 The launches are recorded once, in this tree: K1 and K2 of one 640x480
-render() of icosphere_scene(6), and the three K2 launches and the bounce-1
-K3n launch of one depth-2 render_bounced() of the 1920x1080 sphere grid
-(instanced_grid(icosphere_scene(3), 4)). Each tree then times its own
+render() of icosphere_scene(6); the three K2 launches and the three K3n
+launches (bounces 0, 1, 2) of one depth-2 render_bounced() of the
+1920x1080 sphere grid (instanced_grid(icosphere_scene(3), 4)); and K3a on
+the bounce-1 rays with t_max set to K3n's finite hit t (as chip_smoke.py
+builds it). Each tree then times its own
 wrappers (ops/bsr_trace.bsr_nearest, bsr_any) on those inputs in a worker
 process of its own: the traversal kernels' device time per call from
 torch.profiler (the mean of 10 calls), and the call's device time from CUDA
@@ -19,12 +21,16 @@ outputs equal the recorded plain-version outputs bit for bit. The frame
 workers, in the same turns, time render_fast() at an orbit pose of the
 640x480 frame (median of 30 synchronized calls) and the frozen bounced
 frame (median of 10), and profile each: the device's busy share of the
-profiled window and the device ms per frame of K1, K2, K3n and the rest.
+profiled window and the device ms per frame of K1, K2, K3n, K3a and the
+rest (kernels are classed by name: the origin form is a template argument,
+and seed_keys / unpack_keys are instantiated per form, so K3n's key
+launches are booked to K3n).
 
 --cut also times, in every tree, the 640x480 K1 and K2 launches with
 every tile's run of items cut to its first cap items (how much the longest
-runs cost); --chunks times them at other chunk lengths
-(ops/bsr_trace.CHUNK) in this tree only.
+runs cost); --chunks times K1, K2 (640x480), K3n (bounce 1) and K3a at
+other chunk lengths (ops/bsr_trace.CHUNK, both origin forms) in this tree
+only.
 
 Prints one line per measurement, and writes them to --out FILE if given.
 """
@@ -40,16 +46,24 @@ import sys
 import tempfile
 
 # Kernel names per table id, as the profiler reports them (this tree's and
-# earlier trees' instantiations).
+# earlier trees' instantiations), the per-ray forms first: an earlier tree's
+# bare seed_keys / unpack_keys and chunk kernels without the origin flag
+# are K1's and K2's.
 _CLASSES = (
+    ("K3n", r"nearest_chunk_kernel<\d+, false>|(seed|unpack)_keys<false>|"
+            r"nearest_rays_kernel|nearest_kernel<\d+, false>"),
+    ("K3a", r"any_chunk_kernel<\d+, false>|any_rays_kernel|"
+            r"any_kernel<\d+, false>"),
     ("K1", r"nearest_chunk_kernel|seed_keys|unpack_keys|"
            r"nearest_kernel<\d+, true>"),
     ("K2", r"any_chunk_kernel|any_kernel<\d+, true>"),
-    ("K3n", r"nearest_rays_kernel|nearest_kernel<\d+, false>"),
 )
 _TRAVERSAL = re.compile("|".join(p for _, p in _CLASSES))
 # --cut: the longest runs of items per tile allowed.
 CUT_CAPS = (64, 42, 32, 21, 16, 8, 4, 2, 1)
+# --chunks: the launches swept.
+CHUNK_SWEEP = ("K1 640x480 primary", "K2 640x480 shadows",
+               "K3n bounced 1080p bounce 1", "K3a bounced 1080p bounce 1")
 
 
 def _kernel_class(name: str) -> str:
@@ -253,8 +267,16 @@ def _record(path: str) -> list:
                 ("K2 640x480 shadows", "bsr_any", main[("bsr_any", True)][-1])]
     launches += [(f"K2 bounced 1080p bounce {i}", "bsr_any", c)
                  for i, c in enumerate(seen[("bsr_any", True)])]
-    launches.append(("K3n bounced 1080p bounce 1", "bsr_nearest",
-                     seen[("bsr_nearest", False)][1]))
+    launches += [(f"K3n bounced 1080p bounce {i}", "bsr_nearest", c)
+                 for i, c in enumerate(seen[("bsr_nearest", False)])]
+    # K3a: the bounce-1 rays and exclude ids, t_max = K3n's finite hit t.
+    args, kwargs = seen[("bsr_nearest", False)][1]
+    best_t, _ = bsr_trace.bsr_nearest_ref(*args, **kwargs)
+    rays = args[0].clone()
+    rays[6] = torch.where(torch.isfinite(best_t), best_t, bsr_trace.BIG_TMAX)
+    launches.append(("K3a bounced 1080p bounce 1", "bsr_any", (
+        (rays,) + tuple(args[1:]),
+        {k: kwargs[k] for k in ("rt", "tb", "shared_origin", "exit_every")})))
     recs = []
     for tag, wrapper, (args, kwargs) in launches:
         want = getattr(bsr_trace, wrapper + "_ref")(*args, **kwargs)
@@ -370,7 +392,9 @@ def main(argv=None) -> int:
                     f"{nk:.0f} kernels per frame, device ms per frame "
                     + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
                         per.items())))
-    for tag, wrapper, (args, kwargs) in launches[:2]:
+    for tag, wrapper, (args, kwargs) in launches:
+        if tag not in CHUNK_SWEEP:
+            continue
         fn = getattr(bsr_trace, wrapper)
         chosen = bsr_trace.CHUNK
         for chunk in (int(c) for c in a.chunks.split(",") if c):

@@ -1,0 +1,79 @@
+"""Instruction mix of the traversal kernels' loops, from the SASS of the
+built library, on a machine with the CUDA toolkit.
+
+    python -m distributed_raytracer_tpu_torch.tools.sass_loops [REGEX]
+
+Builds (or loads) csrc/bsr_trace.cu through ops/_build, disassembles the
+library with `cuobjdump -sass` and prints, for every kernel whose mangled
+name matches REGEX (default: the chunk kernels at RPT = 4, i.e. rt = 512),
+each loop (a backward branch and the instructions from its target to it)
+with its instruction count by opcode. The row loop is the innermost loop
+that holds the pair math: unrolled by two, at RPT = 4 it covers two
+triangle rows x four rays per thread, 8 pairs per pass.
+"""
+
+from __future__ import annotations
+
+import collections
+import os
+import re
+import subprocess
+import sys
+
+_INS = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_BRA = re.compile(r"\bBRA\s+(0x[0-9a-f]+)")
+
+
+def functions(sass: str) -> dict:
+    """{mangled name: [(address, instruction text)]} of a cuobjdump dump."""
+    out, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            out[name] = []
+            continue
+        m = _INS.match(line)
+        if m and name:
+            out[name].append((int(m.group(1), 16), m.group(2)))
+    return out
+
+
+def loops(ins: list) -> list:
+    """[(first address, last address, Counter of opcodes)] per backward
+    branch, innermost (shortest) first."""
+    res = []
+    for addr, text in ins:
+        m = _BRA.search(text)
+        if m and int(m.group(1), 16) < addr:
+            lo = int(m.group(1), 16)
+            ops = collections.Counter(
+                re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0]
+                for a, t in ins if lo <= a <= addr)
+            res.append((lo, addr, ops))
+    return sorted(res, key=lambda x: x[1] - x[0])
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    pattern = argv[0] if argv else r"chunk_kernelILi4E"
+    from distributed_raytracer_tpu_torch.ops import _build
+
+    lib = _build._compile("bsr_trace")
+    cuda = os.path.dirname(os.path.dirname(_build._nvcc()))
+    sass = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass",
+                           str(lib)], check=True, capture_output=True,
+                          text=True).stdout
+    for name, ins in functions(sass).items():
+        if not re.search(pattern, name):
+            continue
+        print(name)
+        for lo, hi, ops in loops(ins):
+            print(f"  loop {lo:#x}-{hi:#x}: {sum(ops.values())} "
+                  "instructions; " + ", ".join(
+                      f"{k} {v}" for k, v in ops.most_common()))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

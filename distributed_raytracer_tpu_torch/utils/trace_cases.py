@@ -1,4 +1,5 @@
-"""Hard inputs for the shared-origin traversal kernels (K1, K2).
+"""Hard inputs for the CUDA-core traversal kernels (K1, K2 with a shared
+origin; K3n, K3a with per-ray origins).
 
 `edge_case_launch` builds one launch of `bsr_nearest` / `bsr_any` from a
 seed, with numpy, aimed at the places where a kernel can round, order or
@@ -8,10 +9,16 @@ schedule differently from the plain versions:
     along shared edges (the BARY_EPS band of two or six triangles at once),
     grazing rays at the silhouette, rays through the faces, misses, and
     dead rays (zero direction);
+  - with per-ray origins (shared_origin=False, static pack_tris rows), the
+    origins spread around that one: a share exactly at it, a share jittered
+    about it, and a share on triangles of the two spheres, lifted off the
+    surface as ops/render_bvh.py `_reflect_from` lifts a reflection ray's
+    origin, half of them along the mirrored direction, each excluding its
+    own triangle (the bounce queries' case);
   - a copy of the most-hit triangle block (every hit in it ties at one t
     with a second id), a block whose two triangles contain the origin in
-    their plane (every ray with d_z != 0 hits them at t = +0.0 or -0.0),
-    and an all-zero block (den = 0 against every ray);
+    their plane (every ray from that origin with d_z != 0 hits them at
+    t = +0.0 or -0.0), and an all-zero block (den = 0 against every ray);
   - exclusion ids (a ray's own nearest triangle, random ids, none), a
     nonzero gid_base, finite init seeds (a whole tile, a share of rays,
     ties with the best hit), a tile seeded as hit, t_max at, below and
@@ -34,6 +41,7 @@ from distributed_raytracer_tpu_torch.models.camera import Camera
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneObject
 from distributed_raytracer_tpu_torch.ops import bsr_trace
 from distributed_raytracer_tpu_torch.utils import scenes
+from distributed_raytracer_tpu_torch.utils.config import DEFAULT_CONFIG
 
 N_TILES = 8
 ORIGIN = (0.31, -0.22, 3.4)
@@ -43,9 +51,9 @@ _PAST_COUNT = 10  # live-looking slots past count
 
 @dataclasses.dataclass
 class EdgeCaseLaunch:
-    rays: torch.Tensor       # (8, R): shared origin, directions, t_max
+    rays: torch.Tensor       # (8, R): origins, directions, t_max
     exclude: torch.Tensor    # (R,) int32
-    tris: torch.Tensor       # (T, 16) pack_tris_origin rows
+    tris: torch.Tensor       # (T, 16) pack_tris_origin or pack_tris rows
     tile_ids: torch.Tensor   # (W,) int32
     block_ids: torch.Tensor  # (W,) int32
     entry: torch.Tensor      # (W,) float32
@@ -56,10 +64,12 @@ class EdgeCaseLaunch:
     gid_base: torch.Tensor   # (1,) int32
     rt: int
     tb: int
+    shared_origin: bool = True
 
     @property
     def kwargs(self) -> dict:
-        return {"rt": self.rt, "tb": self.tb, "shared_origin": True}
+        return {"rt": self.rt, "tb": self.tb,
+                "shared_origin": self.shared_origin}
 
     def nearest_args(self) -> tuple:
         return (self.rays, self.exclude, self.tris, self.tile_ids,
@@ -96,10 +106,11 @@ def _two_spheres() -> Scene:
                  camera=Camera.create(ORIGIN, [0.0, 0.0, -1.0], 1.0))
 
 
-def _targets(rng, scene: Scene, n: int) -> np.ndarray:
-    """(n, 3) float64 ray directions from ORIGIN, by kind: shared
-    vertices, points on shared edges, the silhouette, faces, misses, dead."""
-    o = np.asarray(ORIGIN)
+def _targets(rng, scene: Scene, n: int, o: np.ndarray) -> np.ndarray:
+    """(n, 3) float64 ray directions from the origins o ((3,) shared or
+    (n, 3)), by kind: shared vertices, points on shared edges, the
+    silhouette (as seen from ORIGIN), faces, misses, dead."""
+    o = np.broadcast_to(o, (n, 3))
     mesh = scene.meshes["ico"]
     verts = np.concatenate([mesh.vertices + obj.pos for obj in scene.objects])
     faces = np.concatenate([mesh.faces_v + k * len(mesh.vertices)
@@ -123,8 +134,9 @@ def _targets(rng, scene: Scene, n: int) -> np.ndarray:
             nrm = mesh.vertices / np.linalg.norm(mesh.vertices, axis=1,
                                                  keepdims=True)
             v0 = mesh.vertices
-            cos = np.einsum("ij,ij->i", nrm, o - v0) / np.linalg.norm(
-                o - v0, axis=1)
+            eye = np.asarray(ORIGIN)
+            cos = np.einsum("ij,ij->i", nrm, eye - v0) / np.linalg.norm(
+                eye - v0, axis=1)
             rim = v0[np.argsort(np.abs(cos))[:64]]
             tgt = rim[rng.integers(0, len(rim), m)]
         elif k == 3:                                 # through the faces
@@ -132,28 +144,72 @@ def _targets(rng, scene: Scene, n: int) -> np.ndarray:
             w = rng.dirichlet(np.ones(3), m)
             tgt = np.einsum("nk,nkj->nj", w, verts[f])
         elif k == 4:                                 # misses
-            tgt = o + rng.normal(size=(m, 3)) + np.array([0, 0, 3.0])
+            tgt = o[sel] + rng.normal(size=(m, 3)) + np.array([0, 0, 3.0])
         else:                                        # dead rays
             d[sel] = 0.0
             continue
-        d[sel] = tgt - o
+        d[sel] = tgt - o[sel]
     unit = rng.uniform(size=n) < 0.5
     d[unit] /= np.maximum(np.linalg.norm(d[unit], axis=1, keepdims=True),
                           1e-30)
     return d
 
 
-def _origin_plane_block(tb: int) -> np.ndarray:
-    """A block whose first two rows contain the origin in their plane (w =
-    +0.0 and -0.0, u = v = 0.25 for every ray): t = +-0.0 wherever d_z !=
-    0. The other rows are zero."""
+def _origin_plane_block(tb: int, shared_origin: bool) -> np.ndarray:
+    """A block whose first two rows contain ORIGIN in their plane, u = v =
+    0.25 for every ray: t = +-0.0 for a ray from ORIGIN wherever d_z != 0.
+    Folded (shared origin): w = +0.0 and -0.0. Static rows (per-ray
+    origins): the plane z = ORIGIN_z with normals +z and -z, k_u = k_v = 0,
+    so num = +0.0 and t takes den's sign (other origins hit the plane at
+    t = (ORIGIN_z - o_z) / d_z). The other rows are zero."""
     blk = np.zeros((tb, 16), np.float32)
-    for r, w in ((0, 0.0), (1, -0.0)):
-        blk[r, :12] = [0, 0, 1, w, 1, 0, 0, 0.25, 0, 1, 0, 0.25]
+    if shared_origin:
+        for r, w in ((0, 0.0), (1, -0.0)):
+            blk[r, :12] = [0, 0, 1, w, 1, 0, 0, 0.25, 0, 1, 0, 0.25]
+    else:
+        z = np.float32(ORIGIN[2])
+        for r, s in ((0, 1.0), (1, -1.0)):
+            blk[r, :12] = [0, 0, s, s * z, 0, 0, 0, 0.25, 0, 0, 0, 0.25]
     return blk
 
 
-def _dense_items(rays, exclude, tris, gid_base, rt, tb):
+def _ray_origins(rng, arrays, n: int):
+    """Per-ray origins: ((n, 3) float32-exact float64 origins, (n, 3)
+    mirrored directions, (n,) own triangle index or -1). A share sits
+    exactly at ORIGIN, a share is jittered about it, and a share lies on
+    random triangles of the bake, lifted as `_reflect_from` lifts a
+    reflection origin: the direction from ORIGIN mirrored about the
+    geometric normal, the point moved shadow_offset along it and
+    shadow_normal_offset along the normal on its side."""
+    cfg = DEFAULT_CONFIG
+    eye = np.asarray(ORIGIN)
+    kind = rng.choice(3, size=n, p=[0.3, 0.35, 0.35])
+    o = np.tile(eye, (n, 1))
+    o[kind == 1] += rng.normal(scale=0.3, size=((kind == 1).sum(), 3))
+    surf = kind == 2
+    m = int(surf.sum())
+    real = np.nonzero(np.abs(arrays.geo_n).sum(1) > 0)[0]
+    own = np.full(n, -1)
+    own[surf] = real[rng.integers(0, len(real), m)]
+    w = rng.dirichlet(np.ones(3), m)
+    f64 = lambda a: np.asarray(a, np.float64)[own[surf]]
+    x = (f64(arrays.p0) + w[:, 1:2] * f64(arrays.e1)
+         + w[:, 2:3] * f64(arrays.e2))
+    nrm = f64(arrays.geo_n)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    din = x - eye
+    din /= np.linalg.norm(din, axis=1, keepdims=True)
+    refl = din - 2.0 * np.einsum("ij,ij->i", din, nrm)[:, None] * nrm
+    refl /= np.linalg.norm(refl, axis=1, keepdims=True)
+    side = np.where(np.einsum("ij,ij->i", nrm, refl) >= 0.0, 1.0, -1.0)
+    o[surf] = (x + cfg.shadow_offset * refl
+               + (cfg.shadow_normal_offset * side)[:, None] * nrm)
+    mirror = np.zeros((n, 3))
+    mirror[surf] = refl
+    return o.astype(np.float32).astype(np.float64), mirror, own
+
+
+def _dense_items(rays, exclude, tris, gid_base, rt, tb, shared_origin):
     """Per (tile, block) of every pair: (valid count, least valid t)."""
     n_tiles, n_blocks = rays.shape[1] // rt, tris.shape[0] // tb
     t_ids = torch.arange(n_tiles).repeat_interleave(n_blocks)
@@ -165,25 +221,43 @@ def _dense_items(rays, exclude, tris, gid_base, rt, tb):
         e = min(s + step, len(t_ids))
         t, valid, _, _ = bsr_trace._pairs(
             rays, exclude, tris, t_ids[s:e], b_ids[s:e], b_ids[s:e],
-            gid_base.long(), rt, tb, True)
+            gid_base.long(), rt, tb, shared_origin)
         hits[s:e] = valid.sum(dim=(1, 2))
         least[s:e] = torch.where(valid, t, float("inf")).amin(dim=(1, 2))
     return hits.reshape(n_tiles, n_blocks), least.reshape(n_tiles, n_blocks)
 
 
 def edge_case_launch(rt: int = 512, tb: int = 64, chunk: int | None = None,
-                     seed: int = 0) -> EdgeCaseLaunch:
-    """The launch, on the CPU (`.to(device)` moves it). `chunk` (default
-    bsr_trace.CHUNK) sizes the heavy tile: more than 4 * chunk items."""
+                     seed: int = 0,
+                     shared_origin: bool = True) -> EdgeCaseLaunch:
+    """The launch, on the CPU (`.to(device)` moves it), in one origin form:
+    shared (pack_tris_origin rows for ORIGIN) or per-ray (static pack_tris
+    rows, origins from `_ray_origins`). `chunk` (default bsr_trace.CHUNK)
+    sizes the heavy tile: more than 4 * chunk items."""
     chunk = bsr_trace.CHUNK if chunk is None else chunk
     rng = np.random.default_rng(seed)
     scene = _two_spheres()
-    static = torch.from_numpy(bsr_trace.pack_tris(scene.bake()))
+    arrays = scene.bake()
+    static = torch.from_numpy(bsr_trace.pack_tris(arrays))
     o = torch.tensor(ORIGIN, dtype=torch.float32)
-    rows = bsr_trace.pack_tris_origin(static, o).numpy()
-    n_scene = rows.shape[0] // tb
     r = N_TILES * rt
-    d = torch.from_numpy(_targets(rng, scene, r).astype(np.float32))
+    if shared_origin:
+        rows = bsr_trace.pack_tris_origin(static, o).numpy()
+        d = _targets(rng, scene, r, np.asarray(ORIGIN))
+        own = np.full(r, -1)
+    else:
+        # Origins from a second stream: the shared form's draws stay as
+        # they are.
+        rows = static.numpy()
+        o_rows, mirror, own = _ray_origins(
+            np.random.default_rng([seed, 1]), arrays, r)
+        d = _targets(rng, scene, r, o_rows)
+        along = (own >= 0) & (np.random.default_rng([seed, 2]).uniform(
+            size=r) < 0.5)
+        d[along] = mirror[along]
+        o = torch.from_numpy(o_rows.T.astype(np.float32)).contiguous()
+    n_scene = rows.shape[0] // tb
+    d = torch.from_numpy(d.astype(np.float32))
     gid_base = torch.tensor([GID_BASE], dtype=torch.int32)
     no_excl = torch.full((r,), -1, dtype=torch.int32)
     rays = bsr_trace.pack_rays_rows(o, d.T.contiguous())
@@ -191,11 +265,11 @@ def edge_case_launch(rt: int = 512, tb: int = 64, chunk: int | None = None,
     # The most-hit scene block, copied: its hits tie at one t with a
     # second id. Then the origin-plane block and an all-zero block.
     hits, _ = _dense_items(rays, no_excl, torch.from_numpy(rows), gid_base,
-                           rt, tb)
+                           rt, tb, shared_origin)
     busy = int(hits.sum(0).argmax())
     dup, plane, zero = n_scene, n_scene + 1, n_scene + 2
     rows = np.concatenate([rows, rows[busy * tb:(busy + 1) * tb],
-                           _origin_plane_block(tb),
+                           _origin_plane_block(tb, shared_origin),
                            np.zeros((tb, 16), np.float32)])
     tris = torch.from_numpy(rows)
     n_blocks = rows.shape[0] // tb
@@ -204,7 +278,7 @@ def edge_case_launch(rt: int = 512, tb: int = 64, chunk: int | None = None,
     every = torch.arange(n_blocks, dtype=torch.int32)
     dense = (torch.arange(N_TILES, dtype=torch.int32).repeat_interleave(
         n_blocks), every.repeat(N_TILES))
-    near_kw = dict(rt=rt, tb=tb, shared_origin=True)
+    near_kw = dict(rt=rt, tb=tb, shared_origin=shared_origin)
     scene_only = dense[1] != plane
     best_t, best_i = bsr_trace.bsr_nearest_ref(
         rays, no_excl, tris, dense[0][scene_only], dense[1][scene_only],
@@ -212,11 +286,12 @@ def edge_case_launch(rt: int = 512, tb: int = 64, chunk: int | None = None,
     hit = torch.isfinite(best_t).numpy()
 
     # Exclusion: a quarter of the rays exclude their own nearest triangle,
-    # a tenth a random id.
+    # a tenth a random id; a ray from a surface, its own triangle.
     u = rng.uniform(size=r)
     excl = np.where((u < 0.25) & hit, best_i.numpy(), -1)
     excl = np.where((u >= 0.25) & (u < 0.35),
                     rng.integers(0, rows.shape[0], r) + GID_BASE, excl)
+    excl = np.where(own >= 0, own + GID_BASE, excl)
     exclude = torch.from_numpy(excl.astype(np.int32))
 
     # t_max: at, below and above the nearest hit; unbounded otherwise.
@@ -240,7 +315,8 @@ def edge_case_launch(rt: int = 512, tb: int = 64, chunk: int | None = None,
     init_hit = ((rng.uniform(size=r) < 0.1) | (tile == 6)).astype(np.int32)
 
     # The work list, tile by tile.
-    hits, least = _dense_items(rays, exclude, tris, gid_base, rt, tb)
+    hits, least = _dense_items(rays, exclude, tris, gid_base, rt, tb,
+                               shared_origin)
     hits, least = hits.numpy(), least.numpy()
     scene_blocks = np.arange(n_scene)
     ranked = lambda t: scene_blocks[np.argsort(-hits[t, :n_scene],
@@ -270,4 +346,4 @@ def edge_case_launch(rt: int = 512, tb: int = 64, chunk: int | None = None,
         block_ids=i32(b_ids), entry=torch.from_numpy(entry),
         count=i32([count]), init_t=torch.from_numpy(init_t),
         init_i=torch.from_numpy(init_i), init_hit=torch.from_numpy(init_hit),
-        gid_base=gid_base, rt=rt, tb=tb)
+        gid_base=gid_base, rt=rt, tb=tb, shared_origin=shared_origin)

@@ -1,5 +1,6 @@
-"""The premise of the shared-origin kernels' chunk grid (csrc/bsr_trace.cu,
-K1 and K2), tested with the plain versions on the CPU.
+"""The premise of the CUDA-core kernels' chunk grid (csrc/bsr_trace.cu: K1
+and K2 with a shared origin, K3n and K3a with per-ray origins), tested with
+the plain versions on the CPU in both origin forms.
 
 The kernels split the work list into consecutive chunks of C items, fold
 each chunk on its own and merge the chunks into the result: nearest hits by
@@ -8,7 +9,8 @@ any-hit flags by OR over init. The merge is order-free, so it must equal
 the whole list's result bit for bit whatever C is. The inputs are
 utils/trace_cases.edge_case_launch's: ties between two ids at one t, hits
 at t = -0.0, tiles without items (which keep init), chunks that straddle
-tiles, slots past count.
+tiles, slots past count; per ray, origins on the spheres' surfaces that
+exclude their own triangle.
 """
 
 import numpy as np
@@ -21,9 +23,11 @@ from distributed_raytracer_tpu_torch.utils import trace_cases
 RT, TB = 256, 64
 
 
-@pytest.fixture(scope="module")
-def launch():
-    return trace_cases.edge_case_launch(RT, TB, chunk=8)
+@pytest.fixture(scope="module", params=[True, False],
+                ids=["shared", "per_ray"])
+def launch(request):
+    return trace_cases.edge_case_launch(RT, TB, chunk=8,
+                                        shared_origin=request.param)
 
 
 def chunk_args(L, s, e):
@@ -83,12 +87,25 @@ def test_edge_case_launch_holds_its_cases(launch):
     assert torch.equal(best_i[~vis], L.init_i[~vis])
     # Hits at t = -0.0 (the origin-plane block, d_z < 0) and at +0.0.
     plane = L.tris.shape[0] // TB - 2
+    shared = L.kwargs["shared_origin"]
     t, valid, _, ray = tbsr._pairs(L.rays, L.exclude, L.tris,
                                    torch.tensor([6]), torch.tensor([plane]),
                                    torch.tensor([plane]), L.gid_base.long(),
-                                   RT, TB, True)
+                                   RT, TB, shared)
     zero = valid & (t == 0)
     assert (zero & torch.signbit(t)).any() and (zero & ~torch.signbit(t)).any()
+    if not shared:
+        # Origins differ, and a share of them sit within the lift of
+        # `_reflect_from` above the triangle they exclude.
+        assert L.rays[0:3].unique(dim=1).shape[1] > L.rays.shape[1] // 2
+        n_tris = (plane - 1) * TB                # the scene's rows
+        own = L.exclude.long() - int(L.gid_base)
+        mine = (own >= 0) & (own < n_tris)
+        row = L.tris[own[mine]]
+        o = L.rays[0:3, mine].T
+        gap = ((row[:, 0:3] * o).sum(1) - row[:, 3]).abs() / row[:, 0:3].norm(
+            dim=1)
+        assert int((gap <= 2e-3).sum()) > L.rays.shape[1] // 5
     # Ties: the copied block's hits equal the original's to the bit.
     dup = plane - 1
     src = np.nonzero((L.tris[dup * TB:(dup + 1) * TB] ==
@@ -99,7 +116,7 @@ def test_edge_case_launch_holds_its_cases(launch):
                                L.tris, torch.tensor([2, 2]),
                                torch.tensor([int(src[0]), dup]),
                                torch.tensor([int(src[0]), dup]),
-                               L.gid_base.long(), RT, TB, True)
+                               L.gid_base.long(), RT, TB, shared)
     assert vv[0].any() and torch.equal(torch.where(vv[0], tt[0], 0.0),
                                        torch.where(vv[1], tt[1], 0.0))
     # The heavy tile lists the copy first; where a ray does not exclude the

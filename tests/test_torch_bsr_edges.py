@@ -1,6 +1,8 @@
-"""The shared-origin traversal on hard inputs (utils/trace_cases): rays
-aimed exactly at shared vertices and edges, grazing rays, dead rays, zero
-padding rows, ties, t = -0.0, exclusion, finite seeds, t_max at the hit.
+"""The traversal on hard inputs (utils/trace_cases) in both origin forms:
+rays aimed exactly at shared vertices and edges, grazing rays, dead rays,
+zero padding rows, ties, t = -0.0, exclusion, finite seeds, t_max at the
+hit; per ray, origins spread about the eye and on the spheres' surfaces,
+each of those excluding its own triangle.
 
 On the CPU the port's plain versions (bsr_nearest_ref, bsr_any_ref) are
 held against the JAX package's Pallas kernels in interpret mode, as
@@ -17,13 +19,21 @@ ray's live items, counts them and bounds them:
   - a grazing hit no farther than that, whose den = n.d cancels so far
     (sum |n_i d_i| > 2^23 * 1e-6 |den|) that t itself is uncertain beyond
     rtol 1e-6.
+With per-ray origins the origin dots are summed inside the pair math too,
+so the finder also counts a numerator w - n.o that cancels as den does,
+and widens the barycentric band by ORIGIN_ULPS ulps of the origin dots'
+terms (sum |k_i o_i|).
 On every other ray of the visited tiles, ids and any-hit flags must be
 equal and t must agree to rtol 1e-6. Every list holds far fewer than the
-16,384 items past which the JAX reference loses results.
+16,384 items past which the JAX reference loses results; the per-ray
+launches stay at rt = 256 (8 tiles) to keep the interpret-mode runs short.
 
-On a card (`cuda` marker), K1 and K2 must equal the plain versions bit for
-bit on the same inputs at every ray tile and triangle block they take.
+On a card (`cuda` marker), K1, K2, K3n and K3a must equal the plain
+versions bit for bit on the same inputs at every ray tile and triangle
+block they take.
 """
+
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -41,6 +51,9 @@ SHAKY = RTOL * 2.0 ** 23
 # At most this share of the visited rays may be set aside: the launch aims
 # about half its rays at vertices and edges on purpose.
 AMBIGUOUS_SHARE = 0.4
+# Ulps of the origin dots' terms by which FMA contraction may move a
+# per-ray u or v (a few roundings, each up to half an ulp of a term).
+ORIGIN_ULPS = 4
 
 
 def ambiguous(L):
@@ -50,7 +63,7 @@ def ambiguous(L):
     r = L.rays.shape[1]
     n = int(L.count)
     tris = L.tris.reshape(-1, tb, 16)
-    d = L.rays[3:6].T
+    o, d = L.rays[0:3].T, L.rays[3:6].T
     near = torch.zeros(r, dtype=torch.bool)
     any_hit = torch.zeros(r, dtype=torch.bool)
     tile_ids = L.tile_ids[:n]
@@ -61,24 +74,34 @@ def ambiguous(L):
                + torch.arange(tb)).reshape(-1)
         sl = slice(tile * rt, (tile + 1) * rt)
 
-        def dot(c0):                                          # (rt, P)
-            k = tr[None, :, c0:c0 + 3] * d[sl, None, :]
+        def dot(c0, x):                                       # (rt, P)
+            k = tr[None, :, c0:c0 + 3] * x[sl, None, :]
             return k[..., 0] + k[..., 1] + k[..., 2], k.abs().sum(-1)
 
-        den, den_abs = dot(0)
-        kud, _ = dot(4)
-        kvd, _ = dot(8)
-        t = tr[None, :, 3] / den
-        u = tr[None, :, 7] + t * kud
-        v = tr[None, :, 11] + t * kvd
+        den, den_abs = dot(0, d)
+        kud, _ = dot(4, d)
+        kvd, _ = dot(8, d)
+        num, au, av = tr[None, :, 3], tr[None, :, 7], tr[None, :, 11]
+        num_abs, slack = num.abs(), 0.0
+        if not L.kwargs["shared_origin"]:                     # per-ray o
+            o_n, on_abs = dot(0, o)
+            o_u, ou_abs = dot(4, o)
+            o_v, ov_abs = dot(8, o)
+            num_abs = num_abs + on_abs
+            num, au, av = num - o_n, o_u + au, o_v + av
+            slack = ORIGIN_ULPS * 2.0 ** -24 * (ou_abs + ov_abs)
+        t = num / den
+        u = au + t * kud
+        v = av + t * kvd
         uv = u + v
         valid = ((den != 0) & (t >= 0) & (u >= -EPS) & (u <= 1 + EPS)
                  & (uv >= -EPS) & (uv <= 1 + EPS) & (v >= -EPS)
                  & (gid[None, :] != L.exclude[sl, None]))
         margin = torch.stack([u + EPS, 1 + EPS - u, v + EPS, uv + EPS,
                               1 + EPS - uv]).abs().amin(0)
-        edge = (margin <= RTOL) & (t >= 0)
-        shaky = valid & (den_abs > SHAKY * den.abs())
+        edge = (margin <= RTOL + slack) & (t >= 0)
+        shaky = valid & ((den_abs > SHAKY * den.abs())
+                         | (num_abs > SHAKY * num.abs()))
         best = torch.where(valid, t, float("inf")).amin(1)
         seed = L.init_t[sl]
         m = torch.minimum(best, seed)[:, None]
@@ -94,16 +117,16 @@ def ambiguous(L):
     return near, any_hit
 
 
-@pytest.mark.parametrize("exit_every", [0, 32])
-@pytest.mark.parametrize("rt,tb", [(256, 64), (512, 128)])
-def test_edge_cases_match_pallas(rt, tb, exit_every):
-    L = trace_cases.edge_case_launch(rt, tb)
+def check_against_pallas(L, exit_every):
+    """The plain versions against the Pallas kernels in interpret mode on
+    one launch, ambiguous rays set aside; returns the set-aside shares
+    (nearest, any hit) of the visited rays."""
     n = int(L.count)
     j = lambda a: jnp.asarray(a.numpy())
     common = (j(L.rays), j(L.exclude), j(L.tris), j(L.tile_ids),
               j(L.block_ids), j(L.entry), jnp.int32(n))
-    static = dict(rt=rt, tb=tb, w_pad=len(L.tile_ids), interpret=True,
-                  shared_origin=True, exit_every=exit_every)
+    static = dict(L.kwargs, w_pad=len(L.tile_ids), interpret=True,
+                  exit_every=exit_every)
     wt, wi = jbsr.bsr_nearest(*common, j(L.init_t), j(L.init_i),
                               jnp.int32(int(L.gid_base)), **static)
     wa = jbsr.bsr_any(*common, j(L.init_hit), jnp.int32(int(L.gid_base)),
@@ -117,10 +140,12 @@ def test_edge_cases_match_pallas(rt, tb, exit_every):
     vis = L.visited().numpy()
     near, any_hit = (a.numpy() for a in ambiguous(L))
     n_vis = vis.sum()
+    shares = []
     for name, amb in (("nearest", near), ("any hit", any_hit)):
         print(f"{name}: {(amb & vis).sum()} of {n_vis} visited rays set "
               "aside")
         assert (amb & vis).sum() <= AMBIGUOUS_SHARE * n_vis, name
+        shares.append((amb & vis).sum() / n_vis)
     keep = vis & ~near
     np.testing.assert_array_equal(gi[keep], wi[keep])
     fin = np.isfinite(wt[keep])
@@ -132,30 +157,49 @@ def test_edge_cases_match_pallas(rt, tb, exit_every):
     # The inputs do hit, miss and shadow.
     assert 0.2 < fin.mean() < 0.95
     assert 0 < ga[keep].sum() < keep.sum()
+    return shares
+
+
+@pytest.mark.parametrize("exit_every", [0, 32])
+@pytest.mark.parametrize("rt,tb", [(256, 64), (512, 128)])
+def test_edge_cases_match_pallas(rt, tb, exit_every):
+    check_against_pallas(trace_cases.edge_case_launch(rt, tb), exit_every)
+
+
+@pytest.mark.parametrize("exit_every", [0, 32])
+@pytest.mark.parametrize("tb", [64, 128])
+def test_per_ray_edge_cases_match_pallas(tb, exit_every):
+    """K3n/K3a's plain versions (per-ray origins, static rows) against the
+    Pallas kernels with shared_origin=False."""
+    L = trace_cases.edge_case_launch(256, tb, shared_origin=False)
+    check_against_pallas(L, exit_every)
 
 
 @pytest.mark.cuda
 def test_cuda_kernels_match_plain_versions_on_edge_cases():
-    """On a card: K1 and K2 equal their plain versions bit for bit, with and
-    without the front-to-back skip, at every rt and tb; one count each."""
+    """On a card: K1 and K2 (shared origin) and K3n and K3a (per-ray
+    origins) equal their plain versions bit for bit, with and without the
+    front-to-back skip, at every rt and tb; one count each."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
-    for rt in (256, 512, 1024):
-        for tb in (64, 128):
-            L = trace_cases.edge_case_launch(rt, tb).to("cuda")
-            for exit_every in (0, 32):
-                kw = dict(L.kwargs, exit_every=exit_every)
-                before = dict(tbsr.LAUNCHES)
-                gt, gi = tbsr.bsr_nearest(*L.nearest_args(), **kw)
-                ga = tbsr.bsr_any(*L.any_args(), **kw)
-                assert tbsr.LAUNCHES == dict(
-                    before, bsr_nearest=before["bsr_nearest"] + 1,
-                    bsr_any=before["bsr_any"] + 1)
-                wt, wi = tbsr.bsr_nearest_ref(*L.nearest_args(), **kw)
-                wa = tbsr.bsr_any_ref(*L.any_args(), **kw)
-                torch.cuda.synchronize()
-                case = (rt, tb, exit_every)
-                assert torch.equal(gt.view(torch.int32),
-                                   wt.view(torch.int32)), case
-                assert torch.equal(gi, wi), case
-                assert torch.equal(ga, wa), case
+    for rt, tb, shared in itertools.product((256, 512, 1024), (64, 128),
+                                            (True, False)):
+        L = trace_cases.edge_case_launch(rt, tb,
+                                         shared_origin=shared).to("cuda")
+        near = tbsr.launch_key("bsr_nearest", shared)
+        any_key = tbsr.launch_key("bsr_any", shared)
+        for exit_every in (0, 32):
+            kw = dict(L.kwargs, exit_every=exit_every)
+            before = dict(tbsr.LAUNCHES)
+            gt, gi = tbsr.bsr_nearest(*L.nearest_args(), **kw)
+            ga = tbsr.bsr_any(*L.any_args(), **kw)
+            assert tbsr.LAUNCHES == dict(before, **{
+                near: before[near] + 1, any_key: before[any_key] + 1})
+            wt, wi = tbsr.bsr_nearest_ref(*L.nearest_args(), **kw)
+            wa = tbsr.bsr_any_ref(*L.any_args(), **kw)
+            torch.cuda.synchronize()
+            case = (rt, tb, shared, exit_every)
+            assert torch.equal(gt.view(torch.int32),
+                               wt.view(torch.int32)), case
+            assert torch.equal(gi, wi), case
+            assert torch.equal(ga, wa), case

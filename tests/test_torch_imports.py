@@ -10,7 +10,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = ["ops.render", "ops.intersect", "ops.shade", "ops.colour",
            "ops.raygen", "ops.ring_trace", "ops.bsr_trace", "parallel",
            "parallel.mesh", "parallel.tile", "parallel.render_sharded",
-           "parallel.ring", "run", "utils.trace_cases"]
+           "parallel.ring", "run", "utils.trace_cases", "tools.kernel_ab",
+           "tools.merge_cost", "tools.sass_loops"]
 
 CHECK = """
 import importlib, pkgutil, sys
