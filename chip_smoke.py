@@ -86,12 +86,22 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      its own compute and copy streams).
      4a. K6 and K7 (the ring step kernels) against ring_nearest_ref and
      ring_any_ref on the frame's own primary and shadow rays (recorded from
-     one use_rdma=True frame), for n = 1, 2 and 4 ranks: torch.equal on
-     every rank. At n = 4: the kernel transport per query against the plain
-     version (median of 10 synchronized calls; the plain version's compared
-     call), and from a torch.profiler trace
-     of one query the kernel time of one step, the copy time of one step
-     and the share of copy time that ran under a kernel.
+     one use_rdma=True frame), for n = 1, 2 and 4 ranks: bit for bit on
+     every rank (t compared as int32), with the blocks per step launch,
+     the tiles whose rays share an origin (K6 folds it into the staged
+     rows) and the share of K7's rays with t_max = 0 (the shadow rays of
+     primary misses). K6 also on the primary rays with one ray per tile
+     nudged off the camera by one ulp (no tile shares an origin: the
+     per-ray branch). At n = 4: the kernel transport per query against the
+     plain version (median of 10 synchronized calls; the plain version's
+     compared call), K6's share of its bound (21 operations per pair on
+     tiles that share an origin, 39 elsewhere) and of the 39-operation
+     bound, the frame rays against the nudged ones in turns, and from a
+     torch.profiler trace of one query the kernel time of one step, the
+     copy time of one step and the share of copy time that ran under a
+     kernel. Then K6 and K7 on utils/trace_cases.ring_edge_case over 2
+     ranks, per-ray origins and all rays from one origin (ties between two
+     ids at one t, hits at t = +-0.0, exclusion, misses): bit for bit.
      4b. render_frame (dense, one device), then make_ring_renderer over 4
      ranks with use_rdma=True and use_rdma=False, each held to the ring
      tests' bound against the dense frame (max-channel diff > 2/255 on
@@ -279,13 +289,14 @@ def print_ptxas(log: str) -> None:
             k = re.search(r"(nearest|any)_chunk_kernelILi(\d+)ELb([01])E",
                           m.group(1))
             x = re.search(r"(nearest|any)_mxu_kernelILi(\d+)E", m.group(1))
-            g = re.search(r"ring_step_kernelILi(\d+)ELb([01])E", m.group(1))
+            g = re.search(r"ring_(nearest|any)_chunksILi(\d+)E", m.group(1))
+            rk = re.search(r"ring_(seed|unpack)_keys", m.group(1))
             e = re.search(r"\d(seed_keys|unpack_keys)ILb([01])E", m.group(1))
             name = (f"{k.group(1)}_chunk_kernel<RPT={k.group(2)}, shared="
                     f"{b(k.group(3))}>" if k
                     else f"{x.group(1)}_mxu_kernel<NT={x.group(2)}>" if x
-                    else f"ring_step_kernel<RPT={g.group(1)}, any="
-                         f"{b(g.group(2))}>" if g
+                    else f"ring_{g.group(1)}_chunks<RPT={g.group(2)}>" if g
+                    else rk.group(0) if rk
                     else f"{e.group(1)}<shared={b(e.group(2))}>" if e
                     else m.group(1))
             spill = ""
@@ -956,12 +967,11 @@ def record_ring(render, cam, ring_trace) -> dict:
 
 
 def outputs_equal(got, want) -> bool:
-    """Per-rank lists (or tuples of lists) of tensors, all torch.equal."""
-    import torch
-
+    """Per-rank lists (or tuples of lists) of tensors, all torch.equal,
+    float32 compared as int32 (so -0.0 and +0.0 differ)."""
     if isinstance(got, tuple):
         return all(outputs_equal(g, w) for g, w in zip(got, want))
-    return all(bool(torch.equal(g, w)) for g, w in zip(got, want))
+    return all(bits_equal(g, w) for g, w in zip(got, want))
 
 
 def ring_trace_profile(fn):
@@ -981,8 +991,8 @@ def ring_trace_profile(fn):
         with open(path) as f:
             events = json.load(f).get("traceEvents", [])
     kernels = [(e["ts"], e["ts"] + e["dur"]) for e in events
-               if e.get("cat") == "kernel" and "ring_step_kernel" in
-               e.get("name", "")]
+               if e.get("cat") == "kernel"
+               and re.search(r"ring_(nearest|any)_chunks", e.get("name", ""))]
     copies = [(e["ts"], e["ts"] + e["dur"]) for e in events
               if e.get("cat") == "gpu_memcpy"]
     if not kernels:
@@ -1005,9 +1015,77 @@ def ring_trace_profile(fn):
     return k_ms, c_ms, share, len(kernels), len(copies)
 
 
+def shared_origin_tiles(rays, rt: int):
+    """(tiles,) bool: every ray of the tile has the tile's first ray's
+    origin, bit for bit (K6's vote, csrc/ring_trace.cu)."""
+    import torch
+
+    o = rays[0:3].view(torch.int32).reshape(3, -1, rt)
+    return (o == o[:, :, :1]).all(dim=2).all(dim=0)
+
+
+def nudged(rays, rt: int):
+    """The rays with one ray per tile (a different lane in each) moved off
+    the tile's origin by one ulp of x: no tile's vote holds."""
+    import torch
+
+    x = rays.clone()
+    tiles = x.shape[1] // rt
+    idx = (torch.arange(tiles, device=x.device) * rt
+           + torch.arange(tiles, device=x.device) % rt)
+    x[0, idx] = torch.nextafter(x[0, idx], torch.full_like(x[0, idx],
+                                                           float("inf")))
+    return x
+
+
+def ring_step_blocks(rays, tris, rt: int, chunk: int) -> int:
+    """Blocks of one rank's step launch: (ray tile, 128-row block) items
+    over `chunk` items per block."""
+    items = (rays.shape[1] // rt) * (tris.shape[0] // 128)
+    return -(-items // chunk)
+
+
+def ring_bound(name: str, args, kwargs):
+    """(bound ms, "operations" or "bytes", the 39-operation bound ms,
+    pairs) of one ring query: every resident ray against every shard's
+    triangles, 21 operations per pair for K6 tiles whose rays share an
+    origin (the fold) and 39 otherwise; inputs read once, outputs written
+    once."""
+    rays, tris, rt = args[1], args[2], kwargs["rt"]
+    t_all = sum(x.shape[0] for x in tris)
+    pairs = sum(x.shape[1] for x in rays) * t_all
+    shared = (sum(int(shared_origin_tiles(x, rt).sum()) for x in rays) * rt
+              * t_all if name == "ring_nearest" else 0)
+    ops_ms = lambda p, form: p * OPS_PER_PAIR[form] / PEAK_FP32 * 1e3
+    out_bytes = sum(x.shape[1] for x in rays) * (
+        8 if name == "ring_nearest" else 4)
+    mem = (tensor_bytes(args[1:4]) + out_bytes) / PEAK_BYTES * 1e3
+    ops = ops_ms(shared, True) + ops_ms(pairs - shared, False)
+    bound, by = (ops, "operations") if ops >= mem else (mem, "bytes")
+    return bound, by, ops_ms(pairs, False), pairs
+
+
+def check_ring(ring_trace, name: str, args, kwargs, what: str):
+    """One ring query, kernel against plain version on the same inputs,
+    every output bit for bit; returns (the plain outputs, plain ms)."""
+    import torch
+
+    got = getattr(ring_trace, name)(*args, **kwargs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = getattr(ring_trace, name + "_ref")(*args, **kwargs)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(outputs_equal(got, want),
+          f"{name} ({what}) differs from its plain version")
+    return want, plain_ms
+
+
 def phase_ring_kernels(grid, ring_trace):
     """Phase 4a: K6 and K7 against their plain versions on the frame's own
-    rays for n = 1, 2, 4 ranks on cuda:0; timed at n = RING_N."""
+    rays for n = 1, 2, 4 ranks on cuda:0, K6 also on the primary rays with
+    one ray per tile nudged (the per-ray branch); timed at n = RING_N; then
+    the edge cases over 2 ranks."""
     import torch
 
     arrays = grid.bake()
@@ -1019,25 +1097,27 @@ def phase_ring_kernels(grid, ring_trace):
         for name in RING_WRAPPERS:
             args, kwargs = seen[name]
             kernel = getattr(ring_trace, name)
-            plain = getattr(ring_trace, name + "_ref")
-            got = kernel(*args, **kwargs)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            want = plain(*args, **kwargs)
-            torch.cuda.synchronize()
-            plain_ms = (time.perf_counter() - t0) * 1e3
-            check(outputs_equal(got, want),
-                  f"{name} (n={n}) differs from its plain version")
-            rays = args[1]
+            want, plain_ms = check_ring(ring_trace, name, args, kwargs,
+                                        f"n={n}")
+            rays, rt = args[1], kwargs["rt"]
             hits = (sum(int(torch.isfinite(t).sum()) for t in want[0])
                     if name == "ring_nearest"
                     else sum(int(h.sum()) for h in want))
+            shared = sum(int(shared_origin_tiles(x, rt).sum()) for x in rays)
             line = (f"[phase 4a] {KERNELS[name][0]} {name} n={n}: "
                     f"{n} x R_loc={rays[0].shape[1]} rays, T_loc="
-                    f"{args[2][0].shape[0]}, rt={kwargs['rt']}; torch.equal "
-                    f"to the plain version on every rank; "
-                    f"{'hits' if name == 'ring_nearest' else 'occluded'} "
-                    f"{hits}")
+                    f"{args[2][0].shape[0]}, rt={rt}; "
+                    f"{ring_step_blocks(rays[0], args[2][0], rt, ring_trace.CHUNK)}"
+                    f" blocks per step launch (chunk {ring_trace.CHUNK}); "
+                    f"{shared} of {n * rays[0].shape[1] // rt} tiles share "
+                    f"an origin; bit-equal to the plain version on every "
+                    f"rank; {'hits' if name == 'ring_nearest' else 'occluded'}"
+                    f" {hits}")
+            if name == "ring_any":
+                zero = sum(int((x[6] == 0).sum()) for x in rays)
+                total = sum(x.shape[1] for x in rays)
+                line += (f"; rays with t_max = 0: {zero} of {total} "
+                         f"({zero / total:.2%})")
             if n == RING_N:
                 ms = time_ms(lambda: kernel(*args, **kwargs), repeats=10)
                 prof = ring_trace_profile(lambda: kernel(*args, **kwargs))
@@ -1049,24 +1129,72 @@ def phase_ring_kernels(grid, ring_trace):
                     line += (f"; step kernel {k_ms:.4f} ms (mean of {nk}), "
                              f"step copy {c_ms:.4f} ms (mean of {nc}), "
                              f"{share:.1%} of copy time under a kernel")
-                # Every resident ray against every shard's triangles.
-                pairs = (sum(x.shape[1] for x in rays)
-                         * sum(x.shape[0] for x in args[2]))
-                out_bytes = sum(x.shape[1] for x in rays) * (
-                    8 if name == "ring_nearest" else 4)
-                b_ms, b_by = bound_ms(pairs, False, tensor_bytes(args[1:4])
-                                      + out_bytes)
+                b_ms, b_by, b39, pairs = ring_bound(name, args, kwargs)
                 line += (f"; transport {ms:.3f} ms per query (median of 10),"
                          f" plain {plain_ms:.3f} ms (the compared call); "
                          f"{pairs / 1e9:.3f} G pairs, bound {b_ms:.4f} ms "
-                         f"({b_by}), {b_ms / ms:.2%} of it")
+                         f"({b_by}), {b_ms / ms:.2%} of it; 39-operation "
+                         f"bound {b39:.4f} ms, {b39 / ms:.2%} of it")
                 results[name] = {"max_abs_err": 0.0, "ms": ms,
                                  "plain_ms": plain_ms, "bound_ms": b_ms,
                                  "bound_by": b_by,
                                  "share_of_bound": b_ms / ms,
                                  "library_ms": None}
             print(line)
+        # The per-ray branch: no tile of these rays shares an origin.
+        args, kwargs = seen["ring_nearest"]
+        moved = [nudged(x, kwargs["rt"]) for x in args[1]]
+        check(not any(bool(shared_origin_tiles(x, kwargs["rt"]).any())
+                      for x in moved), "a nudged tile still shares an origin")
+        moved_args = (args[0], moved) + tuple(args[2:])
+        check_ring(ring_trace, "ring_nearest", moved_args, kwargs,
+                   f"n={n}, one ray per tile nudged")
+        line = (f"[phase 4a] K6 ring_nearest n={n}, one ray per tile "
+                f"nudged (no tile shares an origin): bit-equal to the plain "
+                f"version on every rank")
+        if n == RING_N:
+            fold = lambda: ring_trace.ring_nearest(*args, **kwargs)
+            rays_form = lambda: ring_trace.ring_nearest(*moved_args, **kwargs)
+            f1, p1 = time_ms(fold, repeats=10), time_ms(rays_form, repeats=10)
+            p2, f2 = time_ms(rays_form, repeats=10), time_ms(fold, repeats=10)
+            line += (f"; per query, medians of 10 in turns: frame rays "
+                     f"(folded) {f1:.3f} / {f2:.3f} ms, nudged (per-ray) "
+                     f"{p1:.3f} / {p2:.3f} ms")
+        print(line)
+    phase_ring_edge_cases(ring_trace)
     return results
+
+
+def phase_ring_edge_cases(ring_trace) -> None:
+    """Phase 4a: K6 and K7 on utils/trace_cases.ring_edge_case over 2 ranks
+    on cuda:0, per-ray origins and all rays from one origin: ties between
+    two ids at one t, hits at t = +-0.0, exclusion, misses, dead rays; bit
+    for bit."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
+    from distributed_raytracer_tpu_torch.utils import trace_cases
+
+    n, rt = 2, 128
+    ranks = mesh_mod.Ranks(["cuda:0"] * n)
+    split = lambda x, dim: [p.contiguous().to("cuda:0")
+                            for p in torch.chunk(x, n, dim=dim)]
+    for shared in (False, True):
+        rays, tris, excl = trace_cases.ring_edge_case(n, rt,
+                                                      shared_origin=shared)
+        args = (ranks, split(rays, 1), split(tris, 0), split(excl, 0))
+        what = f"edge cases, {'one origin' if shared else 'per-ray origins'}"
+        (wt, wi), _ = check_ring(ring_trace, "ring_nearest", args,
+                                 {"rt": rt}, what)
+        hit, _ = check_ring(ring_trace, "ring_any", args, {"rt": rt}, what)
+        t = torch.cat(wt)
+        print(f"[phase 4a] K6 and K7, {what}, n={n}: R={rays.shape[1]} "
+              f"T={tris.shape[0]}; {int(torch.isfinite(t).sum())} hits, "
+              f"{int((t == 0).sum())} at t = 0, "
+              f"{int(sum(int(h.sum()) for h in hit))} occluded; "
+              f"{sum(int(shared_origin_tiles(x, rt).sum()) for x in args[1])}"
+              f" of {rays.shape[1] // rt} tiles share an origin; bit-equal "
+              f"to the plain versions on every rank")
 
 
 def phase_ring_frames(grid, ring_trace):

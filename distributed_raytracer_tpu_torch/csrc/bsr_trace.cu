@@ -65,11 +65,11 @@
 #include <math.h>
 #include <stdint.h>
 
-#include "pair_math.cuh"  // kEps, kOneEps, pair_math<kShared>
+#include "chunk_grid.cuh"  // kThreads, make_key, stage_async, ...
+#include "pair_math.cuh"   // kEps, kOneEps, pair_math<kShared>
 
 namespace {
 
-constexpr int kThreads = 128;
 constexpr float kExitSlack = (float)1e-4;  // guards f32 interval math
 
 // What every launch takes besides its accumulators.
@@ -190,27 +190,6 @@ __device__ void find_run(const WorkArgs& p, int tile, int* run) {
 
 constexpr int kElemThreads = 256;  // seed_keys, unpack_keys
 
-// The plain version's key: (bits(t + 0.0) << 32) | id, the id sign-extended
-// as torch's int64 cast does. For t >= 0 or inf and 0 <= id < 2^31 it
-// orders pairs as (t, id) lexicographically; adding 0.0 turns -0.0 into
-// +0.0, which compare equal.
-__device__ __forceinline__ long long make_key(float t, int id) {
-  const unsigned long long hi =
-      (unsigned long long)(unsigned)__float_as_int(__fadd_rn(t, 0.0f)) << 32;
-  return (long long)(hi | (unsigned long long)(long long)id);
-}
-
-// A key's halves as (t, id) registers, and back, bit for bit.
-__device__ __forceinline__ void split_key(long long k, float* t, int* id) {
-  *t = __int_as_float((int)((unsigned long long)k >> 32));
-  *id = (int)(unsigned)k;
-}
-
-__device__ __forceinline__ long long join_key(float t, int id) {
-  return (long long)(((unsigned long long)(unsigned)__float_as_int(t) << 32) |
-                     (unsigned)id);
-}
-
 // seed_keys and unpack_keys do the same work in both origin forms; each
 // form has its own instantiation so that a profile books them to the query
 // (K1 or K3n) that issued them.
@@ -228,26 +207,6 @@ __global__ void unpack_keys(const long long* __restrict__ keys,
                             int* __restrict__ out_i, int64_t n) {
   const int64_t r = (int64_t)blockIdx.x * kElemThreads + threadIdx.x;
   if (r < n) split_key(keys[r], out_t + r, out_i + r);
-}
-
-// Issues the 16-byte copies of triangle block `block` (tb rows of four
-// float4) into a ring slot as one commit group.
-__device__ __forceinline__ void stage_async(const float4* __restrict__ tris,
-                                            int block, int tb, float4* slot) {
-  const float4* src = tris + (int64_t)block * tb * 4;
-  for (int k = threadIdx.x; k < tb * 4; k += kThreads) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(slot + k);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
-                 "l"(src + k)
-                 : "memory");
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits for this thread's copies; the __syncthreads that follows makes
-// every thread's copies visible.
-__device__ __forceinline__ void wait_staged() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 // A block's chunk of live items [lo, hi); empty past count.

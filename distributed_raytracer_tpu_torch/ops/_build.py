@@ -2,7 +2,8 @@
 
 Each source is compiled by `nvcc` into a shared library with a plain C
 interface and loaded with ctypes: csrc/bsr_trace.cu (K1-K5) and
-csrc/ring_trace.cu (K6, K7), both including csrc/pair_math.cuh. The
+csrc/ring_trace.cu (K6, K7), both including csrc/pair_math.cuh and
+csrc/chunk_grid.cuh. The
 library lands in distributed_raytracer_tpu_torch/_build/ (listed in
 .gitignore) under a name keyed by a hash of the source, the shared headers
 and the flags, so an edited source rebuilds and an unchanged one loads the
@@ -54,10 +55,12 @@ _SIGNATURES = {
         "drt_cuda_error_string": (ctypes.c_char_p, [_i32]),
     },
     "ring_trace": {
+        "drt_ring_seed_keys": (_i32, [_p, _i64, _i32, _p]),
         "drt_ring_nearest_step": (_i32, [_p, _i64, _p, _p, _i32, _i32, _p,
-                                         _p, _i32, _i32, _p]),
+                                         _i32, _i32, _i32, _p]),
+        "drt_ring_unpack_keys": (_i32, [_p, _p, _p, _i64, _i32, _p]),
         "drt_ring_any_step": (_i32, [_p, _i64, _p, _p, _i32, _i32, _p, _i32,
-                                     _i32, _p]),
+                                     _i32, _i32, _p]),
         "drt_cuda_error_string": (ctypes.c_char_p, [_i32]),
     },
 }

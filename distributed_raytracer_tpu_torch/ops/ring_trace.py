@@ -5,7 +5,11 @@ The counterparts of distributed_raytracer_tpu/ops/pallas/ring_trace.py's
 `ring_nearest` and `ring_any` (K6 and K7). Each has two implementations of
 its step, over ONE rotation:
   - a CUDA kernel written for Hopper (csrc/ring_trace.cu, built on first use
-    by ops/_build.py), launched once per rank and ring step for CUDA ranks;
+    by ops/_build.py), launched once per rank and ring step for CUDA ranks
+    on a grid over chunks of CHUNK (ray tile, 128-row block) items; K6
+    merges the steps through a per-rank int64 key scratch, seeded once
+    before the rank's first step and unpacked once after its last, K7
+    through the rank's flags;
   - a plain PyTorch version of the step (`ring_nearest_ref`, `ring_any_ref`;
     the dense sweep of ops/bsr_trace.py's plain versions), used for CPU
     ranks and as the reference the kernels are held against on the card.
@@ -46,10 +50,14 @@ BIG_IDX = bsr_trace.BIG_IDX
 # Triangle rows per block of the plain step's dense work list (the JAX
 # kernel's tb); shards hold a multiple of it.
 TB = 128
+# (ray tile, TB-row block) items per block of the step kernels' grid
+# (csrc/ring_trace.cu); chosen on the H100 (PERF.md).
+CHUNK = 2
 
-# Kernel launches per wrapper (one per rank and ring step). Incremented only
-# where the CUDA kernel is launched, never by the plain versions; a caller
-# resets them to 0 to count the launches of one run.
+# Kernel launches per wrapper (one chunk launch per rank and ring step; K6's
+# seed and unpack launches, one each per rank and query, are not counted).
+# Incremented only where the CUDA kernel is launched, never by the plain
+# versions; a caller resets them to 0 to count the launches of one run.
 LAUNCHES = {"ring_nearest": 0, "ring_any": 0}
 
 
@@ -130,22 +138,32 @@ def _rotate(ranks: mesh_mod.Ranks, tris: Sequence[torch.Tensor], step):
 
 def _nearest(ranks, rays, tris, exclude, rt, kernel: bool):
     excl, t_loc = _prepare(ranks, rays, tris, exclude, rt)
-    acc = []
+    lib = _build.load_library("ring_trace") if kernel else None
+    acc, keys = [], []
     for r in range(ranks.n):
         with ranks.on(r):
-            r_loc = rays[r].shape[1]
-            acc.append((torch.full((r_loc,), float("inf"),
-                                   device=ranks.mesh[r]),
-                        torch.full((r_loc,), BIG_IDX, dtype=torch.int32,
-                                   device=ranks.mesh[r])))
+            r_loc, dev = rays[r].shape[1], ranks.mesh[r]
+            if kernel:
+                # The kernel's int64 key per ray, seeded with (inf, BIG_IDX)
+                # on the rank's compute stream; acc is unpacked at the end.
+                keys.append(torch.empty((r_loc,), dtype=torch.int64,
+                                        device=dev))
+                _build.launch("ring_trace", lib.drt_ring_seed_keys,
+                              _ptr(keys[r], 8), r_loc, *_stream(rays[r]))
+                acc.append((torch.empty((r_loc,), device=dev),
+                            torch.empty((r_loc,), dtype=torch.int32,
+                                        device=dev)))
+            else:
+                acc.append((torch.full((r_loc,), float("inf"), device=dev),
+                            torch.full((r_loc,), BIG_IDX, dtype=torch.int32,
+                                       device=dev)))
 
     def step(r, slot, gid_base):
         acc_t, acc_i = acc[r]
         if kernel:
-            lib = _build.load_library("ring_trace")
             _build.launch("ring_trace", lib.drt_ring_nearest_step,
                           *_step_args(rays[r], excl[r], slot, gid_base),
-                          _ptr(acc_t), _ptr(acc_i), rt, *_stream(rays[r]))
+                          _ptr(keys[r], 8), rt, CHUNK, *_stream(rays[r]))
             LAUNCHES["ring_nearest"] += 1
             return
         t_ids, b_ids, count, base = _dense_worklist(rays[r], slot, gid_base,
@@ -157,11 +175,19 @@ def _nearest(ranks, rays, tris, exclude, rt, kernel: bool):
         acc_i.copy_(best_i)
 
     _rotate(ranks, tris, step)
+    if kernel:
+        for r in range(ranks.n):
+            with ranks.on(r):
+                _build.launch("ring_trace", lib.drt_ring_unpack_keys,
+                              _ptr(keys[r], 8), _ptr(acc[r][0]),
+                              _ptr(acc[r][1]), rays[r].shape[1],
+                              *_stream(rays[r]))
     return [a[0] for a in acc], [a[1] for a in acc]
 
 
 def _any(ranks, rays, tris, exclude, rt, kernel: bool):
     excl, t_loc = _prepare(ranks, rays, tris, exclude, rt)
+    lib = _build.load_library("ring_trace") if kernel else None
     acc = []
     for r in range(ranks.n):
         with ranks.on(r):
@@ -170,10 +196,9 @@ def _any(ranks, rays, tris, exclude, rt, kernel: bool):
 
     def step(r, slot, gid_base):
         if kernel:
-            lib = _build.load_library("ring_trace")
             _build.launch("ring_trace", lib.drt_ring_any_step,
                           *_step_args(rays[r], excl[r], slot, gid_base),
-                          _ptr(acc[r]), rt, *_stream(rays[r]))
+                          _ptr(acc[r]), rt, CHUNK, *_stream(rays[r]))
             LAUNCHES["ring_any"] += 1
             return
         t_ids, b_ids, count, base = _dense_worklist(rays[r], slot, gid_base,

@@ -1,8 +1,10 @@
 """Time the traversal kernels and the frames of this tree against another
-tree's, in turns, on one CUDA card.
+tree's, in turns, on one CUDA card (the ring: one card, or one per rank).
 
     python -m distributed_raytracer_tpu_torch.tools.kernel_ab \\
         [--other DIR] [--cut] [--chunks 1,2,4] [--out FILE]
+    python -m distributed_raytracer_tpu_torch.tools.kernel_ab --ring \\
+        [--other DIR] [--cards N] [--chunks 1,2,4,8] [--out FILE]
 
 The launches are recorded once, in this tree: K1 and K2 of one 640x480
 render() of icosphere_scene(6); the three K2 launches and the three K3n
@@ -32,6 +34,19 @@ runs cost); --chunks times K1, K2 (640x480), K3n (bounce 1) and K3a at
 other chunk lengths (ops/bsr_trace.CHUNK, both origin forms) in this tree
 only.
 
+--ring times the geometry ring instead: the K6 and K7 queries of one
+use_rdma=True 640x480 frame of the sphere grid over 4 ranks, recorded
+once in this tree with their plain-version outputs; each tree's worker (in
+turns, as above) checks its ring_nearest / ring_any outputs bit for bit
+against them, times each query (median of 10 synchronized calls, and the
+K6 or K7 kernel time per query summed over the ranks' streams from
+torch.profiler, the mean of 3 queries), times the RDMA ring frame
+(median of 10 synchronized frames) and profiles 3 frames (busy share,
+kernels per frame, device ms per kernel class). The 4 ranks share cuda:0,
+or with
+--cards N sit one per card on cuda:0..N-1 (rank i on cuda:(i % N));
+--chunks sweeps ops/ring_trace.CHUNK for K6 and K7 in this tree only.
+
 Prints one line per measurement, and writes them to --out FILE if given.
 """
 
@@ -50,6 +65,11 @@ import tempfile
 # bare seed_keys / unpack_keys and chunk kernels without the origin flag
 # are K1's and K2's.
 _CLASSES = (
+    # The ring's step kernels (this tree's and the first design's) come
+    # first: ring_seed_keys and ring_unpack_keys would match K1's pattern.
+    ("K6", r"ring_nearest_chunks|ring_(seed|unpack)_keys|"
+           r"ring_step_kernel<\d+, false>"),
+    ("K7", r"ring_any_chunks|ring_step_kernel<\d+, true>"),
     ("K3n", r"nearest_chunk_kernel<\d+, false>|(seed|unpack)_keys<false>|"
             r"nearest_rays_kernel|nearest_kernel<\d+, false>"),
     ("K3a", r"any_chunk_kernel<\d+, false>|any_rays_kernel|"
@@ -75,7 +95,9 @@ def _kernel_class(name: str) -> str:
 
 def _profile(fn, n: int):
     """(busy share of the window, {class: device ms per call}, kernels per
-    call) over n calls of fn under torch.profiler."""
+    call) over n calls of fn under torch.profiler. fn's result must be
+    ready once the current card's work is (the ring frame is gathered on
+    cuda:0)."""
     import torch
 
     fn()
@@ -226,6 +248,188 @@ def _worker_frames() -> dict:
     return out
 
 
+# Phase ring: the 640x480 sphere-grid frame over RING_N ranks.
+RING_N = 4
+RING_W, RING_H = 640, 480
+
+
+def _ring_scene():
+    from distributed_raytracer_tpu_torch.utils import scenes
+
+    grid = scenes.instanced_grid(scenes.icosphere_scene(3), 4)
+    return grid, grid.bake()
+
+
+def _ring_renderer(arrays, mesh):
+    from distributed_raytracer_tpu_torch.parallel import ring
+
+    return ring.make_ring_renderer(ring.pad_for_ring(arrays, len(mesh)),
+                                   RING_W, RING_H, mesh=mesh, use_rdma=True)
+
+
+def _sync_all(cards: int) -> None:
+    import torch
+
+    for d in range(cards):
+        torch.cuda.synchronize(d)
+
+
+def _median_ms(fn, n: int, cards: int) -> float:
+    import statistics
+    import time
+
+    fn()
+    times = []
+    for _ in range(n):
+        _sync_all(cards)
+        t0 = time.perf_counter()
+        fn()
+        _sync_all(cards)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _class_ms(fn, cls: str, n: int, cards: int) -> float:
+    """Device ms per call of the kernels of class `cls` (profiler), summed
+    over every stream and card."""
+    import torch
+
+    fn()
+    _sync_all(cards)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        _sync_all(cards)
+    return sum(e.device_time_total for e in prof.key_averages()
+               if _kernel_class(e.key) == cls) / 1e3 / n
+
+
+def _ring_mesh(cards: int) -> list:
+    return [f"cuda:{i % cards}" for i in range(RING_N)]
+
+
+def _worker_ring(path: str, cards: int, chunks: str) -> dict:
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops import _build, ring_trace
+    from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
+
+    _build.load_library("ring_trace")
+    mesh = _ring_mesh(cards)
+    ranks = mesh_mod.Ranks(mesh)
+    rec = torch.load(path)
+    out = {}
+    for name, cls in (("ring_nearest", "K6"), ("ring_any", "K7")):
+        args = [[x.to(d) for x, d in zip(part, mesh)]
+                for part in rec[name]["args"]]
+        fn = getattr(ring_trace, name)
+        call = lambda: fn(ranks, *args, rt=rec["rt"])
+        got = call()
+        _sync_all(cards)
+        got = got if isinstance(got, tuple) else (got,)
+        same = all(_equal(tuple(g), tuple(w))
+                   for g, w in zip(got, rec[name]["want"]))
+        out[cls] = {"equal": same, "query_ms": _median_ms(call, 10, cards),
+                    "kernel_ms": _class_ms(call, cls, 3, cards)}
+        if chunks:
+            chosen = ring_trace.CHUNK
+            out[cls]["chunks"] = []
+            for chunk in (int(c) for c in chunks.split(",") if c):
+                ring_trace.CHUNK = chunk
+                out[cls]["chunks"].append(
+                    (chunk, _median_ms(call, 10, cards),
+                     _class_ms(call, cls, 3, cards)))
+            ring_trace.CHUNK = chosen
+    grid, arrays = _ring_scene()
+    render = _ring_renderer(arrays, mesh)
+    out["frame_ms"] = _median_ms(lambda: render(grid.camera), 10, cards)
+    out["frame_profile"] = _profile(lambda: render(grid.camera), 3)
+    return out
+
+
+def _record_ring(path: str, cards: int) -> dict:
+    """Records one frame's K6 and K7 queries and their plain-version
+    outputs into path; returns {wrapper: (pairs, rays)}."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops import ring_trace
+
+    grid, arrays = _ring_scene()
+    render = _ring_renderer(arrays, _ring_mesh(cards))
+    seen = {}
+    originals = {n: getattr(ring_trace, n) for n in ("ring_nearest",
+                                                      "ring_any")}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            seen[name] = (args, dict(kwargs))
+            return originals[name](*args, **kwargs)
+        return call
+
+    try:
+        for n in originals:
+            setattr(ring_trace, n, recorder(n))
+        render(grid.camera)
+    finally:
+        for n, fn in originals.items():
+            setattr(ring_trace, n, fn)
+    rec, sizes = {}, {}
+    for name, (args, kwargs) in seen.items():
+        want = getattr(ring_trace, name + "_ref")(*args, **kwargs)
+        _sync_all(cards)
+        want = want if isinstance(want, tuple) else (want,)
+        rec[name] = {"args": [[x.cpu() for x in part] for part in args[1:]],
+                     "want": [[x.cpu() for x in part] for part in want]}
+        rays, tris = args[1], args[2]
+        sizes[name] = (sum(x.shape[1] for x in rays)
+                       * sum(x.shape[0] for x in tris),
+                       sum(x.shape[1] for x in rays))
+        rec["rt"] = kwargs["rt"]
+    torch.save(rec, path)
+    return sizes
+
+
+def _main_ring(a, here: str, say) -> None:
+    """--ring: K6, K7 and the RDMA frame in turns against --other."""
+    import torch
+
+    if torch.cuda.device_count() < a.cards:
+        raise RuntimeError(f"--cards {a.cards}: {torch.cuda.device_count()} "
+                           "cards visible")
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "ring.pt")
+        sizes = _record_ring(path, a.cards)
+        turns = ([("other", a.other), ("this", here), ("this", here),
+                  ("other", a.other)] if a.other else [("this", here)])
+        runs = [(who, _run_worker(tree, "ring", path, cards=a.cards,
+                                  chunks=a.chunks if who == "this" and i == 1
+                                  else ""))
+                for i, (who, tree) in enumerate(turns)]
+    mesh = ", ".join(_ring_mesh(a.cards))
+    for name, cls in (("ring_nearest", "K6"), ("ring_any", "K7")):
+        pairs, rays = sizes[name]
+        say(f"[ring] {cls} {name}: {RING_N} ranks on {mesh}; {rays} rays, "
+            f"{pairs / 1e9:.4f} G pairs")
+        for who, res in runs:
+            r = res[cls]
+            say(f"    {who}: query {r['query_ms']:.4f} ms synchronized "
+                f"(median of 10), {cls} kernels {r['kernel_ms']:.4f} ms per "
+                f"query summed over the streams (profiler); equal to the "
+                f"plain version: {r['equal']}")
+            for chunk, ms, k_ms in r.get("chunks", ()):
+                say(f"        {chunk} items per block: query {ms:.4f} ms, "
+                    f"kernels {k_ms:.4f} ms")
+    for who, res in runs:
+        busy, per, nk = res["frame_profile"]
+        say(f"[ring] {who} RDMA frame {RING_W}x{RING_H}, {RING_N} ranks on "
+            f"{mesh}: {res['frame_ms']:.3f} ms synchronized (median of 10); "
+            f"profiled (3 frames): busy {busy:.3f} (any card), {nk:.0f} "
+            f"kernels per frame, device ms per frame summed over the "
+            f"streams " + ", ".join(f"{k} {v:.4f}"
+                                    for k, v in sorted(per.items())))
+
+
 # -- the parent process -------------------------------------------------------
 
 def _record(path: str) -> list:
@@ -290,11 +494,13 @@ def _record(path: str) -> list:
 
 
 def _run_worker(tree: str, mode: str, path: str = "",
-                cut: bool = False) -> object:
+                cut: bool = False, cards: int = 1,
+                chunks: str = "") -> object:
     """Runs this file's worker with `tree` first on the import path."""
     res = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--worker", mode,
-         "--tree", tree, "--launches", path] + ["--cut"] * cut,
+         "--tree", tree, "--launches", path, "--cards", str(cards),
+         "--chunks", chunks] + ["--cut"] * cut,
         capture_output=True, text=True, timeout=1200)
     for line in res.stdout.splitlines():
         if line.startswith("RESULT "):
@@ -329,6 +535,8 @@ def main(argv=None) -> int:
     ap.add_argument("--cut", action="store_true")
     ap.add_argument("--chunks", default="")
     ap.add_argument("--out")
+    ap.add_argument("--ring", action="store_true")
+    ap.add_argument("--cards", type=int, default=1)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--tree", help=argparse.SUPPRESS)
     ap.add_argument("--launches", help=argparse.SUPPRESS)
@@ -336,7 +544,9 @@ def main(argv=None) -> int:
     if a.worker:
         sys.path.insert(0, os.path.abspath(a.tree))
         result = (_worker_kernels(a.launches, a.cut)
-                  if a.worker == "kernels" else _worker_frames())
+                  if a.worker == "kernels"
+                  else _worker_ring(a.launches, a.cards, a.chunks)
+                  if a.worker == "ring" else _worker_frames())
         print("RESULT " + json.dumps(result))
         return 0
 
@@ -360,6 +570,20 @@ def main(argv=None) -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     say(f"gpu: {card}; torch {torch.__version__}")
+    if a.ring:
+        _main_ring(a, here, say)
+    else:
+        _main_traversal(a, here, say, bsr_trace)
+    say(f"gpu: {card}")
+    if a.out:
+        os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
+        with open(a.out, "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return 0
+
+
+def _main_traversal(a, here: str, say, bsr_trace) -> None:
+    """K1-K3a and the culled frames in turns against --other."""
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "launches.pt")
         launches = _record(path)
@@ -403,12 +627,6 @@ def main(argv=None) -> int:
             bsr_trace.CHUNK = chosen
             say(f"[chunks] {tag}, {chunk} items per block: kernels "
                 f"{ms:.4f} ms")
-    say(f"gpu: {card}")
-    if a.out:
-        os.makedirs(os.path.dirname(os.path.abspath(a.out)), exist_ok=True)
-        with open(a.out, "w") as f:
-            f.write("\n".join(lines) + "\n")
-    return 0
 
 
 if __name__ == "__main__":

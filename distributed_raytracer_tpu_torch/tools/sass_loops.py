@@ -2,18 +2,21 @@
 built library, on a machine with the CUDA toolkit.
 
     python -m distributed_raytracer_tpu_torch.tools.sass_loops [REGEX]
+        [--lib bsr_trace|ring_trace]
 
-Builds (or loads) csrc/bsr_trace.cu through ops/_build, disassembles the
-library with `cuobjdump -sass` and prints, for every kernel whose mangled
-name matches REGEX (default: the chunk kernels at RPT = 4, i.e. rt = 512),
-each loop (a backward branch and the instructions from its target to it)
-with its instruction count by opcode. The row loop is the innermost loop
-that holds the pair math: unrolled by two, at RPT = 4 it covers two
-triangle rows x four rays per thread, 8 pairs per pass.
+Builds (or loads) csrc/<lib>.cu (default bsr_trace) through ops/_build,
+disassembles the library with `cuobjdump -sass` and prints, for every
+kernel whose mangled name matches REGEX (default: the chunk kernels at
+RPT = 4, i.e. rt = 512: K1-K3a, or the ring's K6 and K7), each loop (a
+backward branch and the instructions from its target to it) with its
+instruction count by opcode. The row loop is the innermost loop that holds
+the pair math: unrolled by two, at RPT = 4 it covers two triangle rows x
+four rays per thread, 8 pairs per pass.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import os
 import re
@@ -55,17 +58,20 @@ def loops(ins: list) -> list:
 
 
 def main(argv=None) -> int:
-    argv = sys.argv[1:] if argv is None else argv
-    pattern = argv[0] if argv else r"chunk_kernelILi4E"
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("regex", nargs="?", default=r"chunk(_kernel|s)ILi4E")
+    ap.add_argument("--lib", default="bsr_trace",
+                    choices=("bsr_trace", "ring_trace"))
+    a = ap.parse_args(argv)
     from distributed_raytracer_tpu_torch.ops import _build
 
-    lib = _build._compile("bsr_trace")
+    lib = _build._compile(a.lib)
     cuda = os.path.dirname(os.path.dirname(_build._nvcc()))
     sass = subprocess.run([os.path.join(cuda, "bin", "cuobjdump"), "-sass",
                            str(lib)], check=True, capture_output=True,
                           text=True).stdout
     for name, ins in functions(sass).items():
-        if not re.search(pattern, name):
+        if not re.search(a.regex, name):
             continue
         print(name)
         for lo, hi, ops in loops(ins):

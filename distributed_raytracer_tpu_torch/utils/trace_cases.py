@@ -28,6 +28,8 @@ schedule differently from the plain versions:
     slots past `count`; `entry` is each item's least valid t, so the
     front-to-back skip (exit_every > 0) has real work and stays exact.
 The nearest and any-hit launches share the rays (row 6 carries t_max).
+`ring_edge_case` turns the same rows and rays into one query of the ring's
+step kernels (ops/ring_trace.py: K6, K7) over n ranks.
 """
 
 from __future__ import annotations
@@ -347,3 +349,28 @@ def edge_case_launch(rt: int = 512, tb: int = 64, chunk: int | None = None,
         count=i32([count]), init_t=torch.from_numpy(init_t),
         init_i=torch.from_numpy(init_i), init_hit=torch.from_numpy(init_hit),
         gid_base=gid_base, rt=rt, tb=tb, shared_origin=shared_origin)
+
+
+def ring_edge_case(n: int, rt: int = 128, shared_origin: bool = False):
+    """The edge cases as one ring query over n ranks (ops/ring_trace.py):
+    (rays (8, R), tris (T, 16), exclude (R,) int32), on the CPU, to be split
+    into n equal parts along R and T. tris are the per-ray launch's static
+    pack_tris rows (the two spheres, the copied block whose hits tie at one
+    t with a second id, the origin-plane block, the all-zero block) padded
+    with zero rows to a multiple of n * 128. rays are the launch's of the
+    origin form asked for: per-ray (surface origins excluding their own
+    triangle) or all from ORIGIN (hits at t = +-0.0 on the origin-plane
+    block), t_max in row 6 for the any-hit query. R = N_TILES * rt, so n
+    must divide N_TILES. Exclusion ids are the launch's without its
+    gid_base: the ring's global id of a row is its index in tris."""
+    if N_TILES % n:
+        raise ValueError(f"n={n} does not divide {N_TILES} ray tiles")
+    static = edge_case_launch(rt, 128, shared_origin=False)
+    launch = (edge_case_launch(rt, 128, shared_origin=True)
+              if shared_origin else static)
+    t = static.tris.shape[0]
+    tris = torch.zeros((-(-t // (n * 128)) * n * 128, 16))
+    tris[:t] = static.tris
+    exclude = torch.where(launch.exclude >= 0, launch.exclude - GID_BASE,
+                          -1).to(torch.int32)
+    return launch.rays.contiguous(), tris, exclude

@@ -265,15 +265,30 @@ def test_pack_rays_matches_jax():
         np.testing.assert_array_equal(got.numpy(), want)
 
 
+def mixed_origins(rays):
+    """The camera rays with one ray of every odd tile moved off the camera
+    by one ulp of x: even tiles share one origin (K6 folds it into the
+    staged rows), odd tiles do not (K6 dots each ray's origin in)."""
+    rays = rays.copy()
+    for tile in range(1, rays.shape[1] // RT, 2):
+        r = tile * RT + tile % RT
+        rays[0, r] = np.nextafter(rays[0, r], np.float32(np.inf))
+    return rays
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("origins", ["camera", "mixed"])
 @pytest.mark.parametrize("n", [1, 2, 4])
-def test_cuda_ring_kernels_match_plain_versions(ico, n):
+def test_cuda_ring_kernels_match_plain_versions(ico, n, origins):
     """On a card: K6 and K7 over n ranks sharing cuda:0 equal their plain
     versions (same rotation, same streams) exactly, one launch per rank and
-    ring step each."""
+    ring step each; with every tile's rays from the camera, and with a
+    launch whose tiles mix shared and per-ray origins."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
     rays, tris, t_total = frame_inputs(ico, n)
+    if origins == "mixed":
+        rays = mixed_origins(rays)
     dev = torch.device("cuda:0")
     ranks = mesh.Ranks([dev] * n)
     r = [x.to(dev) for x in split(rays, n, 1)]
@@ -292,4 +307,6 @@ def test_cuda_ring_kernels_match_plain_versions(ico, n):
     assert ring_trace.LAUNCHES == {k: v + n * n for k, v in before.items()}
     for g, w in zip(got, want):
         assert all(torch.equal(a, b) for a, b in zip(g, w))
+    assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got[0], want[0]))
     assert all(torch.equal(a, b) for a, b in zip(hit, hit_ref))
