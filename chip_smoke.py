@@ -63,7 +63,17 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      hit ray; any-hit flags equal on all but <= 1 in 1e4 rays; unvisited
      tiles left at init. K4 is timed against K1 and K5 against K2 on the
      same work (the launch in the (T, 16) form), medians of 20 calls in the
-     order old, new, new, old.
+     order old, new, new, old, and by device time; each line gives the
+     tensor-core bound (54 tensor operations per pair at the TF32 peak or
+     the 6-operation FP32 epilogue, the larger), the tensor work as issued
+     (144 per pair) and the 21-operation FP32 bound, with shares. Then the
+     same bounds on utils/trace_cases.edge_case_launch in the tuple form
+     (one origin; two origins' scalars stacked over one A, as the all-lights
+     shadow launch indexes them) at rt 256 and 512, on the visited rays
+     that trace_cases.ambiguous_rays does not set aside (the share set
+     aside printed and <= 40%); and K5 on the three shadow launches of one
+     use_mxu=True depth-2 render_bounced() of the 1080p sphere grid, each
+     timed against K2 on the same work.
   2c. The 640x480 frame with use_mxu=True: render(), freeze(), a 16-pose
      orbit through render_fast(verify=True), one render_fast under
      sync-debug "error"; counters reset first, then bsr_nearest_mxu and
@@ -183,6 +193,22 @@ PEAK_BYTES = 3.35e12
 # form: den 5, the division 1, u 7, v 7, u + v 1 with a shared origin; the
 # three origin dots and their folds add 18 with per-ray origins.
 OPS_PER_PAIR = {True: 21, False: 39}
+# The tensor-core form (K4, K5): per pair 3 passes x 3 dots x 3
+# multiply-adds (54 operations) at the dense TF32 peak, beside the 6 FP32
+# operations of the epilogue (the division, two products, three sums);
+# as issued, with K padded to 8: 3 x 3 x 8 x 2 = 144.
+PEAK_TF32 = 495e12
+MXU_TENSOR_OPS, MXU_FP32_OPS, MXU_ISSUED_OPS = 54, 6, 144
+
+
+def mxu_bounds(pairs: int) -> dict:
+    """K4/K5's bounds in ms: the tensor-core one (the larger of the tensor
+    and the FP32 epilogue times), the tensor work as issued, and the
+    21-operation FP32 bound that K1/K2 are held to."""
+    return {"tensor": max(pairs * MXU_TENSOR_OPS / PEAK_TF32,
+                          pairs * MXU_FP32_OPS / PEAK_FP32) * 1e3,
+            "issued": pairs * MXU_ISSUED_OPS / PEAK_TF32 * 1e3,
+            "fp32": pairs * OPS_PER_PAIR[True] / PEAK_FP32 * 1e3}
 
 
 def tensor_bytes(x) -> int:
@@ -288,16 +314,22 @@ def print_ptxas(log: str) -> None:
             b = lambda x: "true" if x == "1" else "false"
             k = re.search(r"(nearest|any)_chunk_kernelILi(\d+)ELb([01])E",
                           m.group(1))
-            x = re.search(r"(nearest|any)_mxu_kernelILi(\d+)E", m.group(1))
+            x = re.search(r"(nearest|any)_mxu_chunk_kernelILi(\d+)ELi(\d+)E"
+                          r"(?:Li(\d+)E)?Li(\d+)E", m.group(1))
             g = re.search(r"ring_(nearest|any)_chunksILi(\d+)E", m.group(1))
             rk = re.search(r"ring_(seed|unpack)_keys", m.group(1))
-            e = re.search(r"\d(seed_keys|unpack_keys)ILb([01])E", m.group(1))
+            e = re.search(r"\d(seed_keys|unpack_keys)ILb([01])ELb([01])E",
+                          m.group(1))
             name = (f"{k.group(1)}_chunk_kernel<RPT={k.group(2)}, shared="
                     f"{b(k.group(3))}>" if k
-                    else f"{x.group(1)}_mxu_kernel<NT={x.group(2)}>" if x
+                    else f"{x.group(1)}_mxu_chunk_kernel<NT={x.group(2)}, "
+                         f"WARPS={x.group(3)}" + (f", PASSES={x.group(4)}"
+                                                  if x.group(4) else "")
+                         + f", MINB={x.group(5)}>" if x
                     else f"ring_{g.group(1)}_chunks<RPT={g.group(2)}>" if g
                     else rk.group(0) if rk
-                    else f"{e.group(1)}<shared={b(e.group(2))}>" if e
+                    else f"{e.group(1)}<shared={b(e.group(2))}, "
+                         f"mxu={b(e.group(3))}>" if e
                     else m.group(1))
             spill = ""
         elif "spill" in line:
@@ -678,57 +710,80 @@ def close_frames(what: str, got, want, mean_bound: float = 1e-4,
     return frac, mean
 
 
-def compare_mxu(bsr_trace, key, args, kwargs, twin):
+def mxu_mismatches(got, want, vis, nearest: bool, keep=None) -> dict:
+    """Counts of a tensor-core output against its plain version on the
+    visited rays (restricted to `keep` where given): hit/miss, ids (edge
+    ties apart: t within 1e-5 relative), the largest relative t gap on hit
+    rays, or any-hit flags; and whether unvisited tiles kept init."""
+    import torch
+
+    keep = vis if keep is None else vis & keep
+    if not nearest:
+        return {"rays": int(keep.sum()),
+                "flags": int((got != want)[keep].sum()),
+                "hits": int(want[keep].sum()),
+                "init": bool(torch.equal(got[~vis], want[~vis]))}
+    (gt, gi), (pt, pi) = got, want
+    hit_p, hit_g = torch.isfinite(pt) & keep, torch.isfinite(gt) & keep
+    both = hit_p & hit_g
+    rel = torch.where(both, (gt - pt).abs() / pt.abs().clamp_min(1e-30), 0.0)
+    idm = both & (gi != pi)
+    ties = int((idm & (rel <= 1e-5)).sum())
+    return {"rays": int(keep.sum()), "hits": int(hit_p.sum()),
+            "hit_miss": int((hit_p != hit_g).sum()), "ties": ties,
+            "other": int(idm.sum()) - ties, "rel": float(rel.max()),
+            "abs": float((gt - pt).abs()[both].max()) if both.any() else 0.0,
+            "init": bool(torch.equal(gi[~vis], pi[~vis])
+                         and torch.equal(gt[~vis], pt[~vis]))}
+
+
+def check_mxu(tag: str, m: dict, nearest: bool) -> None:
+    """Phase 1c's bounds (module docstring) on mxu_mismatches' counts."""
+    if nearest:
+        print(f"{tag}: {m['rays']} rays, {m['hits']} hits; hit/miss differ "
+              f"{m['hit_miss']}; ids differ {m['ties'] + m['other']} "
+              f"({m['ties']} edge ties, {m['other']} other); max |t_k - t_p| "
+              f"/ t_p {m['rel']:.3e}; max |t_k - t_p| {m['abs']}")
+        check(m["hit_miss"] * 1e4 <= m["rays"],
+              f"{tag}: {m['hit_miss']} hit/miss differences")
+        check(m["other"] * 1e4 <= m["hits"], f"{tag}: {m['other']} ids differ")
+        check(m["ties"] * 1e3 <= m["hits"], f"{tag}: {m['ties']} edge ties")
+        check(m["rel"] <= 1e-5, f"{tag}: t differs by {m['rel']} relative")
+    else:
+        print(f"{tag}: {m['rays']} rays, {m['hits']} hit in the plain "
+              f"version; flags differ {m['flags']}")
+        check(m["flags"] * 1e4 <= m["rays"],
+              f"{tag}: {m['flags']} any-hit flags differ")
+    check(m["init"], f"{tag}: unvisited tiles differ from init")
+
+
+def compare_mxu(bsr_trace, key, args, kwargs, twin, plain_repeats=REPEATS,
+                tag=None):
     """Phase 1c: one tensor-core kernel (K4 or K5) against its plain
     version with exit_every 0 and 32, under the bounds of the module
     docstring; then timed against its CUDA-core twin (K1 or K2) on the same
-    work. Returns {"max_abs_err", "ms", "plain_ms", "twin_ms"}."""
+    work. Returns the kernel's JSON fields and "twin_ms"."""
     import torch
 
     name = key.removesuffix("_mxu")
     kernel = getattr(bsr_trace, name)
     plain = getattr(bsr_trace, name + "_ref")
     vis = visited_rays(args, kwargs)
-    n_vis = int(vis.sum())
+    tag = tag or f"{KERNELS[key][0]} {key}"
     err = 0.0
     for exit_every in (0, 32):
         kw = dict(kwargs, exit_every=exit_every)
         got = kernel(*args, **kw)
         want = plain(*args, **kw)
         torch.cuda.synchronize()
-        tag = f"[phase 1c] {KERNELS[key][0]} exit_every={exit_every}"
+        check_mxu(f"[phase 1c] {tag} exit_every={exit_every}",
+                  mxu_mismatches(got, want, vis, name == "bsr_nearest"),
+                  name == "bsr_nearest")
         if name == "bsr_nearest":
-            (gt, gi), (pt, pi) = got, want
-            hit_p, hit_g = torch.isfinite(pt) & vis, torch.isfinite(gt) & vis
-            n_hits = int(hit_p.sum())
-            hm = int((hit_p != hit_g).sum())
-            both = hit_p & hit_g
-            rel = torch.where(both, (gt - pt).abs()
-                              / pt.abs().clamp_min(1e-30), 0.0)
-            idm = both & (gi != pi)
-            ties = int((idm & (rel <= 1e-5)).sum())
-            other = int(idm.sum()) - ties
-            e = float((gt - pt).abs()[both].max()) if n_hits else 0.0
-            r = float(rel.max())
-            r_same = float(torch.where(idm, 0.0, rel).max())
-            print(f"{tag}: {n_vis} visited rays, {n_hits} hits; hit/miss "
-                  f"differ {hm}; ids differ {int(idm.sum())} ({ties} edge "
-                  f"ties, {other} other); max |t_k - t_p| / t_p {r:.3e} "
-                  f"({r_same:.3e} where the ids agree); max |t_k - t_p| {e}")
-            check(hm * 1e4 <= n_vis, f"{tag}: {hm} hit/miss differences")
-            check(other * 1e4 <= n_hits, f"{tag}: {other} ids differ")
-            check(ties * 1e3 <= n_hits, f"{tag}: {ties} edge ties")
-            check(r <= 1e-5, f"{tag}: t differs by {r} relative")
-            check(bool(torch.equal(gi[~vis], pi[~vis])
-                       and torch.equal(gt[~vis], pt[~vis])),
-                  f"{tag}: unvisited tiles differ from init")
+            both = torch.isfinite(want[0]) & torch.isfinite(got[0])
+            e = float((got[0] - want[0]).abs()[both].max()) if both.any() \
+                else 0.0
         else:
-            fm = int((got != want)[vis].sum())
-            print(f"{tag}: {n_vis} visited rays, {int(want[vis].sum())} "
-                  f"hit in the plain version; flags differ {fm}")
-            check(fm * 1e4 <= n_vis, f"{tag}: {fm} any-hit flags differ")
-            check(bool(torch.equal(got[~vis], want[~vis])),
-                  f"{tag}: unvisited tiles differ from init")
             e = float((got - want).abs().max())
         err = max(err, e)
     t_args, t_kwargs = twin
@@ -736,46 +791,136 @@ def compare_mxu(bsr_trace, key, args, kwargs, twin):
     m1 = time_ms(lambda: kernel(*args, **kwargs))
     m2 = time_ms(lambda: kernel(*args, **kwargs))
     t2 = time_ms(lambda: kernel(*t_args, **t_kwargs))
-    plain_ms = time_ms(lambda: plain(*args, **kwargs))
     ms = device_ms(lambda: kernel(*args, **kwargs))
+    twin_dev = device_ms(lambda: kernel(*t_args, **t_kwargs))
+    plain_ms = time_ms(lambda: plain(*args, **kwargs), repeats=plain_repeats,
+                       warmup=1 if plain_repeats < REPEATS else 2)
     st = worklist_stats(args, kwargs, name == "bsr_nearest")
-    print(f"[phase 1c] {KERNELS[key][0]} {key}: R={args[0].shape[1]} "
-          f"W={args[3].shape[0]} exit_every(main path)="
-          f"{kwargs['exit_every']}; {stats_line(st)}; kernel {m1:.4f} / "
-          f"{m2:.4f} ms, {KERNELS[name][0]} on the same work {t1:.4f} / "
-          f"{t2:.4f} ms (order {KERNELS[name][0]}, {KERNELS[key][0]}, "
-          f"{KERNELS[key][0]}, {KERNELS[name][0]}; synchronized medians of "
-          f"{REPEATS}); kernel {ms:.4f} ms device (mean of {REPEATS} "
-          f"calls) = {st['bound_ms'] / ms:.2%} of its bound; plain "
-          f"{plain_ms:.4f} ms; max_abs_err {err}")
+    bd = mxu_bounds(st["pairs"])
+    mem_ms = st["bound_ms"] if st["bound_by"] == "bytes" else 0.0
+    bound, by = ((bd["tensor"], "operations") if bd["tensor"] >= mem_ms
+                 else (mem_ms, "bytes"))
+    tw = KERNELS[name][0]
+    print(f"[phase 1c] {tag}: R={args[0].shape[1]} W={args[3].shape[0]} "
+          f"exit_every(path)={kwargs['exit_every']}; {stats_line(st)}; "
+          f"kernel {m1:.4f} / {m2:.4f} ms, {tw} on the same work {t1:.4f} / "
+          f"{t2:.4f} ms (order {tw}, {KERNELS[key][0]}, {KERNELS[key][0]}, "
+          f"{tw}; synchronized medians of {REPEATS}); device (mean of "
+          f"{REPEATS} calls): kernel {ms:.4f} ms, {tw} {twin_dev:.4f} ms; "
+          f"bounds: tensor-core {bd['tensor']:.4f} ms ({bd['tensor'] / ms:.2%}"
+          f"), as issued {bd['issued']:.4f} ms ({bd['issued'] / ms:.2%}), 21 "
+          f"FP32 operations per pair {bd['fp32']:.4f} ms ({bd['fp32'] / ms:.2%}"
+          f"); plain {plain_ms:.4f} ms (median of {plain_repeats}); "
+          f"max_abs_err {err}")
     return {"max_abs_err": err, "ms": ms, "call_ms": m1,
-            "plain_ms": plain_ms, "bound_ms": st["bound_ms"],
-            "bound_by": st["bound_by"],
-            "share_of_bound": st["bound_ms"] / ms, "library_ms": None,
-            "twin_ms": t1}
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "share_of_bound": bound / ms, "fp32_bound_ms": bd["fp32"],
+            "share_of_fp32_bound": bd["fp32"] / ms, "library_ms": None,
+            "twin_ms": twin_dev}
 
 
-def phase_kernels_mxu(mxu, renderer, scene, bsr_trace):
+# The tuple-form edge cases: the ulps of their terms to which the tensor
+# cores' 3xTF32 direction dots are trusted (utils/trace_cases
+# .ambiguous_rays), and the share of visited rays that may be set aside as
+# ambiguous (tests/test_torch_bsr_edges.py's bound: the launch aims about
+# half its rays at vertices and edges).
+MXU_DOT_ULPS = 8
+AMBIGUOUS_SHARE = 0.4
+
+
+def phase_mxu_edge_cases(bsr_trace) -> None:
+    """Phase 1c, K4 and K5 on utils/trace_cases.edge_case_launch in the
+    tensor-core form (one origin; two origins' scalars stacked over one A)
+    at rt 256 and 512, exit_every 0 and 32, against their plain versions
+    under the bounds of the 640x480 launches, on the visited rays that
+    trace_cases.ambiguous_rays does not set aside: rays whose result rests
+    on a BARY_EPS bound, a t tie, t_max or a grazing den to within the
+    3xTF32 dots' error (MXU_DOT_ULPS ulps of their terms). The share set
+    aside is printed and bounded; every ray of an unvisited tile keeps
+    init."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.utils import trace_cases
+
+    for rt in (256, 512):
+        for origins in (1, 2):
+            host = trace_cases.edge_case_launch(rt, 64, mxu_origins=origins)
+            amb_near, amb_any = trace_cases.ambiguous_rays(
+                host, dot_ulps=MXU_DOT_ULPS)
+            L = host.to("cuda")
+            vis = L.visited()
+            n_vis = int(vis.sum())
+            shares = (int((amb_near & vis.cpu()).sum()) / n_vis,
+                      int((amb_any & vis.cpu()).sum()) / n_vis)
+            what = (f"K4 and K5, tuple-form edge cases, {origins} "
+                    f"origin{'s' * (origins > 1)}, rt={rt}")
+            print(f"[phase 1c] {what}: R={L.rays.shape[1]} "
+                  f"W={L.tile_ids.shape[0]} live items={int(L.count.item())}"
+                  f", {n_vis} visited rays; set aside as ambiguous: nearest "
+                  f"{shares[0]:.2%}, any hit {shares[1]:.2%}")
+            check(max(shares) <= AMBIGUOUS_SHARE, f"{what}: too many rays "
+                                                  "set aside")
+            for exit_every in (0, 32):
+                kw = dict(L.kwargs, exit_every=exit_every)
+                for name, args, amb in (
+                        ("bsr_nearest", L.nearest_args(), amb_near),
+                        ("bsr_any", L.any_args(), amb_any)):
+                    got = getattr(bsr_trace, name)(*args, **kw)
+                    want = getattr(bsr_trace, name + "_ref")(*args, **kw)
+                    torch.cuda.synchronize()
+                    check_mxu(f"  {what}, {name} exit_every={exit_every}",
+                              mxu_mismatches(got, want, vis,
+                                             name == "bsr_nearest",
+                                             keep=~amb.to("cuda")),
+                              name == "bsr_nearest")
+
+
+def twin_args(args, kwargs, tris):
+    """A tensor-core launch in the (T, 16) form: the same work list on
+    `tris` rows, without ablock_ids."""
+    return ((args[0], args[1], tris) + tuple(args[3:]),
+            {k: v for k, v in kwargs.items() if k != "ablock_ids"})
+
+
+def phase_kernels_mxu(mxu, renderer, scene, bsr_trace, grid, bounced):
     """Phase 1c: K4 and K5 on the launches of one use_mxu=True 640x480
-    render(); their twins are the same launches in the (T, 16) form."""
+    render(), their twins the same launches in the (T, 16) form; the
+    tuple-form edge cases; K5 on the three shadow launches of one
+    use_mxu=True depth-2 render_bounced() of the 1080p sphere grid, against
+    K2 on the same work."""
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+
     seen = {}
     with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
         mxu.render(scene.camera, block=True)
     check(set(seen) == {"bsr_nearest_mxu", "bsr_any_mxu"},
           f"recorded launches: {sorted(seen)}")
     args, kwargs = seen["bsr_nearest_mxu"][-1]
-    rays = args[0]
     folded = bsr_trace.pack_tris_origin(renderer.dev_scene.tris_packed,
-                                        rays[0:3, 0])
+                                        args[0][0:3, 0])
     results = {"bsr_nearest_mxu": compare_mxu(
         bsr_trace, "bsr_nearest_mxu", args, kwargs,
-        ((args[0], args[1], folded) + tuple(args[3:]), kwargs))}
+        twin_args(args, kwargs, folded))}
     args, kwargs = seen["bsr_any_mxu"][-1]
-    twin_kwargs = {k: v for k, v in kwargs.items() if k != "ablock_ids"}
     results["bsr_any_mxu"] = compare_mxu(
         bsr_trace, "bsr_any_mxu", args, kwargs,
-        ((args[0], args[1], renderer.dev_scene.lights_scal)
-         + tuple(args[3:]), twin_kwargs))
+        twin_args(args, kwargs, renderer.dev_scene.lights_scal))
+    phase_mxu_edge_cases(bsr_trace)
+    gmxu = CulledRenderer(None, BW, BH, prebaked=(bounced.arrays_host,
+                                                  bounced.tree),
+                          device="cuda", use_mxu=True)
+    seen = {}
+    with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
+        gmxu.render_bounced(grid.camera, DEPTH, block=True)
+    shadows = seen.get("bsr_any_mxu", [])
+    check(len(shadows) == DEPTH + 1, f"{len(shadows)} K5 launches for depth "
+                                     f"{DEPTH}")
+    for bounce, (args, kwargs) in enumerate(shadows):
+        compare_mxu(bsr_trace, "bsr_any_mxu", args, kwargs,
+                    twin_args(args, kwargs, bounced.dev_scene.lights_scal),
+                    PLAIN_REPEATS_BIG,
+                    tag=f"K5 bsr_any_mxu, bounced 1080p frame, bounce "
+                        f"{bounce}")
     return results
 
 
@@ -1379,7 +1524,8 @@ def main() -> int:
     kernels = phase_kernels(renderer, scene, bsr_trace)
     phase_edge_cases(bsr_trace)
     kernels.update(phase_kernels_rays(bounced, grid, bsr_trace))
-    kernels.update(phase_kernels_mxu(mxu, renderer, scene, bsr_trace))
+    kernels.update(phase_kernels_mxu(mxu, renderer, scene, bsr_trace, grid,
+                                     bounced))
     launches, plain0 = phase_frame(renderer, scene, bsr_trace)
     got, sync_k2 = phase_bounced(bounced, grid, bsr_trace)
     runs = [got, phase_frame_mxu(mxu, renderer, scene, bsr_trace, plain0),

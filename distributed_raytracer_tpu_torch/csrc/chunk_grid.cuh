@@ -1,8 +1,9 @@
-// Device helpers of the item-chunk grid kernels: bsr_trace.cu's K1-K3a and
-// ring_trace.cu's K6, K7. Both grids run 128-thread blocks over chunks of
-// (ray tile, triangle block) items, stage each item's triangle rows into a
-// two-slot ring in shared memory with cp.async, and merge nearest hits
-// across blocks through an int64 key per ray.
+// Device helpers of the item-chunk grid kernels: bsr_trace.cu's K1-K5 and
+// ring_trace.cu's K6, K7. The grids run blocks over chunks of (ray tile,
+// triangle block) items (128 threads for K1-K3a, K6, K7; the tensor-core
+// K4/K5 take more), stage each item's rows into a two-slot ring in shared
+// memory with cp.async, and merge nearest hits across blocks through an
+// int64 key per ray.
 
 #pragma once
 
@@ -33,18 +34,38 @@ __device__ __forceinline__ long long join_key(float t, int id) {
                      (unsigned)id);
 }
 
-// Issues the 16-byte copies of triangle block `block` (tb rows of four
-// float4) into a ring slot as one commit group.
-__device__ __forceinline__ void stage_async(const float4* __restrict__ tris,
-                                            int block, int tb, float4* slot) {
-  const float4* src = tris + (int64_t)block * tb * 4;
-  for (int k = threadIdx.x; k < tb * 4; k += kThreads) {
-    const unsigned dst = (unsigned)__cvta_generic_to_shared(slot + k);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+// Issues the 16-byte copies of n float4 from src to dst, kBlock threads
+// striding.
+template <int kBlock>
+__device__ __forceinline__ void copy_async(const float4* __restrict__ src,
+                                           int n, float4* dst) {
+  for (int k = threadIdx.x; k < n; k += kBlock) {
+    const unsigned to = (unsigned)__cvta_generic_to_shared(dst + k);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to),
                  "l"(src + k)
                  : "memory");
   }
+}
+
+// Issues the copies of n float4 from src to dst and, when n2 > 0, those of
+// a second source (the tensor-core form's scalar block beside its A block)
+// into its own destination, as one commit group.
+template <int kBlock = kThreads>
+__device__ __forceinline__ void stage_async(const float4* __restrict__ src,
+                                            int n, float4* dst,
+                                            const float4* __restrict__ src2 =
+                                                nullptr,
+                                            int n2 = 0,
+                                            float4* dst2 = nullptr) {
+  copy_async<kBlock>(src, n, dst);
+  if (n2 > 0) copy_async<kBlock>(src2, n2, dst2);
   asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Triangle block `block` (tb rows of four float4) into a ring slot.
+__device__ __forceinline__ void stage_async(const float4* __restrict__ tris,
+                                            int block, int tb, float4* slot) {
+  stage_async(tris + (int64_t)block * tb * 4, tb * 4, slot);
 }
 
 // Waits for this thread's copies; the __syncthreads that follows makes

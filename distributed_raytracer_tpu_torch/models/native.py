@@ -1,7 +1,10 @@
 """ctypes bindings for the C++ runtime components (native/drt_native.cpp).
 
-The JAX package's models/native.py unchanged: both packages load (or `make`)
-the same native/libdrt_native.so at the root of the repository.
+The JAX package's models/native.py, but for the build: both packages load
+(or `make`) the same native/libdrt_native.so at the root of the repository.
+This one builds under a lock file into a temporary name and renames it into
+place, so processes loading it at once (test workers) never see a
+half-written library made here.
 
 The native library provides the host-side hot paths — OBJ/MTL parsing and
 Morton argsort — with the Python implementations (objparse.py, bvh.py) as
@@ -13,6 +16,7 @@ means the Python path is used.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
 import subprocess
 import threading
@@ -22,23 +26,52 @@ import numpy as np
 
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _NATIVE_DIR = os.path.join(_REPO_ROOT, "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libdrt_native.so")
+# The build's lock file and temporary names (listed in .gitignore).
+_LOCK_NAME = ".libdrt_native.lock"
+_TMP_PREFIX = ".libdrt_native.tmp."
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def _build() -> bool:
-    src = os.path.join(_NATIVE_DIR, "drt_native.cpp")
+def _build(native_dir: str, lib_path: str) -> bool:
+    """Builds the library into a temporary name under an exclusive lock
+    file in native_dir, then renames it into place: a process that loads
+    the library never finds it half written by this one, and two processes
+    of this package never build it at once (the second finds it built)."""
+    src = os.path.join(native_dir, "drt_native.cpp")
     if not os.path.exists(src):
         return False
     try:
-        subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                       capture_output=True, timeout=300)
-        return os.path.exists(_LIB_PATH)
+        with open(os.path.join(native_dir, _LOCK_NAME), "a") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if os.path.exists(lib_path):
+                return True
+            tmp = f"{_TMP_PREFIX}{os.getpid()}.so"
+            try:
+                # TARGET on the command line overrides the Makefile's.
+                subprocess.run(["make", "-C", native_dir, f"TARGET={tmp}"],
+                               check=True, capture_output=True, timeout=300)
+                os.replace(os.path.join(native_dir, tmp), lib_path)
+            finally:
+                if os.path.exists(os.path.join(native_dir, tmp)):
+                    os.unlink(os.path.join(native_dir, tmp))
+        return os.path.exists(lib_path)
     except Exception:
         return False
+
+
+def open_library(native_dir: str = _NATIVE_DIR) -> Optional[ctypes.CDLL]:
+    """native_dir's libdrt_native.so, built first if it is missing; None if
+    it cannot be built or loaded."""
+    lib_path = os.path.join(native_dir, "libdrt_native.so")
+    if not os.path.exists(lib_path) and not _build(native_dir, lib_path):
+        return None
+    try:
+        return ctypes.CDLL(lib_path)
+    except OSError:
+        return None
 
 
 def load() -> Optional[ctypes.CDLL]:
@@ -48,11 +81,8 @@ def load() -> Optional[ctypes.CDLL]:
         if _lib is not None or _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH) and not _build():
-            return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
+        lib = open_library()
+        if lib is None:
             return None
         lib.drt_parse_obj.restype = ctypes.c_void_p
         lib.drt_parse_obj.argtypes = [ctypes.c_char_p]

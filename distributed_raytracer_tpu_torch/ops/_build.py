@@ -48,8 +48,8 @@ _SIGNATURES = {
         "drt_bsr_any": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _i32, _p, _p, _p,
                                _i32, _i32, _i32, _i32, _p]),
         "drt_bsr_nearest_mxu": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _p, _p,
-                                       _p, _i32, _p, _p, _p, _p, _p, _i32,
-                                       _i32, _i32, _p]),
+                                       _p, _i32, _p, _p, _p, _p, _p, _p,
+                                       _i32, _i32, _i32, _i32, _p]),
         "drt_bsr_any_mxu": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _p, _p,
                                    _i32, _p, _p, _p, _i32, _i32, _i32, _p]),
         "drt_cuda_error_string": (ctypes.c_char_p, [_i32]),

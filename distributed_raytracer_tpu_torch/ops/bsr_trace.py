@@ -52,10 +52,10 @@ _BUCKET_SEGMENT = 16384
 # Threads per block of the CUDA-core kernels (K1-K3); rt / THREADS rays
 # per thread.
 THREADS = 128
-# Work items per block of the CUDA-core kernels (K1, K2 with a shared
-# origin; K3n, K3a with per-ray origins), whose grid runs over chunks of the
-# work list (csrc/bsr_trace.cu); chosen on the H100 for both origin forms
-# (PERF.md).
+# Work items per block of the traversal kernels (K1, K2 with a shared
+# origin; K3n, K3a with per-ray origins; K4, K5 in the tensor-core form),
+# whose grid runs over chunks of the work list (csrc/bsr_trace.cu); chosen
+# on the H100 for every form (PERF.md).
 CHUNK = 2
 # Pairs per chunk of the plain versions: bounds their peak memory (an
 # unchunked (W, tb, rt) pair tensor is gigabytes at frame sizes).
@@ -65,9 +65,9 @@ _REF_CHUNK_PAIRS = 1 << 22
 # "_mxu": the (A, scal) tuple on the tensor cores). Incremented only where
 # the CUDA kernel is launched, never by the plain versions; a caller resets
 # them to 0 to count the launches of one run. One count per call: a nearest
-# call of either origin form (K1, K3n) is three device launches (seed the
-# keys, the chunks, unpack), an any-hit call (K2, K3a) a copy of init and
-# the chunks, a tensor-core call (K4, K5) one launch.
+# call of any triangle form (K1, K3n, K4) is three device launches (seed the
+# keys, the chunks, unpack), an any-hit call (K2, K3a, K5) a copy of init
+# and the chunks.
 LAUNCHES = {"bsr_nearest": 0, "bsr_any": 0, "bsr_nearest_rays": 0,
             "bsr_any_rays": 0, "bsr_nearest_mxu": 0, "bsr_any_mxu": 0}
 
@@ -358,13 +358,13 @@ def bsr_nearest(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
                     _ptr(count), w, _ptr(init_t), _ptr(init_i),
                     _ptr(gid_base))
             tail = (_ptr(out_t), _ptr(out_i), rt, tb, exit_every)
+            # The chunks merge through an int64 key per ray (three
+            # launches: seed, chunks, unpack).
+            keys = torch.empty(r, dtype=torch.int64, device=dev)
             if mxu:
                 _build.launch("bsr_trace", lib.drt_bsr_nearest_mxu, *head,
-                              *tail, stream)
+                              _ptr(keys, 8), *tail, CHUNK, stream)
             else:
-                # The chunks merge through an int64 key per ray (three
-                # launches: seed, chunks, unpack).
-                keys = torch.empty(r, dtype=torch.int64, device=dev)
                 _build.launch("bsr_trace", lib.drt_bsr_nearest, *head,
                               _ptr(keys, 8), *tail, CHUNK, int(shared_origin),
                               stream)
@@ -403,12 +403,12 @@ def bsr_any(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
             stream = torch.cuda.current_stream(dev).cuda_stream
             head = (_ptr(rays_packed), r, _ptr(exclude), *work, _ptr(count),
                     w, _ptr(init), _ptr(gid_base), _ptr(out), rt, tb)
+            # Every ray's flag is tested as the chunks go; exit_every has
+            # nothing left to do.
             if mxu:
-                _build.launch("bsr_trace", lib.drt_bsr_any_mxu, *head,
-                              exit_every, stream)
+                _build.launch("bsr_trace", lib.drt_bsr_any_mxu, *head, CHUNK,
+                              stream)
             else:
-                # Every ray's flag is tested as the chunks go; exit_every
-                # has nothing left to do.
                 _build.launch("bsr_trace", lib.drt_bsr_any, *head, CHUNK,
                               int(shared_origin), stream)
         LAUNCHES[launch_key("bsr_any", shared_origin, mxu)] += 1

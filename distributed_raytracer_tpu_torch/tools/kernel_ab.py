@@ -5,6 +5,8 @@ tree's, in turns, on one CUDA card (the ring: one card, or one per rank).
         [--other DIR] [--cut] [--chunks 1,2,4] [--out FILE]
     python -m distributed_raytracer_tpu_torch.tools.kernel_ab --ring \\
         [--other DIR] [--cards N] [--chunks 1,2,4,8] [--out FILE]
+    python -m distributed_raytracer_tpu_torch.tools.kernel_ab --mxu \\
+        [--other DIR] [--chunks 1,2,4,8] [--out FILE]
 
 The launches are recorded once, in this tree: K1 and K2 of one 640x480
 render() of icosphere_scene(6); the three K2 launches and the three K3n
@@ -47,6 +49,21 @@ or with
 --cards N sit one per card on cuda:0..N-1 (rank i on cuda:(i % N));
 --chunks sweeps ops/ring_trace.CHUNK for K6 and K7 in this tree only.
 
+--mxu times the tensor-core form instead (use_mxu=True: K4, K5): the K4
+and K5 launches of one 640x480 render() of icosphere_scene(6) and the
+three K5 launches (bounces 0, 1, 2) of one depth-2 render_bounced() of the
+1080p sphere grid, recorded once in this tree, each with its twin: the
+same work in the (T, 16) form (K1 on pack_tris_origin rows, K2 on the
+use_mxu=False renderer's stacked per-light rows). Each tree's worker (in
+turns, as above) runs its K4/K5 wrappers on them and saves their outputs;
+every turn's outputs must equal the first turn's (the other tree's, with
+--other) bit for bit, t compared as values (a winning t of -0.0 comes back
+as +0.0 through a key merge). Each worker times the kernels (profiler,
+mean of 10 calls; CUDA events, mean of 20) and the twins on the same work,
+and render_fast() of the 640x480 use_mxu=True frame (median of 30
+synchronized calls); --chunks sweeps ops/bsr_trace.CHUNK for K4 and K5 in
+the second turn (this tree).
+
 Prints one line per measurement, and writes them to --out FILE if given.
 """
 
@@ -70,7 +87,10 @@ _CLASSES = (
     ("K6", r"ring_nearest_chunks|ring_(seed|unpack)_keys|"
            r"ring_step_kernel<\d+, false>"),
     ("K7", r"ring_any_chunks|ring_step_kernel<\d+, true>"),
-    ("K3n", r"nearest_chunk_kernel<\d+, false>|(seed|unpack)_keys<false>|"
+    # The tensor-core forms, and their key launches (<true, true>).
+    ("K4", r"nearest_mxu|(seed|unpack)_keys<true, true>"),
+    ("K5", r"any_mxu"),
+    ("K3n", r"nearest_chunk_kernel<\d+, false>|(seed|unpack)_keys<false|"
             r"nearest_rays_kernel|nearest_kernel<\d+, false>"),
     ("K3a", r"any_chunk_kernel<\d+, false>|any_rays_kernel|"
             r"any_kernel<\d+, false>"),
@@ -246,6 +266,178 @@ def _worker_frames() -> dict:
     out["bounced_ms"] = sync_ms(lambda: fast(gp[1]), 10)
     out["bounced"] = _profile(lambda: fast(gp[1]), 3)
     return out
+
+
+def _values_equal(got, want) -> bool:
+    """Outputs equal, float32 compared as values (-0.0 == +0.0)."""
+    import torch
+
+    return all(torch.equal(g.cpu(), w.cpu()) for g, w in zip(got, want))
+
+
+def _worker_mxu(path: str, out_path: str, chunks: str) -> list:
+    import statistics
+    import time
+
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops import _build, bsr_trace
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.runtime import animation
+    from distributed_raytracer_tpu_torch.utils import scenes
+
+    _build.load_library()
+    cuda = lambda a: (tuple(cuda(x) for x in a) if isinstance(a, tuple)
+                      else a.cuda() if isinstance(a, torch.Tensor) else a)
+    rows, outs = [], []
+    for rec in torch.load(path):
+        fn = getattr(bsr_trace, rec["wrapper"])
+        args = cuda(rec["args"])
+        kw = {k: cuda(v) for k, v in rec["kwargs"].items()}
+        targs, tkw = cuda(rec["twin_args"]), rec["twin_kwargs"]
+        call = lambda: fn(*args, **kw)
+        twin = lambda: fn(*targs, **tkw)
+        got = call()
+        got = got if isinstance(got, tuple) else (got,)
+        outs.append(tuple(g.cpu() for g in got))
+        row = {"tag": rec["tag"], "kernel_ms": _traversal_ms(call),
+               "call_ms": _events_ms(call), "twin_ms": _traversal_ms(twin)}
+        if chunks:
+            chosen = bsr_trace.CHUNK
+            row["chunks"] = []
+            for chunk in (int(c) for c in chunks.split(",") if c):
+                bsr_trace.CHUNK = chunk
+                row["chunks"].append((chunk, _traversal_ms(call)))
+            bsr_trace.CHUNK = chosen
+        rows.append(row)
+    torch.save(outs, out_path)
+    scene = scenes.icosphere_scene(6)
+    r = CulledRenderer(scene, 640, 480, block_size="auto", device="cuda",
+                       use_mxu=True)
+    r.render(scene.camera, block=True)
+    r.freeze(scene.camera)
+    poses = animation.orbit_camera_path(scene.camera, 16, radius=3.0)
+    for cam in poses:
+        r.render_fast(cam)
+    times = []
+    for _ in range(30):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r.render_fast(poses[1])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    rows.append({"tag": "render_fast", "ms": statistics.median(times)})
+    return rows
+
+
+def _record_mxu(path: str) -> list:
+    """Records the tensor-core launches with their (T, 16) twins into
+    path; returns [(tag, pairs)]."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops import bsr_trace
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.utils import scenes
+
+    seen = {}
+    originals = {n: getattr(bsr_trace, n) for n in ("bsr_nearest",
+                                                    "bsr_any")}
+
+    def recorder(name):
+        def call(*args, **kwargs):
+            if isinstance(args[2], tuple):
+                seen.setdefault(name, []).append((args, dict(kwargs)))
+            return originals[name](*args, **kwargs)
+        return call
+
+    scene = scenes.icosphere_scene(6)
+    plain = CulledRenderer(scene, 640, 480, block_size="auto", device="cuda")
+    mxu = CulledRenderer(None, 640, 480, prebaked=(plain.arrays_host,
+                                                   plain.tree),
+                         device="cuda", use_mxu=True)
+    grid = scenes.instanced_grid(scenes.icosphere_scene(3), 4)
+    g_plain = CulledRenderer(grid, 1920, 1080, block_size="auto",
+                             device="cuda")
+    g_mxu = CulledRenderer(None, 1920, 1080, prebaked=(g_plain.arrays_host,
+                                                       g_plain.tree),
+                           device="cuda", use_mxu=True)
+    try:
+        for n in originals:
+            setattr(bsr_trace, n, recorder(n))
+        mxu.render(scene.camera, block=True)
+        main = dict(seen)
+        seen.clear()
+        g_mxu.render_bounced(grid.camera, 2, block=True)
+    finally:
+        for n, fn in originals.items():
+            setattr(bsr_trace, n, fn)
+
+    def twin(args, kwargs, tris):
+        return ((args[0], args[1], tris) + tuple(args[3:]),
+                {k: v for k, v in kwargs.items() if k != "ablock_ids"})
+
+    args, kwargs = main["bsr_nearest"][-1]
+    launches = [("K4 640x480 primary", "bsr_nearest", args, kwargs,
+                 twin(args, kwargs, bsr_trace.pack_tris_origin(
+                     plain.dev_scene.tris_packed, args[0][0:3, 0])))]
+    args, kwargs = main["bsr_any"][-1]
+    launches.append(("K5 640x480 shadows", "bsr_any", args, kwargs,
+                     twin(args, kwargs, plain.dev_scene.lights_scal)))
+    for i, (args, kwargs) in enumerate(seen["bsr_any"]):
+        launches.append((f"K5 bounced 1080p bounce {i}", "bsr_any", args,
+                         kwargs, twin(args, kwargs,
+                                      g_plain.dev_scene.lights_scal)))
+    cpu = lambda a: (tuple(cpu(x) for x in a) if isinstance(a, tuple)
+                     else a.cpu() if isinstance(a, torch.Tensor) else a)
+    torch.save([{"tag": tag, "wrapper": wrapper, "args": cpu(args),
+                 "kwargs": {k: cpu(v) for k, v in kwargs.items()},
+                 "twin_args": cpu(t[0]),
+                 "twin_kwargs": t[1]}
+                for tag, wrapper, args, kwargs, t in launches], path)
+    return [(tag, min(int(args[6].reshape(-1)[0].item()), args[3].shape[0])
+             * kwargs["rt"] * kwargs["tb"])
+            for tag, _, args, kwargs, _ in launches]
+
+
+def _main_mxu(a, here: str, say) -> None:
+    """--mxu: K4 and K5 in turns against --other, outputs held equal."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "mxu.pt")
+        sizes = _record_mxu(path)
+        turns = ([("other", a.other), ("this", here), ("this", here),
+                  ("other", a.other)] if a.other else [("this", here)])
+        runs, outs = [], []
+        for i, (who, tree) in enumerate(turns):
+            out = os.path.join(d, f"out{i}.pt")
+            runs.append((who, _run_worker(
+                tree, "mxu", path, chunks=a.chunks if i == min(
+                    1, len(turns) - 1) else "", out=out)))
+            outs.append(torch.load(out))
+    for i, (tag, pairs) in enumerate(sizes):
+        # The tensor-core bound: 54 tensor operations per pair at the TF32
+        # peak, or the 6-operation epilogue at the FP32 peak; as issued (K
+        # padded to 8, 144 per pair); the 21-operation FP32 bound.
+        tc = max(pairs * 54 / 495e12, pairs * 6 / 67e12) * 1e3
+        issued = pairs * 144 / 495e12 * 1e3
+        fp32 = pairs * 21 / 67e12 * 1e3
+        say(f"[mxu] {tag}: {pairs / 1e9:.4f} G pairs; bound {tc:.4f} ms "
+            f"(tensor-core), {issued:.4f} ms as issued, {fp32:.4f} ms at 21 "
+            f"FP32 operations per pair")
+        for (who, rows), out in zip(runs, outs):
+            r = rows[i]
+            say(f"    {who}: kernels {r['kernel_ms']:.4f} ms "
+                f"({tc / r['kernel_ms']:.2%} of the tensor-core bound, {fp32 / r['kernel_ms']:.2%} of "
+                f"the 21-operation one), call {r['call_ms']:.4f} ms; twin "
+                f"(K1/K2 on the same work) {r['twin_ms']:.4f} ms; outputs "
+                f"equal to the first turn's: "
+                f"{_values_equal(out[i], outs[0][i])}")
+            for chunk, ms in r.get("chunks", ()):
+                say(f"        {chunk} items per block: kernels {ms:.4f} ms")
+    for who, rows in runs:
+        say(f"[mxu] {who} render_fast 640x480 use_mxu=True: "
+            f"{rows[-1]['ms']:.3f} ms synchronized (median of 30)")
 
 
 # Phase ring: the 640x480 sphere-grid frame over RING_N ranks.
@@ -495,12 +687,12 @@ def _record(path: str) -> list:
 
 def _run_worker(tree: str, mode: str, path: str = "",
                 cut: bool = False, cards: int = 1,
-                chunks: str = "") -> object:
+                chunks: str = "", out: str = "") -> object:
     """Runs this file's worker with `tree` first on the import path."""
     res = subprocess.run(
         [sys.executable, os.path.abspath(__file__), "--worker", mode,
          "--tree", tree, "--launches", path, "--cards", str(cards),
-         "--chunks", chunks] + ["--cut"] * cut,
+         "--chunks", chunks, "--out", out] + ["--cut"] * cut,
         capture_output=True, text=True, timeout=1200)
     for line in res.stdout.splitlines():
         if line.startswith("RESULT "):
@@ -536,6 +728,7 @@ def main(argv=None) -> int:
     ap.add_argument("--chunks", default="")
     ap.add_argument("--out")
     ap.add_argument("--ring", action="store_true")
+    ap.add_argument("--mxu", action="store_true")
     ap.add_argument("--cards", type=int, default=1)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     ap.add_argument("--tree", help=argparse.SUPPRESS)
@@ -546,7 +739,9 @@ def main(argv=None) -> int:
         result = (_worker_kernels(a.launches, a.cut)
                   if a.worker == "kernels"
                   else _worker_ring(a.launches, a.cards, a.chunks)
-                  if a.worker == "ring" else _worker_frames())
+                  if a.worker == "ring"
+                  else _worker_mxu(a.launches, a.out, a.chunks)
+                  if a.worker == "mxu" else _worker_frames())
         print("RESULT " + json.dumps(result))
         return 0
 
@@ -572,6 +767,8 @@ def main(argv=None) -> int:
     say(f"gpu: {card}; torch {torch.__version__}")
     if a.ring:
         _main_ring(a, here, say)
+    elif a.mxu:
+        _main_mxu(a, here, say)
     else:
         _main_traversal(a, here, say, bsr_trace)
     say(f"gpu: {card}")

@@ -2,7 +2,7 @@
 built library, on a machine with the CUDA toolkit.
 
     python -m distributed_raytracer_tpu_torch.tools.sass_loops [REGEX]
-        [--lib bsr_trace|ring_trace]
+        [--lib bsr_trace|ring_trace] [--mxu]
 
 Builds (or loads) csrc/<lib>.cu (default bsr_trace) through ops/_build,
 disassembles the library with `cuobjdump -sass` and prints, for every
@@ -12,6 +12,12 @@ backward branch and the instructions from its target to it) with its
 instruction count by opcode. The row loop is the innermost loop that holds
 the pair math: unrolled by two, at RPT = 4 it covers two triangle rows x
 four rays per thread, 8 pairs per pass.
+
+--mxu takes the tensor-core kernels K4 and K5 at rt = 512 instead
+(NT = 8 column tiles per warp, 8 warps). Their row loop is the loop over
+16-row slices that holds the mma (HMMA): per pass a lane covers NT 16x8
+tiles of 4 pairs each, so each loop holding HMMA is also given per 16x8
+tile (a warp's instructions for one tile) and per pair (a lane's).
 """
 
 from __future__ import annotations
@@ -59,10 +65,14 @@ def loops(ins: list) -> list:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("regex", nargs="?", default=r"chunk(_kernel|s)ILi4E")
+    ap.add_argument("regex", nargs="?",
+                    default=r"(?<!mxu_)chunk(_kernel|s)ILi4E")
     ap.add_argument("--lib", default="bsr_trace",
                     choices=("bsr_trace", "ring_trace"))
+    ap.add_argument("--mxu", action="store_true")
     a = ap.parse_args(argv)
+    if a.mxu:
+        a.regex = r"mxu_chunk_kernelILi8ELi8E"
     from distributed_raytracer_tpu_torch.ops import _build
 
     lib = _build._compile(a.lib)
@@ -74,10 +84,14 @@ def main(argv=None) -> int:
         if not re.search(a.regex, name):
             continue
         print(name)
+        nt = re.search(r"mxu_chunk_kernelILi(\d+)E", name)
         for lo, hi, ops in loops(ins):
-            print(f"  loop {lo:#x}-{hi:#x}: {sum(ops.values())} "
-                  "instructions; " + ", ".join(
-                      f"{k} {v}" for k, v in ops.most_common()))
+            n = sum(ops.values())
+            per = (f" ({n / int(nt.group(1)):.1f} per 16x8 tile, "
+                   f"{n / (4 * int(nt.group(1))):.1f} per pair)"
+                   if nt and ops.get("HMMA") else "")
+            print(f"  loop {lo:#x}-{hi:#x}: {n} instructions{per}; "
+                  + ", ".join(f"{k} {v}" for k, v in ops.most_common()))
     return 0
 
 

@@ -28,6 +28,11 @@ schedule differently from the plain versions:
     slots past `count`; `entry` is each item's least valid t, so the
     front-to-back skip (exit_every > 0) has real work and stays exact.
 The nearest and any-hit launches share the rays (row 6 carries t_max).
+With a shared origin the launch also comes in the tensor-core form (K4,
+K5): the tuple (pack_dirs A, fold_origin_scal scalars) of the same rows,
+with `ablock_ids`, for ORIGIN alone or with the scalars of a second origin
+stacked after ORIGIN's over the one A (the all-lights shadow launch's
+indexing: every other live item reads the second origin's scalars).
 `ring_edge_case` turns the same rows and rays into one query of the ring's
 step kernels (ops/ring_trace.py: K6, K7) over n ranks.
 """
@@ -47,6 +52,7 @@ from distributed_raytracer_tpu_torch.utils.config import DEFAULT_CONFIG
 
 N_TILES = 8
 ORIGIN = (0.31, -0.22, 3.4)
+ORIGIN2 = (-0.45, 0.35, 3.1)  # the tensor-core form's second origin
 GID_BASE = 5
 _PAST_COUNT = 10  # live-looking slots past count
 
@@ -55,7 +61,8 @@ _PAST_COUNT = 10  # live-looking slots past count
 class EdgeCaseLaunch:
     rays: torch.Tensor       # (8, R): origins, directions, t_max
     exclude: torch.Tensor    # (R,) int32
-    tris: torch.Tensor       # (T, 16) pack_tris_origin or pack_tris rows
+    tris: torch.Tensor       # (T, 16) pack_tris_origin or pack_tris rows,
+    #                          or the tuple (A (3T, 8), scal (S, 8))
     tile_ids: torch.Tensor   # (W,) int32
     block_ids: torch.Tensor  # (W,) int32
     entry: torch.Tensor      # (W,) float32
@@ -67,27 +74,54 @@ class EdgeCaseLaunch:
     rt: int
     tb: int
     shared_origin: bool = True
+    ablock_ids: torch.Tensor | None = None  # (W,) int32, the tuple form's
 
     @property
     def kwargs(self) -> dict:
         return {"rt": self.rt, "tb": self.tb,
                 "shared_origin": self.shared_origin}
 
+    def _ablock(self) -> tuple:
+        return () if self.ablock_ids is None else (self.ablock_ids,)
+
     def nearest_args(self) -> tuple:
         return (self.rays, self.exclude, self.tris, self.tile_ids,
                 self.block_ids, self.entry, self.count, self.init_t,
-                self.init_i, self.gid_base)
+                self.init_i, self.gid_base) + self._ablock()
 
     def any_args(self) -> tuple:
         return (self.rays, self.exclude, self.tris, self.tile_ids,
                 self.block_ids, self.entry, self.count, self.init_hit,
-                self.gid_base)
+                self.gid_base) + self._ablock()
 
     def to(self, device) -> "EdgeCaseLaunch":
+        def move(x):
+            if isinstance(x, tuple):
+                return tuple(move(a) for a in x)
+            return x.to(device) if isinstance(x, torch.Tensor) else x
         return dataclasses.replace(self, **{
-            f.name: getattr(self, f.name).to(device)
-            for f in dataclasses.fields(self)
-            if isinstance(getattr(self, f.name), torch.Tensor)})
+            f.name: move(getattr(self, f.name))
+            for f in dataclasses.fields(self)})
+
+    def rows(self) -> torch.Tensor:
+        """The (S, 16) pack_tris_origin rows of the launch: its tris, or,
+        in the tuple form, scalar block b's (num, a_u, a_v) beside A block
+        b mod n_blocks's directions (ablock_ids == block_ids mod n_blocks)."""
+        if not isinstance(self.tris, tuple):
+            return self.tris
+        dirs, scal = self.tris
+        tb = self.tb
+        a = dirs.reshape(-1, 3, tb, 8)
+        a = a[torch.arange(scal.shape[0] // tb) % a.shape[0]]
+        rows = scal.new_zeros((scal.shape[0], 16))
+        for k in range(3):
+            rows[:, 4 * k:4 * k + 3] = a[:, k, :, 3:6].reshape(-1, 3)
+            rows[:, 4 * k + 3] = scal[:, k]
+        return rows
+
+    def twin(self) -> "EdgeCaseLaunch":
+        """The same launch in the (S, 16) form (K1, K2)."""
+        return dataclasses.replace(self, tris=self.rows(), ablock_ids=None)
 
     def visited(self) -> torch.Tensor:
         """(R,) bool: rays of the tiles the live slots name."""
@@ -230,12 +264,18 @@ def _dense_items(rays, exclude, tris, gid_base, rt, tb, shared_origin):
 
 
 def edge_case_launch(rt: int = 512, tb: int = 64, chunk: int | None = None,
-                     seed: int = 0,
-                     shared_origin: bool = True) -> EdgeCaseLaunch:
+                     seed: int = 0, shared_origin: bool = True,
+                     mxu_origins: int = 0) -> EdgeCaseLaunch:
     """The launch, on the CPU (`.to(device)` moves it), in one origin form:
     shared (pack_tris_origin rows for ORIGIN) or per-ray (static pack_tris
     rows, origins from `_ray_origins`). `chunk` (default bsr_trace.CHUNK)
-    sizes the heavy tile: more than 4 * chunk items."""
+    sizes the heavy tile: more than 4 * chunk items. With mxu_origins 1 or
+    2 (shared origin only) the triangles are the tensor-core tuple instead
+    (`_tuple_form`)."""
+    if mxu_origins not in (0, 1, 2):
+        raise ValueError(f"mxu_origins={mxu_origins}: 0, 1 or 2")
+    if mxu_origins and not shared_origin:
+        raise ValueError("the tensor-core form implies a shared origin")
     chunk = bsr_trace.CHUNK if chunk is None else chunk
     rng = np.random.default_rng(seed)
     scene = _two_spheres()
@@ -343,12 +383,60 @@ def edge_case_launch(rt: int = 512, tb: int = 64, chunk: int | None = None,
     entry = np.where(np.arange(len(t_ids)) < count,
                      least[t_ids, b_ids], 0.0).astype(np.float32)
     i32 = lambda a: torch.from_numpy(np.asarray(a, np.int32))
-    return EdgeCaseLaunch(
+    launch = EdgeCaseLaunch(
         rays=rays, exclude=exclude, tris=tris, tile_ids=i32(t_ids),
         block_ids=i32(b_ids), entry=torch.from_numpy(entry),
         count=i32([count]), init_t=torch.from_numpy(init_t),
         init_i=torch.from_numpy(init_i), init_hit=torch.from_numpy(init_hit),
         gid_base=gid_base, rt=rt, tb=tb, shared_origin=shared_origin)
+    if mxu_origins:
+        static_rows = static.numpy()
+        launch = _tuple_form(launch, np.concatenate(
+            [static_rows, static_rows[busy * tb:(busy + 1) * tb]]),
+            mxu_origins)
+    return launch
+
+
+def _tuple_form(launch: EdgeCaseLaunch, static: np.ndarray,
+                origins: int) -> EdgeCaseLaunch:
+    """The shared-origin launch with its (T, 16) rows as the tensor-core
+    tuple: A = pack_dirs of the rows (whose directions are the static
+    rows'), scal = their (num, a_u, a_v) columns, which fold_origin_scal of
+    the static rows for ORIGIN gives bit for bit (the scene and the copied
+    block; the origin-plane and zero blocks are built folded). With two
+    origins, fold_origin_scal of the static scene and copied rows for
+    ORIGIN2 (the origin-plane and zero blocks as zero rows: num = a_u =
+    a_v = 0) is stacked after them, every other live item's block id
+    carries the n_blocks offset into it, ablock_ids stays the A block, and
+    each live item's entry is its least valid t under its own scalars."""
+    tb = launch.tb
+    rows = launch.tris
+    n_blocks = rows.shape[0] // tb
+    dirs = torch.from_numpy(bsr_trace.pack_dirs(rows.numpy(), tb))
+    pad = rows.new_zeros((rows.shape[0], 5))
+    scal = torch.cat([rows[:, [3, 7, 11]], pad], dim=1)
+    block_ids = launch.block_ids.clone()
+    ablock_ids = launch.block_ids.clone()
+    entry = launch.entry.clone()
+    if origins == 2:
+        static = torch.from_numpy(np.concatenate([
+            static, np.zeros((rows.shape[0] - static.shape[0], 16),
+                             np.float32)]))
+        scal = torch.cat([scal, bsr_trace.fold_origin_scal(
+            static, torch.tensor(ORIGIN2, dtype=torch.float32))])
+        n = int(launch.count)
+        second = torch.arange(1, n, 2)
+        block_ids[second] += n_blocks
+        for k in range(0, len(second), 32):
+            w = second[k:k + 32]
+            t, valid, _, _ = bsr_trace._pairs(
+                launch.rays, launch.exclude, (dirs, scal),
+                launch.tile_ids[w].long(), block_ids[w].long(),
+                ablock_ids[w].long(), launch.gid_base.long(), launch.rt, tb,
+                True)
+            entry[w] = torch.where(valid, t, float("inf")).amin(dim=(1, 2))
+    return dataclasses.replace(launch, tris=(dirs, scal), block_ids=block_ids,
+                               ablock_ids=ablock_ids, entry=entry)
 
 
 def ring_edge_case(n: int, rt: int = 128, shared_origin: bool = False):
@@ -374,3 +462,93 @@ def ring_edge_case(n: int, rt: int = 128, shared_origin: bool = False):
     exclude = torch.where(launch.exclude >= 0, launch.exclude - GID_BASE,
                           -1).to(torch.int32)
     return launch.rays.contiguous(), tris, exclude
+
+
+def ambiguous_rays(L: EdgeCaseLaunch, rtol: float = 1e-6,
+                   origin_ulps: float = 4.0, dot_ulps: float = 0.0):
+    """((R,) bool for the nearest query, (R,) bool for the any-hit query):
+    the rays of L whose result may differ between two implementations of
+    the pair math that round differently, found from the port's own pair
+    math over each ray's live items:
+      - a pair with a barycentric (u, v or u + v) within rtol of a
+        BARY_EPS bound, no farther than the ray's nearest hit (any hit: its
+        t_max);
+      - two candidates (triangles, or a triangle and the init seed) whose t
+        agree to rtol at the ray's nearest hit; any hit: a valid pair whose
+        t agrees with t_max to rtol;
+      - a grazing hit no farther than that, whose den = n.d cancels so far
+        (sum |n_i d_i| > 2^23 * rtol |den|) that t itself is uncertain
+        beyond rtol; with per-ray origins also a numerator w - n.o that
+        cancels as far.
+    With per-ray origins the band is widened by origin_ulps ulps of the
+    origin dots' terms (sum |k_i o_i|). dot_ulps > 0 widens it by the error
+    of direction dots computed elsewhere (the tensor cores' 3xTF32) to
+    dot_ulps ulps of their terms: in t through den, in u and v through
+    k_u.d, k_v.d and t. XLA's fused multiply-adds (test_torch_bsr_edges)
+    need rtol 1e-6 and no dot_ulps."""
+    eps = bsr_trace.BARY_EPS
+    shaky_ratio = rtol * 2.0 ** 23
+    ulp = 2.0 ** -24
+    rt, tb = L.rt, L.tb
+    r = L.rays.shape[1]
+    n = int(L.count)
+    tris = L.rows().reshape(-1, tb, 16)
+    o, d = L.rays[0:3].T, L.rays[3:6].T
+    near = torch.zeros(r, dtype=torch.bool)
+    any_hit = torch.zeros(r, dtype=torch.bool)
+    tile_ids = L.tile_ids[:n]
+    for tile in torch.unique(tile_ids).tolist():
+        blocks = L.block_ids[:n][tile_ids == tile].long()
+        tr = tris[blocks].reshape(-1, 16)                     # (P, 16)
+        gid = (int(L.gid_base) + blocks[:, None] * tb
+               + torch.arange(tb)).reshape(-1)
+        sl = slice(tile * rt, (tile + 1) * rt)
+
+        def dot(c0, x):                                       # (rt, P)
+            k = tr[None, :, c0:c0 + 3] * x[sl, None, :]
+            return k[..., 0] + k[..., 1] + k[..., 2], k.abs().sum(-1)
+
+        den, den_abs = dot(0, d)
+        kud, kud_abs = dot(4, d)
+        kvd, kvd_abs = dot(8, d)
+        num, au, av = tr[None, :, 3], tr[None, :, 7], tr[None, :, 11]
+        num_abs, slack = num.abs(), 0.0
+        if not L.kwargs["shared_origin"]:                     # per-ray o
+            o_n, on_abs = dot(0, o)
+            o_u, ou_abs = dot(4, o)
+            o_v, ov_abs = dot(8, o)
+            num_abs = num_abs + on_abs
+            num, au, av = num - o_n, o_u + au, o_v + av
+            slack = origin_ulps * ulp * (ou_abs + ov_abs)
+        t = num / den
+        u = au + t * kud
+        v = av + t * kvd
+        uv = u + v
+        t_rel = rtol
+        if dot_ulps:
+            t_err = dot_ulps * ulp * den_abs / den.abs()      # relative
+            slack = slack + dot_ulps * ulp * t.abs() * (
+                kud_abs + kvd_abs) + t_err * t.abs() * (kud.abs()
+                                                        + kvd.abs())
+            t_rel = rtol + t_err
+        valid = ((den != 0) & (t >= 0) & (u >= -eps) & (u <= 1 + eps)
+                 & (uv >= -eps) & (uv <= 1 + eps) & (v >= -eps)
+                 & (gid[None, :] != L.exclude[sl, None]))
+        margin = torch.stack([u + eps, 1 + eps - u, v + eps, uv + eps,
+                              1 + eps - uv]).abs().amin(0)
+        edge = (margin <= rtol + slack) & (t >= 0)
+        shaky = valid & ((den_abs > shaky_ratio * den.abs())
+                         | (num_abs > shaky_ratio * num.abs()))
+        best = torch.where(valid, t, float("inf")).amin(1)
+        seed = L.init_t[sl]
+        m = torch.minimum(best, seed)[:, None]
+        close = (t - m).abs() <= t_rel * m
+        ties = (valid & close).sum(1) + ((seed - best).abs()
+                                         <= rtol * best).int() >= 2
+        reach = t <= m * (1 + t_rel)
+        near[sl] = ties | ((edge | shaky) & reach).any(1)
+        tmax = L.rays[6, sl, None]
+        at_tmax = valid & ((t - tmax).abs() <= t_rel * tmax)
+        any_hit[sl] = (at_tmax | ((edge | shaky)
+                                  & (t <= tmax * (1 + t_rel)))).any(1)
+    return near, any_hit

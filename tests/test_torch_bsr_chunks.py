@@ -1,6 +1,7 @@
-"""The premise of the CUDA-core kernels' chunk grid (csrc/bsr_trace.cu: K1
-and K2 with a shared origin, K3n and K3a with per-ray origins), tested with
-the plain versions on the CPU in both origin forms.
+"""The premise of the traversal kernels' chunk grid (csrc/bsr_trace.cu: K1
+and K2 with a shared origin, K3n and K3a with per-ray origins, K4 and K5 in
+the tensor-core form), tested with the plain versions on the CPU in every
+triangle form.
 
 The kernels split the work list into consecutive chunks of C items, fold
 each chunk on its own and merge the chunks into the result: nearest hits by
@@ -10,7 +11,9 @@ the whole list's result bit for bit whatever C is. The inputs are
 utils/trace_cases.edge_case_launch's: ties between two ids at one t, hits
 at t = -0.0, tiles without items (which keep init), chunks that straddle
 tiles, slots past count; per ray, origins on the spheres' surfaces that
-exclude their own triangle.
+exclude their own triangle; in the tensor-core form (A, scal) with
+ablock_ids, for one origin and for two origins' scalars stacked over one A
+(every other live item reads the second origin's).
 """
 
 import numpy as np
@@ -23,18 +26,43 @@ from distributed_raytracer_tpu_torch.utils import trace_cases
 RT, TB = 256, 64
 
 
-@pytest.fixture(scope="module", params=[True, False],
-                ids=["shared", "per_ray"])
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Runs the module's torch ops on one thread: under pytest-xdist every
+    worker's torch would otherwise start a thread per core and the workers
+    oversubscribe the machine (tests/test_torch_ring_chunks.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+FORMS = {"shared": dict(shared_origin=True),
+         "per_ray": dict(shared_origin=False),
+         "mxu": dict(mxu_origins=1),
+         "mxu_two_origins": dict(mxu_origins=2)}
+
+
+@pytest.fixture(scope="module", params=["shared", "per_ray"])
 def launch(request):
     return trace_cases.edge_case_launch(RT, TB, chunk=8,
-                                        shared_origin=request.param)
+                                        **FORMS[request.param])
+
+
+@pytest.fixture(scope="module", params=list(FORMS))
+def any_form(request):
+    """The launch in every triangle form, the tensor-core tuple's too."""
+    return trace_cases.edge_case_launch(RT, TB, chunk=8,
+                                        **FORMS[request.param])
 
 
 def chunk_args(L, s, e):
     """The launch's work list cut to the items [s, e), with default
-    init."""
+    init, and its ablock_ids as a keyword ({} outside the tuple form)."""
+    kw = ({} if L.ablock_ids is None
+          else {"ablock_ids": L.ablock_ids[s:e].contiguous()})
     return (L.rays, L.exclude, L.tris, L.tile_ids[s:e].contiguous(),
-            L.block_ids[s:e].contiguous(), L.entry[s:e].contiguous())
+            L.block_ids[s:e].contiguous(), L.entry[s:e].contiguous()), kw
 
 
 def unpack(keys):
@@ -44,8 +72,8 @@ def unpack(keys):
 
 @pytest.mark.parametrize("query", ["nearest", "any"])
 @pytest.mark.parametrize("chunk", [1, 3, 8])
-def test_chunk_merge_equals_whole_list(launch, chunk, query):
-    L = launch
+def test_chunk_merge_equals_whole_list(any_form, chunk, query):
+    L = any_form
     n = int(L.count)
     starts = range(0, n, chunk)
     assert any(len(set(L.tile_ids[s:s + chunk].tolist())) > 1
@@ -55,8 +83,9 @@ def test_chunk_merge_equals_whole_list(launch, chunk, query):
                                                 **L.kwargs)
         merged = tbsr._keys(L.init_t, L.init_i)
         for s in starts:
-            t, i = tbsr.bsr_nearest_ref(*chunk_args(L, s, min(s + chunk, n)),
-                                        gid_base=L.gid_base, **L.kwargs)
+            args, kw = chunk_args(L, s, min(s + chunk, n))
+            t, i = tbsr.bsr_nearest_ref(*args, gid_base=L.gid_base, **kw,
+                                        **L.kwargs)
             merged = torch.minimum(merged, tbsr._keys(t, i))
         got_t, got_i = unpack(merged)
         assert torch.equal(got_t.view(torch.int32),
@@ -66,8 +95,9 @@ def test_chunk_merge_equals_whole_list(launch, chunk, query):
         whole = tbsr.bsr_any_ref(*L.any_args(), **L.kwargs)
         merged = L.init_hit.clone()
         for s in starts:
-            merged |= tbsr.bsr_any_ref(*chunk_args(L, s, min(s + chunk, n)),
-                                       gid_base=L.gid_base, **L.kwargs)
+            args, kw = chunk_args(L, s, min(s + chunk, n))
+            merged |= tbsr.bsr_any_ref(*args, gid_base=L.gid_base, **kw,
+                                       **L.kwargs)
         assert torch.equal(merged, whole)
 
 

@@ -46,8 +46,6 @@ from distributed_raytracer_tpu_torch.utils import trace_cases
 
 EPS = tbsr.BARY_EPS
 RTOL = 1e-6
-# sum |n_i d_i| / |den| above which t is uncertain beyond RTOL (f32).
-SHAKY = RTOL * 2.0 ** 23
 # At most this share of the visited rays may be set aside: the launch aims
 # about half its rays at vertices and edges on purpose.
 AMBIGUOUS_SHARE = 0.4
@@ -56,65 +54,22 @@ AMBIGUOUS_SHARE = 0.4
 ORIGIN_ULPS = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Runs the module's torch ops on one thread: under pytest-xdist every
+    worker's torch would otherwise start a thread per core and the workers
+    oversubscribe the machine (tests/test_torch_ring_chunks.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def ambiguous(L):
     """((R,) bool for the nearest query, (R,) bool for the any-hit query):
-    rays whose result may differ under fused multiply-adds."""
-    rt, tb = L.rt, L.tb
-    r = L.rays.shape[1]
-    n = int(L.count)
-    tris = L.tris.reshape(-1, tb, 16)
-    o, d = L.rays[0:3].T, L.rays[3:6].T
-    near = torch.zeros(r, dtype=torch.bool)
-    any_hit = torch.zeros(r, dtype=torch.bool)
-    tile_ids = L.tile_ids[:n]
-    for tile in torch.unique(tile_ids).tolist():
-        blocks = L.block_ids[:n][tile_ids == tile].long()
-        tr = tris[blocks].reshape(-1, 16)                     # (P, 16)
-        gid = (int(L.gid_base) + blocks[:, None] * tb
-               + torch.arange(tb)).reshape(-1)
-        sl = slice(tile * rt, (tile + 1) * rt)
-
-        def dot(c0, x):                                       # (rt, P)
-            k = tr[None, :, c0:c0 + 3] * x[sl, None, :]
-            return k[..., 0] + k[..., 1] + k[..., 2], k.abs().sum(-1)
-
-        den, den_abs = dot(0, d)
-        kud, _ = dot(4, d)
-        kvd, _ = dot(8, d)
-        num, au, av = tr[None, :, 3], tr[None, :, 7], tr[None, :, 11]
-        num_abs, slack = num.abs(), 0.0
-        if not L.kwargs["shared_origin"]:                     # per-ray o
-            o_n, on_abs = dot(0, o)
-            o_u, ou_abs = dot(4, o)
-            o_v, ov_abs = dot(8, o)
-            num_abs = num_abs + on_abs
-            num, au, av = num - o_n, o_u + au, o_v + av
-            slack = ORIGIN_ULPS * 2.0 ** -24 * (ou_abs + ov_abs)
-        t = num / den
-        u = au + t * kud
-        v = av + t * kvd
-        uv = u + v
-        valid = ((den != 0) & (t >= 0) & (u >= -EPS) & (u <= 1 + EPS)
-                 & (uv >= -EPS) & (uv <= 1 + EPS) & (v >= -EPS)
-                 & (gid[None, :] != L.exclude[sl, None]))
-        margin = torch.stack([u + EPS, 1 + EPS - u, v + EPS, uv + EPS,
-                              1 + EPS - uv]).abs().amin(0)
-        edge = (margin <= RTOL + slack) & (t >= 0)
-        shaky = valid & ((den_abs > SHAKY * den.abs())
-                         | (num_abs > SHAKY * num.abs()))
-        best = torch.where(valid, t, float("inf")).amin(1)
-        seed = L.init_t[sl]
-        m = torch.minimum(best, seed)[:, None]
-        close = (t - m).abs() <= RTOL * m
-        ties = (valid & close).sum(1) + ((seed - best).abs()
-                                         <= RTOL * best).int() >= 2
-        reach = t <= m * (1 + RTOL)
-        near[sl] = ties | ((edge | shaky) & reach).any(1)
-        tmax = L.rays[6, sl, None]
-        at_tmax = valid & ((t - tmax).abs() <= RTOL * tmax)
-        any_hit[sl] = (at_tmax | ((edge | shaky)
-                                  & (t <= tmax * (1 + RTOL)))).any(1)
-    return near, any_hit
+    rays whose result may differ under fused multiply-adds
+    (utils/trace_cases.ambiguous_rays)."""
+    return trace_cases.ambiguous_rays(L, rtol=RTOL, origin_ulps=ORIGIN_ULPS)
 
 
 def check_against_pallas(L, exit_every):
@@ -122,11 +77,18 @@ def check_against_pallas(L, exit_every):
     one launch, ambiguous rays set aside; returns the set-aside shares
     (nearest, any hit) of the visited rays."""
     n = int(L.count)
-    j = lambda a: jnp.asarray(a.numpy())
+
+    def j(a):
+        if isinstance(a, tuple):
+            return tuple(j(x) for x in a)
+        return jnp.asarray(a.numpy())
+
     common = (j(L.rays), j(L.exclude), j(L.tris), j(L.tile_ids),
               j(L.block_ids), j(L.entry), jnp.int32(n))
     static = dict(L.kwargs, w_pad=len(L.tile_ids), interpret=True,
                   exit_every=exit_every)
+    if L.ablock_ids is not None:
+        static["ablock_ids"] = j(L.ablock_ids)
     wt, wi = jbsr.bsr_nearest(*common, j(L.init_t), j(L.init_i),
                               jnp.int32(int(L.gid_base)), **static)
     wa = jbsr.bsr_any(*common, j(L.init_hit), jnp.int32(int(L.gid_base)),
@@ -173,6 +135,20 @@ def test_per_ray_edge_cases_match_pallas(tb, exit_every):
     Pallas kernels with shared_origin=False."""
     L = trace_cases.edge_case_launch(256, tb, shared_origin=False)
     check_against_pallas(L, exit_every)
+
+
+@pytest.mark.parametrize("origins,exit_every", [(1, 0), (2, 32)])
+def test_tuple_form_edge_cases_match_pallas_mxu(origins, exit_every):
+    """K4/K5's plain versions on the tensor-core tuple (A, scal) with
+    ablock_ids against the Pallas _nearest_mxu_kernel / _any_mxu_kernel in
+    interpret mode, whose three dots are one HIGHEST-precision product: one
+    origin, and two origins' scalars stacked over one A (every other live
+    item reads the second's). A small launch (rt 128, 8 tiles); ambiguous
+    rays set aside and their share bounded as above."""
+    L = trace_cases.edge_case_launch(128, 64, mxu_origins=origins)
+    assert isinstance(L.tris, tuple)
+    shares = check_against_pallas(L, exit_every)
+    assert max(shares) <= AMBIGUOUS_SHARE
 
 
 @pytest.mark.cuda

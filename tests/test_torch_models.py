@@ -6,6 +6,7 @@ bit-equal (no tolerance)."""
 
 import collections
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -182,3 +183,37 @@ def test_config_matches():
             == dataclasses.asdict(jconfig.DEFAULT_CONFIG))
     for n in (968, 81_920, 999_999, 1_000_000, 5_242_880):
         assert tconfig.default_block_size(n) == jconfig.default_block_size(n)
+
+
+def test_native_library_builds_once_for_two_processes(tmp_path):
+    """Two processes that load the native library at once from a directory
+    without it both get it: the port's loader builds under a lock file into
+    a temporary name and renames it into place, so neither loads a
+    half-written file. Runs on a copy of native/ (never the repository's
+    own library)."""
+    import shutil
+    import subprocess
+    import sys
+
+    from distributed_raytracer_tpu_torch.models import native
+
+    if shutil.which("make") is None or shutil.which("g++") is None:
+        pytest.skip("needs make and g++ to build the native library")
+    src = os.path.join(os.path.dirname(native._NATIVE_DIR), "native")
+    d = tmp_path / "native"
+    d.mkdir()
+    for name in ("Makefile", "drt_native.cpp"):
+        shutil.copy(os.path.join(src, name), d / name)
+    code = ("import sys; from distributed_raytracer_tpu_torch.models import "
+            "native; lib = native.open_library(sys.argv[1]); "
+            "print('ok' if lib is not None and lib.drt_morton_argsort "
+            "else 'none')")
+    root = os.path.dirname(src)
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(d)], cwd=root,
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=300)[0].strip() for p in procs]
+    assert outs == ["ok", "ok"]
+    left = sorted(os.listdir(d))
+    assert "libdrt_native.so" in left
+    assert not [n for n in left if n.startswith(native._TMP_PREFIX)]

@@ -35,9 +35,21 @@ from distributed_raytracer_tpu.utils import scenes as jscenes
 from distributed_raytracer_tpu_torch.models.scene import from_reference
 from distributed_raytracer_tpu_torch.ops import bsr_trace as tbsr
 from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+from distributed_raytracer_tpu_torch.utils import trace_cases
 
 RT = 512
 W, H = 64, 48
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """Runs the module's torch ops on one thread: under pytest-xdist every
+    worker's torch would otherwise start a thread per core and the workers
+    oversubscribe the machine (tests/test_torch_ring_chunks.py)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope="module")
@@ -182,6 +194,46 @@ def test_plain_k4_equals_plain_k1(launches):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("origins", [1, 2])
+def test_plain_tuple_form_equals_rows_form_on_edge_cases(origins):
+    """utils/trace_cases.edge_case_launch in the tensor-core form against
+    the same launch in the (S, 16) pack_tris_origin form (K4 against K1, K5
+    against K2 in plain PyTorch), with and without the second origin's
+    scalars stacked over the one A: bit for bit, t as int32."""
+    L = trace_cases.edge_case_launch(256, 64, mxu_origins=origins)
+    dirs, scal = L.tris
+    shared = trace_cases.edge_case_launch(256, 64)
+    static = torch.from_numpy(tbsr.pack_tris(
+        trace_cases._two_spheres().bake()))
+    # A is the launch's rows' directions; ORIGIN's scalars are
+    # fold_origin_scal's of the static rows, bit for bit.
+    assert torch.equal(L.rows()[:shared.tris.shape[0]], shared.tris)
+    assert torch.equal(
+        scal[:static.shape[0], :3],
+        tbsr.fold_origin_scal(static, torch.tensor(trace_cases.ORIGIN))[:, :3])
+    n = int(L.count)
+    differ = (L.ablock_ids != L.block_ids)[:n]
+    assert bool(differ.any()) == (origins == 2)
+    assert torch.equal(L.ablock_ids, L.block_ids % (dirs.shape[0] // 192))
+    twin = L.twin()
+    for name, args, targs in (("bsr_nearest", L.nearest_args(),
+                               twin.nearest_args()),
+                              ("bsr_any", L.any_args(), twin.any_args())):
+        for exit_every in (0, 32):
+            kw = dict(L.kwargs, exit_every=exit_every)
+            got = getattr(tbsr, name + "_ref")(*args, **kw)
+            want = getattr(tbsr, name + "_ref")(*targs, **kw)
+            got = got if isinstance(got, tuple) else (got,)
+            want = want if isinstance(want, tuple) else (want,)
+            for a, b in zip(got, want):
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    t, _ = tbsr.bsr_nearest_ref(*L.nearest_args(), **L.kwargs)
+    hit = tbsr.bsr_any_ref(*L.any_args(), **L.kwargs)
+    vis = L.visited()
+    assert 0.2 < float(torch.isfinite(t[vis]).float().mean()) < 0.95
+    assert 0 < int(hit[vis].sum()) < int(vis.sum())
+
+
 def test_tuple_form_checks(launches):
     args, ablock, kw = launches["bsr_nearest"]
     ta = list(to_torch(args))
@@ -283,3 +335,41 @@ def test_cuda_mxu_kernels_match_plain_versions(launches):
             same = hits & (gi == pi)
             rel = ((gt - pt).abs() / pt.abs())[same]
             assert float(rel.max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_cuda_mxu_kernels_on_tuple_edge_cases():
+    """On a card: K4 and K5 on the tuple-form edge cases (one origin, two
+    origins' scalars over one A) at rt 256 and 512, with and without the
+    front-to-back skip: on the visited rays that trace_cases.ambiguous_rays
+    does not set aside (their result rests on a BARY_EPS bound, a t tie,
+    t_max or a grazing den to within the 3xTF32 dots' error), ids, hits
+    and flags equal the plain versions' and t agrees to 1e-5 relative;
+    unvisited tiles keep init."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    for rt in (256, 512):
+        for origins in (1, 2):
+            host = trace_cases.edge_case_launch(rt, 64, mxu_origins=origins)
+            near, any_hit = trace_cases.ambiguous_rays(host, dot_ulps=8)
+            L = host.to("cuda")
+            vis = L.visited().cpu()
+            assert int((near & vis).sum()) <= 0.4 * int(vis.sum())
+            for exit_every in (0, 32):
+                kw = dict(L.kwargs, exit_every=exit_every)
+                gt, gi = (x.cpu() for x in tbsr.bsr_nearest(
+                    *L.nearest_args(), **kw))
+                pt, pi = (x.cpu() for x in tbsr.bsr_nearest_ref(
+                    *L.nearest_args(), **kw))
+                ga = tbsr.bsr_any(*L.any_args(), **kw).cpu()
+                pa = tbsr.bsr_any_ref(*L.any_args(), **kw).cpu()
+                keep = vis & ~near
+                assert torch.equal(gi[keep], pi[keep])
+                hits = keep & torch.isfinite(pt)
+                assert torch.equal(torch.isfinite(gt[keep]),
+                                   torch.isfinite(pt[keep]))
+                rel = ((gt - pt).abs() / pt.abs().clamp_min(1e-30))[hits]
+                assert float(rel.max()) <= 1e-5
+                assert torch.equal(ga[vis & ~any_hit], pa[vis & ~any_hit])
+                assert torch.equal(gi[~vis], pi[~vis])
+                assert torch.equal(ga[~vis], pa[~vis])
