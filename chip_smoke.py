@@ -90,6 +90,23 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      the moved scene; a zero diff equals render_fast exactly; one call
      under sync-debug "error"; the counters show the kernel form asked for;
      median frame time per form.
+  2e. The frozen frames as CUDA graph replays (ops/frozen_graph.py), each
+     with use_mxu False and True: render_fast of the 640x480 frame, the
+     bounced 1080p depth-2 frame (freeze_bounced's render) and
+     render_dynamic of the 1080p sphere grid (a zero diff, then 8 orbit
+     diffs). Each renderer is sized on a pose that sees nothing, so the
+     first verify render overflows, recaptures and must equal the sizing
+     render (max |diff| <= 2e-5); then every pose's replay equals the same
+     stages run eagerly with the same buckets bit for bit (two eager runs
+     are compared first: were they to differ, the replay would be held to
+     atol 2e-5 and the line says so); a frame held by the caller is
+     unchanged after later replays; replays run under sync-debug "error";
+     a torch.profiler trace of one replay (no capture, no eager launch:
+     LAUNCHES stays 0) shows K1/K2 (K3n/K2 bounced; K4/K5, K3n/K5 with
+     use_mxu) by kernel name. Each line gives the graph and eager frame
+     times (synchronized medians), the host's enqueue time of each, the
+     graph's memory pool and its capture time. render_many at K = 32
+     equals render_fast per pose bit for bit, timed per frame.
   4. The dense, ray-sharded and ring renderers on the sphere grid
      (instanced_grid(icosphere_scene(3), 4): 20,480 triangles, 3 lights) at
      640x480, the ranks all on cuda:0 (n ranks share the card, each with
@@ -126,6 +143,14 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      the sphere grid, 8 frames at 1920x1080 with --bounces 2, and 8 with
      --animate-objects; 3 frames at 320x240 with --mode sequential and
      with --mode sharded --devices 4.
+  3b. runtime/loop.run_loop at 640x480 over 120 ticks of orbit_events on
+     the frozen renderer (verify every 8th frame): no drops, frames shown
+     in order, the last equal to render_fast of the final camera, FPS and
+     ms per frame; then `python -m distributed_raytracer_tpu_torch ...
+     --serve 127.0.0.1:0` as a subprocess: an HTTP client posts key and
+     mouse events, waits for 5 frames, fetches /frame.png (a lit 640x480
+     PNG) and /stats, posts Esc, and the run must exit 0 with no frame
+     dropped.
 
 Prints the versions, the card's name and power limit, the build time and
 each kernel's registers and spills, each phase's numbers, one JSON line of
@@ -1088,6 +1113,240 @@ def phase_dynamic(grid, bsr_trace):
     return launches
 
 
+# Phase 2e: the frozen frames as CUDA graph replays.
+GRAPH_MANY = 32          # render_many's batch
+GRAPH_POSES = 8          # orbit poses per frame kind
+# The kernel classes (tools/kernel_ab's, by kernel name) a replay of each
+# frame kind must show in a profiler trace, per use_mxu.
+GRAPH_KERNELS = {("fast", False): ("K1", "K2"), ("fast", True): ("K4", "K5"),
+                 ("bounced", False): ("K3n", "K2"),
+                 ("bounced", True): ("K3n", "K5"),
+                 ("dynamic", False): ("K1", "K2"),
+                 ("dynamic", True): ("K4", "K5")}
+
+
+def traced_kernels(fn) -> dict:
+    """{kernel name: launches} with device time in a profiler trace of
+    fn()."""
+    import torch
+
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if e.device_time_total > 0
+            and str(getattr(e, "device_type", "CUDA")).endswith("CUDA")}
+
+
+def enqueue_ms(fn, repeats: int = REPEATS) -> float:
+    """Median host time of fn() in ms from an idle card to its return
+    (what the host spends enqueueing; the card may still be busy)."""
+    import torch
+
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def graph_case(tag, r, kind, use_mxu, items, replay, eager, sync):
+    """Phase 2e on one frozen frame kind: renderer r, its buckets sized on
+    a pose that sees nothing (frozen_on_nothing), so that items[0]
+    overflows them; replay(item, verify) runs the frozen frame
+    (a graph replay), eager(item) the same stages with the same buckets
+    eagerly, sync(item) the exactly sized render. Returns the times."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops import bsr_trace, frozen_graph
+    from distributed_raytracer_tpu_torch.tools.kernel_ab import kernel_class
+
+    counts = frozen_graph.COUNTS
+    # Forced small buckets: the verify loop overflows, recaptures and
+    # comes back equal to the sizing render.
+    pads0 = str(r._frozen_pads if kind != "bounced" else replay.pads())
+    caps = counts["captures"]
+    first = replay(items[0], True)
+    pads1 = str(r._frozen_pads if kind != "bounced" else replay.pads())
+    recaptures = counts["captures"] - caps - 1
+    check(pads1 != pads0 and recaptures >= 1,
+          f"{tag}: small buckets did not overflow and recapture")
+    err = float((first - sync(items[0])).abs().max())
+    check(err <= 2e-5, f"{tag}: overflowed frame differs from the sizing "
+                       f"render by {err}")
+    for it in items:                 # settle the buckets on every pose
+        replay(it, True)
+    graph = r._graphs[kind]
+    key, caps = graph.key, counts["captures"]
+    # Two eager runs first: replay must equal eager bit for bit where the
+    # eager stages are themselves deterministic.
+    e1 = [eager(it) for it in items]
+    e2 = [eager(it) for it in items]
+    deterministic = all(bits_equal(a, b) for a, b in zip(e1, e2))
+    got = [replay(it, False) for it in items]
+    worst = max(float((g - e).abs().max()) for g, e in zip(got, e1))
+    equal = all(bits_equal(g, e) for g, e in zip(got, e1))
+    if deterministic:
+        check(equal, f"{tag}: a replay differs from the eager frame "
+                     f"(max |diff| {worst})")
+    else:
+        worst_e = max(float((a - b).abs().max()) for a, b in zip(e1, e2))
+        print(f"[phase 2e] {tag}: two eager runs differ (max |diff| "
+              f"{worst_e}): held to atol 2e-5")
+        check(worst <= 2e-5, f"{tag}: replay vs eager max |diff| {worst}")
+    check(graph.key == key and counts["captures"] == caps,
+          f"{tag}: a replay at settled buckets recaptured")
+    held = got[0].clone()
+    replay(items[1], False)
+    replay(items[2], False)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(got[0], held)),
+          f"{tag}: a held frame changed under later replays")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for it in items[:2]:
+            replay(it, False)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    reset_launches(bsr_trace)
+    replays = counts["replays"]
+    traced = traced_kernels(lambda: replay(items[1], False))
+    seen = {kernel_class(k) for k in traced}
+    want = GRAPH_KERNELS[(kind, use_mxu)]
+    check(all(k in seen for k in want),
+          f"{tag}: kernels {want} not in the replay's trace {sorted(seen)}")
+    check(sum(bsr_trace.LAUNCHES.values()) == 0
+          and counts["replays"] == replays + 1
+          and counts["captures"] == caps,
+          f"{tag}: the profiled frame was not one replay")
+    eager_traced = traced_kernels(lambda: eager(items[1]))
+    differ = {k: (traced.get(k, 0), eager_traced.get(k, 0))
+              for k in set(traced) | set(eager_traced)
+              if traced.get(k, 0) != eager_traced.get(k, 0)}
+    out = {"graph_ms": time_ms(lambda: replay(items[1], False)),
+           "eager_ms": time_ms(lambda: eager(items[1])),
+           "graph_enqueue_ms": enqueue_ms(lambda: replay(items[1], False)),
+           "eager_enqueue_ms": enqueue_ms(lambda: eager(items[1])),
+           "pool_bytes": graph.pool_bytes, "capture_ms": graph.capture_ms}
+    print(f"[phase 2e] {tag}: {len(items)} poses, replay == eager bit for "
+          f"bit: {equal} (max |diff| {worst}; eager runs deterministic: "
+          f"{deterministic}); small buckets {pads0} overflowed, "
+          f"{recaptures} recapture(s), frame within {err} of the sizing "
+          f"render; held frame unchanged; sync-debug \"error\" replays "
+          f"ok; replay trace shows {sorted(seen)}, "
+          f"{sum(traced.values())} kernel launches against the eager "
+          f"frame's {sum(eager_traced.values())} (names whose counts "
+          f"differ, replay / eager: {differ}); synchronized median "
+          f"graph {out['graph_ms']:.3f} ms, eager {out['eager_ms']:.3f} "
+          f"ms; host enqueue graph {out['graph_enqueue_ms']:.3f} ms, eager "
+          f"{out['eager_enqueue_ms']:.3f} ms; graph pool "
+          f"{graph.pool_bytes / 2**20:.1f} MiB, capture "
+          f"{graph.capture_ms:.1f} ms")
+    return out
+
+
+def phase_graphs(renderer, scene, bounced, grid):
+    """Phase 2e: render_fast (640x480), freeze_bounced's render (1080p,
+    depth 2) and render_dynamic (1080p) as CUDA graph replays, use_mxu
+    False and True, each against its eager stages; render_many at K = 32
+    against render_fast."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops import raygen
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.ops.render_dynamic import (
+        DynamicCulledRenderer)
+    from distributed_raytracer_tpu_torch.runtime import animation
+
+    dev = torch.device("cuda")
+    poses = animation.orbit_camera_path(scene.camera, GRAPH_POSES,
+                                        radius=3.0)
+    gposes = grid_poses(grid, GRAPH_POSES)
+    diffs = animation.orbit_object_diffs(grid, GRAPH_POSES)
+    out = {}
+    for use_mxu in (False, True):
+        r = CulledRenderer(None, W, H, prebaked=(renderer.arrays_host,
+                                                 renderer.tree),
+                           device=dev, use_mxu=use_mxu)
+        frozen_on_nothing(r, scene.camera, lambda away: r.freeze(away))
+        fast = lambda cam, v: r.render_fast(cam, verify=v)
+        out[("fast", use_mxu)] = graph_case(
+            f"render_fast 640x480 use_mxu={use_mxu}", r, "fast", use_mxu,
+            [scene.camera] + poses, fast,
+            lambda cam: r._full(r.dev_scene, r._frozen_pads,
+                                raygen.camera_arrays(cam, dev))[0],
+            lambda cam: r.render(cam, block=True))
+        many = animation.orbit_camera_path(scene.camera, GRAPH_MANY,
+                                           radius=3.0)
+        for cam in many:                 # buckets that hold every pose
+            r.render_fast(cam, verify=True)
+        imgs, counts = r.render_many(many)
+        fits = bool((counts <= torch.tensor(r._frozen_pads,
+                                            device=dev)).all())
+        check(fits, f"render_many counts overflow the buckets (use_mxu="
+                    f"{use_mxu})")
+        for k, cam in enumerate(many):
+            check(bits_equal(imgs[k], r.render_fast(cam)),
+                  f"render_many frame {k} != render_fast (use_mxu="
+                  f"{use_mxu})")
+        many_ms = time_ms(lambda: r.render_many(many), repeats=5) / len(many)
+        out[("fast", use_mxu)]["many_ms"] = many_ms
+        print(f"[phase 2e] render_many K={GRAPH_MANY} 640x480 use_mxu="
+              f"{use_mxu}: every frame == render_fast bit for bit; counts "
+              f"fit the buckets; {many_ms:.3f} ms per frame "
+              f"(synchronized batch, median of 5)")
+
+        b = CulledRenderer(None, BW, BH, prebaked=(bounced.arrays_host,
+                                                   bounced.tree),
+                           device=dev, use_mxu=use_mxu)
+        fb = frozen_on_nothing(b, grid.camera,
+                               lambda away: b.freeze_bounced(away, DEPTH))
+        out[("bounced", use_mxu)] = graph_case(
+            f"bounced 1080p depth {DEPTH} use_mxu={use_mxu}", b, "bounced",
+            use_mxu, [grid.camera] + gposes, _with_pads(fb),
+            lambda cam: b._full_bounced(fb.pads(),
+                                        raygen.camera_arrays(cam, dev))[0],
+            lambda cam: b.render_bounced(cam, DEPTH, block=True))
+
+        d = DynamicCulledRenderer(grid, BW, BH, device=dev, use_mxu=use_mxu)
+        frozen_on_nothing(d, grid.camera, lambda away: d.freeze(away))
+        cam_d = raygen.camera_arrays(grid.camera, dev)
+        out[("dynamic", use_mxu)] = graph_case(
+            f"render_dynamic 1080p use_mxu={use_mxu}", d, "dynamic",
+            use_mxu, [grid.make_diff()] + diffs,
+            lambda diff, v: d.render_dynamic(grid.camera, diff, verify=v),
+            lambda diff: d._full(d._apply_diff(d._diff_views(
+                raygen.to_device(d._diff_packed(diff), dev))),
+                d._frozen_pads, cam_d)[0],
+            lambda diff: d.render(grid.camera, block=True))
+        for x in (r, b, d):
+            x.release_graphs()
+    return out
+
+
+def frozen_on_nothing(r, real, freeze):
+    """Settles r's exit_every on the real pose, then returns freeze(away)
+    for a pose that sees nothing (the real one turned around): the
+    buckets come out at their floor, and the real pose overflows them."""
+    r.render(real, block=True)
+    r._exit_auto = False
+    away = real.yaw(3.14159)
+    r.render(away, block=True)
+    return freeze(away)
+
+
+def _with_pads(fb):
+    """freeze_bounced's render as replay(cam, verify), with its pads()."""
+    replay = lambda cam, v: fb(cam, verify=v)
+    replay.pads = fb.pads
+    return replay
+
+
 def ring_renderer(arrays, n: int, use_rdma: bool):
     """make_ring_renderer over n ranks that all share cuda:0."""
     from distributed_raytracer_tpu_torch.parallel import ring
@@ -1479,6 +1738,126 @@ def run_cli(scene, mesh, size, frames: int, flags) -> None:
           f"sizing, {frames} frames)")
 
 
+LOOP_TICKS = 120        # phase 3b: orbit_events ticks of the loop
+
+
+def phase_loop(renderer, scene, mesh) -> None:
+    """Phase 3b: runtime/loop.run_loop at 640x480 over orbit_events on the
+    frozen renderer (verify on every 8th frame, as the CLI does), then the
+    CLI with --serve as a subprocess driven over HTTP until Esc."""
+    import queue
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from distributed_raytracer_tpu_torch.runtime import animation, framebuffer
+    from distributed_raytracer_tpu_torch.runtime.loop import run_loop
+
+    events = list(animation.orbit_events(W, LOOP_TICKS,
+                                         fov=scene.camera.fov,
+                                         revolutions=0.25))
+    issued = [0]
+
+    def render(_, cam):
+        verify = issued[0] % 8 == 0
+        issued[0] += 1
+        return renderer.render_fast(cam, verify=verify)
+
+    shown, last = [], {}
+
+    def display(i, img):
+        shown.append(i)
+        last["img"] = img
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cam, stats, dropped = run_loop(None, scene.camera, render, W, H,
+                                   events=events, display=display)
+    secs = time.perf_counter() - t0
+    check(dropped == 0 and shown == list(range(LOOP_TICKS))
+          and stats.frames_drawn == LOOP_TICKS,
+          f"run_loop: {dropped} dropped, {len(shown)} shown in order "
+          f"{shown == sorted(shown)}")
+    want = renderer.render_fast(cam).cpu().numpy()
+    check(np.array_equal(last["img"], want),
+          "the loop's last frame differs from render_fast of its camera")
+    print(f"[phase 3b] run_loop {W}x{H}, {LOOP_TICKS} orbit_events ticks, "
+          f"realtime=False, no display work: {stats.frames_drawn} frames "
+          f"drawn, {dropped} dropped, mean FPS {stats.mean_fps:.1f}, median "
+          f"{stats.median_fps:.1f}; {secs * 1e3 / LOOP_TICKS:.3f} ms per "
+          f"frame over the whole loop ({secs:.2f} s); last frame == "
+          f"render_fast of the final camera")
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        path = write_scene(d, scene, mesh)
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "distributed_raytracer_tpu_torch",
+             path, str(W), str(H), "--device", "cuda", "--serve",
+             "127.0.0.1:0"], cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        lines = queue.Queue()
+        reader = threading.Thread(
+            target=lambda: [lines.put(l) for l in proc.stdout], daemon=True)
+        reader.start()
+        try:
+            url, out = None, []
+            while url is None:
+                line = lines.get(timeout=300)
+                out.append(line)
+                if line.startswith("viewer at "):
+                    url = line.split()[-1]
+            ready_s = time.perf_counter() - t0
+
+            def post(ev):
+                urllib.request.urlopen(urllib.request.Request(
+                    url + "input", method="POST",
+                    data=json.dumps(ev).encode()), timeout=60).read()
+
+            def get(what):
+                with urllib.request.urlopen(url + what, timeout=60) as r:
+                    return r.read()
+
+            post({"kind": "key_down", "key": "a"})
+            post({"kind": "mouse", "dx": 20, "dy": 0})
+            deadline = time.monotonic() + 120
+            while (json.loads(get("stats"))["frames"] < 5
+                   and time.monotonic() < deadline):
+                time.sleep(0.05)
+            png = os.path.join(d, "frame.png")
+            with open(png, "wb") as f:
+                f.write(get("frame.png"))
+            img = framebuffer.read_png(png)
+            served = json.loads(get("stats"))
+            post({"kind": "key_up", "key": "a"})
+            post({"kind": "key_down", "key": "esc"})
+            rc = proc.wait(timeout=120)
+            reader.join(timeout=30)
+            while not lines.empty():
+                out.append(lines.get())
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        text = "".join(out)
+        check(rc == 0, f"--serve exited {rc}:\n{text[-3000:]}")
+        check(img.shape == (H, W, 3) and img.max() > 0,
+              f"served frame {img.shape}, max {img.max()}")
+        check(served["frames"] >= 5 and "Frames dropped: 0." in text,
+              f"--serve: stats {served}; output {text[-2000:]!r}")
+        for line in out:
+            if line.startswith(("Total frames", "Mean FPS", "Frames dropped")):
+                print(f"[phase 3b] --serve: {line.strip()}")
+        print(f"[phase 3b] --serve 127.0.0.1:0 subprocess: viewer up after "
+              f"{ready_s:.1f} s (start, scene load, bake, sizing); frame.png "
+              f"{img.shape} with {int((img.max(-1) > 0).sum())} lit pixels; "
+              f"stats {served}; exit {rc} after Esc, "
+              f"{time.perf_counter() - t0:.1f} s in all")
+
+
 def main() -> int:
     import torch
 
@@ -1531,6 +1910,7 @@ def main() -> int:
     runs = [got, phase_frame_mxu(mxu, renderer, scene, bsr_trace, plain0),
             phase_bounced_mxu(grid, bounced, bsr_trace, sync_k2),
             phase_dynamic(grid, bsr_trace)]
+    phase_graphs(renderer, scene, bounced, grid)
     kernels.update(phase_ring_kernels(grid, ring_trace))
     runs.append(phase_ring_frames(grid, ring_trace))
     for got in runs:
@@ -1547,6 +1927,7 @@ def main() -> int:
                   ["--mode", "sharded", "--devices", str(RING_N)]):
         run_cli(grid, grid_mesh, (320, 240), 3,
                 flags + ["--revolutions", "0.1"])
+    phase_loop(renderer, scene, mesh)
 
     print(f"gpu: {gpu_query()}")
     print(json.dumps({"kernels": [

@@ -67,7 +67,9 @@ _REF_CHUNK_PAIRS = 1 << 22
 # them to 0 to count the launches of one run. One count per call: a nearest
 # call of any triangle form (K1, K3n, K4) is three device launches (seed the
 # keys, the chunks, unpack), an any-hit call (K2, K3a, K5) a copy of init
-# and the chunks.
+# and the chunks. A frozen frame on CUDA is a CUDA graph
+# (ops/frozen_graph.py): its calls count when the graph is warmed up and
+# captured, never when it is replayed.
 LAUNCHES = {"bsr_nearest": 0, "bsr_any": 0, "bsr_nearest_rays": 0,
             "bsr_any_rays": 0, "bsr_nearest_mxu": 0, "bsr_any_mxu": 0}
 

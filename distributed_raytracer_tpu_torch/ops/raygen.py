@@ -2,7 +2,8 @@
 
 The torch counterpart of distributed_raytracer_tpu/ops/raygen.py
 (`ray_directions`, `ray_directions_flat`, `ray_rows_flat`), operation for
-operation, plus `camera_arrays`, which puts a camera on a device.
+operation, plus `camera_arrays`, which puts a camera on a device, and
+`camera_packed` / `camera_views`, the one (13,) tensor it travels in.
 Reproduces tracer.go:15-22 `pixelToPoint` exactly, including its integer
 half-width/height division and 0.5 pixel-center offset:
 
@@ -26,6 +27,39 @@ import torch
 from distributed_raytracer_tpu_torch.models.camera import Camera, CameraArrays
 
 
+def camera_packed(camera) -> torch.Tensor:
+    """Camera or CameraArrays -> one (13,) float32 tensor (pos, forward,
+    left, up, fov): on the host for a Camera or host CameraArrays, on
+    their device for CameraArrays of tensors."""
+    if isinstance(camera, Camera):
+        camera = camera.to_arrays()
+    if isinstance(camera.pos, torch.Tensor):
+        return torch.cat([camera.pos.reshape(3), camera.forward.reshape(3),
+                          camera.left.reshape(3), camera.up.reshape(3),
+                          camera.fov.reshape(1)]).to(torch.float32)
+    return torch.from_numpy(np.concatenate(
+        [np.asarray(camera.pos, np.float32).reshape(3),
+         np.asarray(camera.forward, np.float32).reshape(3),
+         np.asarray(camera.left, np.float32).reshape(3),
+         np.asarray(camera.up, np.float32).reshape(3),
+         np.asarray(camera.fov, np.float32).reshape(1)]))
+
+
+def camera_views(packed: torch.Tensor) -> CameraArrays:
+    """CameraArrays viewing a (13,) camera_packed tensor."""
+    return CameraArrays(pos=packed[0:3], forward=packed[3:6],
+                        left=packed[6:9], up=packed[9:12], fov=packed[12])
+
+
+def to_device(x: torch.Tensor, device) -> torch.Tensor:
+    """x on `device` in one copy: from pinned memory and non-blocking when
+    a host tensor goes to CUDA, so it does not wait for earlier frames."""
+    device = torch.device(device)
+    if device.type == "cuda" and x.device.type == "cpu":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x.to(device)
+
+
 def camera_arrays(camera, device) -> CameraArrays:
     """Camera or host CameraArrays -> CameraArrays of float32 tensors on
     `device`, in ONE host-to-device copy (CameraArrays of tensors pass
@@ -35,19 +69,7 @@ def camera_arrays(camera, device) -> CameraArrays:
         camera = camera.to_arrays()
     if isinstance(camera.pos, torch.Tensor):
         return camera
-    device = torch.device(device)
-    packed = torch.from_numpy(np.concatenate(
-        [np.asarray(camera.pos, np.float32).reshape(3),
-         np.asarray(camera.forward, np.float32).reshape(3),
-         np.asarray(camera.left, np.float32).reshape(3),
-         np.asarray(camera.up, np.float32).reshape(3),
-         np.asarray(camera.fov, np.float32).reshape(1)]))
-    if device.type == "cuda":
-        packed = packed.pin_memory().to(device, non_blocking=True)
-    else:
-        packed = packed.to(device)
-    return CameraArrays(pos=packed[0:3], forward=packed[3:6],
-                        left=packed[6:9], up=packed[9:12], fov=packed[12])
+    return camera_views(to_device(camera_packed(camera), device))
 
 
 def _offsets(cam, width: int, height: int, idx: torch.Tensor):

@@ -25,7 +25,13 @@ A frame is seven stages:
 `render()` sizes the work lists exactly, with host syncs between stages;
 `freeze()` fixes the buckets from the last counts and `render_fast()` runs
 all stages with them and no host sync, checking the true counts against
-the buckets only when asked (verify=True).
+the buckets only when asked (verify=True). `render_many(cameras)` renders a
+batch of poses with the frozen buckets.
+
+On CUDA every frozen frame (render_fast, render_many, freeze_bounced's
+render, the dynamic renderer's render_dynamic) replays a CUDA graph of its
+stages (ops/frozen_graph.py), the counterpart of the JAX package's jitted
+dispatch; on the CPU the stages run eagerly.
 
 `render_bounced(camera, depth)` adds `depth` reflection bounces: stages 2-6
 again per bounce over the previous bounce's reflection rays, whose nearest
@@ -50,7 +56,8 @@ import torch
 
 from distributed_raytracer_tpu_torch.models.camera import CameraArrays
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneArrays
-from distributed_raytracer_tpu_torch.ops import (bsr_trace, cull, intersect,
+from distributed_raytracer_tpu_torch.ops import (bsr_trace, cull,
+                                                frozen_graph, intersect,
                                                 raygen, shade)
 from distributed_raytracer_tpu_torch.ops.intersect import Hits
 from distributed_raytracer_tpu_torch.ops.shade import PackedPrep
@@ -221,6 +228,9 @@ class CulledRenderer:
         self._frozen_pads = None
         # Raw counts of the last sync render, in the count-vector layout.
         self._last_counts = None
+        # CUDA graphs of the frozen frames, one per kind ("fast",
+        # "bounced", "dynamic"; ops/frozen_graph.py).
+        self._graphs = {}
 
     def _bake_scene(self, scene: Scene, block_size: int):
         """Bake hook: the dynamic renderer (ops/render_dynamic.py)
@@ -563,17 +573,83 @@ class CulledRenderer:
         (H, W, 3) tensor. With verify=True, reads the true counts and, if a
         bucket overflowed, refreezes and renders again — in a loop, since
         an overflowed level truncates the next level's reported count."""
-        return self._render_frozen(self.dev_scene, camera, verify,
-                                   "render_fast")
-
-    def _render_frozen(self, sc: DeviceScene, camera, verify: bool,
-                       name: str) -> torch.Tensor:
-        """render_fast on the scene arrays `sc` (`name` labels the warning
-        of a verify loop that does not converge)."""
         if self._frozen_pads is None:
             self.freeze(camera)
-        cam = raygen.camera_arrays(camera, self.device)
-        img, counts = self._full(sc, self._frozen_pads, cam)
+        frame = self._frozen_frame(
+            "fast", {"camera": raygen.camera_packed(camera)}, self._fast_body)
+        return self._render_frozen(frame, camera, verify, "render_fast")
+
+    def _fast_body(self, bufs: dict, pads: tuple):
+        return self._full(self.dev_scene, pads,
+                          raygen.camera_views(bufs["camera"]))
+
+    def render_many(self, cameras):
+        """Renders a batch of poses with the frozen buckets (freezing on
+        cameras[0] if nothing is frozen): each image equals render_fast's
+        for its pose bit for bit. `cameras` are Cameras or host
+        CameraArrays, stacked on the host and sent in one copy. Returns
+        (imgs (K, H, W, 3), counts (K, n_counts)) on the device; callers
+        check the counts against the buckets as render_fast(verify=True)
+        does.
+
+        On CUDA the batch is K replays of render_fast's graph, each fed its
+        pose by a device-to-device copy from the stack: one graph launch
+        per frame (the JAX package unrolls the batch into one dispatch to
+        the same end). On the CPU, K eager frames."""
+        if self._frozen_pads is None:
+            self.freeze(cameras[0])
+        stack = raygen.to_device(torch.stack(
+            [raygen.camera_packed(c) for c in cameras]), self.device)
+        frames = [self._frozen_frame("fast", {"camera": cam},
+                                     self._fast_body)(self._frozen_pads)
+                  for cam in stack]
+        return (torch.stack([f[0] for f in frames]),
+                torch.stack([f[1] for f in frames]))
+
+    def release_graphs(self) -> None:
+        """Frees every captured frozen frame and its memory pool."""
+        for graph in self._graphs.values():
+            graph.release()
+        self._graphs = {}
+
+    def _graph_key(self, kind: str, pads) -> tuple:
+        """Everything that shapes a frozen frame's graph."""
+        return (kind, pads, self.exit_every, self.use_mxu)
+
+    def _frame_graph(self, kind: str, inputs: dict) -> frozen_graph.FrameGraph:
+        """The graph of one frozen frame kind, its static inputs shaped
+        like `inputs` (name -> tensor)."""
+        graph = self._graphs.get(kind)
+        if graph is None:
+            graph = self._graphs[kind] = frozen_graph.FrameGraph(
+                self.device, {k: (tuple(v.shape), v.dtype)
+                              for k, v in inputs.items()})
+        return graph
+
+    def _frozen_frame(self, kind: str, inputs: dict, body):
+        """frame(pads) -> (image, counts) of one frozen frame: body(bufs,
+        pads) runs the stages on the input tensors `bufs` (name -> device
+        tensor, from `inputs`: host or device tensors). On CUDA the inputs
+        are written into the graph's static buffers once (pinned,
+        non-blocking) and each call replays the graph of (kind, pads) and
+        returns fresh copies of its outputs; on the CPU each call runs
+        body eagerly."""
+        if self.device.type != "cuda":
+            bufs = {k: raygen.to_device(v, self.device)
+                    for k, v in inputs.items()}
+            return lambda pads: body(bufs, pads)
+        graph = self._frame_graph(kind, inputs)
+        for k, v in inputs.items():
+            frozen_graph.write(graph.inputs[k], v)
+        return lambda pads: frozen_graph.fresh(graph.run(
+            self._graph_key(kind, pads), lambda: body(graph.inputs, pads)))
+
+    def _render_frozen(self, frame, camera, verify: bool,
+                       name: str) -> torch.Tensor:
+        """One frozen frame, frame(pads) -> (image, counts), with the
+        verify loop (`name` labels the warning of a loop that does not
+        converge)."""
+        img, counts = frame(self._frozen_pads)
         if verify:
             fits = False
             for _ in range(8):   # each round strictly grows some bucket
@@ -583,7 +659,7 @@ class CulledRenderer:
                     break
                 self._last_counts = got
                 self.freeze(camera)   # grow-only
-                img, counts = self._full(sc, self._frozen_pads, cam)
+                img, counts = frame(self._frozen_pads)
             if not fits:
                 _log.warning(
                     "%s verify did not converge in 8 rounds "
@@ -710,7 +786,8 @@ class CulledRenderer:
     def freeze_bounced(self, camera, depth: int, margin: float = 1.4):
         """Fix per-bounce buckets from one sync render_bounced's RAW counts
         x margin. Returns render(cam, verify=False) -> (H, W, 3) tensor,
-        which runs the bounced pipeline with no host sync; verify=True reads
+        which runs the bounced pipeline with no host sync (on CUDA a replay
+        of its graph, keyed by the per-bounce buckets); verify=True reads
         the true per-bounce counts and refreezes (grow-only) and renders
         again until they fit, at most 8 rounds. `render.pads()` gives the
         current buckets."""
@@ -728,8 +805,11 @@ class CulledRenderer:
         freeze_from(self._last_bounce_counts)
 
         def render(cam, verify: bool = False) -> torch.Tensor:
-            c = raygen.camera_arrays(cam, self.device)
-            img, counts = self._full_bounced(state["pads"], c)
+            frame = self._frozen_frame(
+                "bounced", {"camera": raygen.camera_packed(cam)},
+                lambda bufs, pads: self._full_bounced(
+                    pads, raygen.camera_views(bufs["camera"])))
+            img, counts = frame(state["pads"])
             if verify:
                 # Loop until every bounce's counts fit: an overflowed
                 # level truncates the next level's list, so its reported
@@ -742,7 +822,7 @@ class CulledRenderer:
                         fits = True
                         break
                     freeze_from(got)
-                    img, counts = self._full_bounced(state["pads"], c)
+                    img, counts = frame(state["pads"])
                 if not fits:
                     _log.warning(
                         "bounced verify did not converge in 8 rounds "

@@ -22,7 +22,8 @@ folded into the packed device arrays each frame, with no re-bake:
 
 The diffed arrays form one per-frame `DeviceScene` bundle that the parent's
 frozen pipeline reads in place of its own; the renderer is never mutated
-per frame.
+per frame. On CUDA the fold and the pipeline are captured together in one
+CUDA graph (ops/frozen_graph.py), so a frame is one replay.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import numpy as np
 import torch
 
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneDiff
+from distributed_raytracer_tpu_torch.ops import raygen
 from distributed_raytracer_tpu_torch.ops.render_bvh import (CulledRenderer,
                                                             DeviceScene)
 
@@ -61,20 +63,19 @@ class DynamicCulledRenderer(CulledRenderer):
         self.obj_pos0 = torch.from_numpy(obj_pos0).to(self.device)
         return arrays, tree
 
-    def _diff_to_device(self, diff: SceneDiff) -> SceneDiff:
-        """The diff as device tensors, in ONE host-to-device copy (pinned
-        and non-blocking on CUDA, as the camera's)."""
-        parts = [np.asarray(a, np.float32).reshape(-1, 3) for a in diff]
-        packed = torch.from_numpy(np.concatenate(parts))
-        if self.device.type == "cuda":
-            packed = packed.pin_memory().to(self.device, non_blocking=True)
-        else:
-            packed = packed.to(self.device)
-        out, at = [], 0
-        for p in parts:
-            out.append(packed[at:at + p.shape[0]])
-            at += p.shape[0]
-        return SceneDiff(*out)
+    @staticmethod
+    def _diff_packed(diff: SceneDiff) -> torch.Tensor:
+        """The diff's fields as one (n, 3) float32 host tensor, the one
+        host-to-device copy of a frame's diff."""
+        return torch.from_numpy(np.concatenate(
+            [np.asarray(a, np.float32).reshape(-1, 3) for a in diff]))
+
+    def _diff_views(self, packed: torch.Tensor) -> SceneDiff:
+        """SceneDiff viewing a (n, 3) _diff_packed tensor on the device."""
+        n_obj = self.obj_pos0.shape[0]
+        n_light = (packed.shape[0] - n_obj) // 2
+        return SceneDiff(packed[:n_obj], packed[n_obj:n_obj + n_light],
+                         packed[n_obj + n_light:])
 
     def _apply_diff(self, diff: SceneDiff) -> DeviceScene:
         """This frame's scene arrays: the renderer's own with the diff's
@@ -104,11 +105,20 @@ class DynamicCulledRenderer(CulledRenderer):
     def render_dynamic(self, camera, diff: SceneDiff,
                        verify: bool = False) -> torch.Tensor:
         """Diff fold + cull + traversal + shadows + shading with the frozen
-        buckets and no host sync; returns the (H, W, 3) tensor.
+        buckets and no host sync; returns the (H, W, 3) tensor. On CUDA
+        the diff fold and the stages replay one graph, the diff written
+        into its static input in one pinned, non-blocking copy.
 
         Buckets come from the parent's freeze state (size with a
         representative camera first, or let the first call run the static
         sizing render); verify=True re-sizes on overflow, grow-only, as
         render_fast does."""
-        sc = self._apply_diff(self._diff_to_device(diff))
-        return self._render_frozen(sc, camera, verify, "render_dynamic")
+        if self._frozen_pads is None:
+            self.freeze(camera)
+        frame = self._frozen_frame(
+            "dynamic", {"camera": raygen.camera_packed(camera),
+                        "diff": self._diff_packed(diff)},
+            lambda bufs, pads: self._full(
+                self._apply_diff(self._diff_views(bufs["diff"])), pads,
+                raygen.camera_views(bufs["camera"])))
+        return self._render_frozen(frame, camera, verify, "render_dynamic")

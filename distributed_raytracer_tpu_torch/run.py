@@ -11,14 +11,17 @@ device (`--device`, default cuda). Modes:
   sharded    - the dense sweep with the rays row-partitioned over
                `--devices N` ranks (parallel/render_sharded.py); the ranks
                are a device list, rank i on cuda:(i % cards), so N ranks
-               may share one card, or all on the CPU with --device cpu With no display, the interactive loop becomes a scripted camera
+               may share one card, or all on the CPU with --device cpu
+With no display, the interactive loop becomes a scripted camera
 animation (default: orbit, the reference's benchmark motion); frames can
 be written as PNGs, and the exit report reproduces the master's FPS
-statistics (master/main.go:285-325) plus Mrays/s.
+statistics (master/main.go:285-325) plus Mrays/s. `--serve HOST:PORT`
+runs the interactive loop (runtime/loop.py) behind the browser viewer
+(runtime/viewer.py) instead, in every ported mode, until a client sends
+Esc.
 
-The JAX package's other modes (sharded-bvh, halo, ring), `--serve` and
-`--multihost` are not ported yet; asking for one exits with a message that
-says so.
+The JAX package's other modes (sharded-bvh, halo, ring) and `--multihost`
+are not ported yet; asking for one exits with a message that says so.
 """
 
 from __future__ import annotations
@@ -52,7 +55,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--object-radius", type=float, default=1.0,
                    help="orbit radius for --animate-objects")
     p.add_argument("--serve", metavar="HOST:PORT", default=None,
-                   help="browser viewer (not ported)")
+                   help="serve an interactive browser viewer instead of the "
+                        "scripted animation (the SDL window analog)")
     p.add_argument("--multihost", action="store_true",
                    help="multi-process rendering (not ported)")
     p.add_argument("--frames", type=int, default=60,
@@ -78,8 +82,6 @@ _PORTED_MODES = ("sequential", "culled", "sharded")
 def _unported(args) -> str | None:
     if args.mode not in _PORTED_MODES:
         return f"--mode {args.mode}"
-    if args.serve:
-        return "--serve"
     if args.multihost:
         return "--multihost"
     return None
@@ -137,6 +139,7 @@ def main(argv=None) -> int:
             sharded = render_sharded.make_sharded_renderer(w, h, mesh=mesh)
             render = lambda cam: sharded(arrays, cam)
         render_k = lambda k, cam: render(cam)
+        render_arrays = render
     elif args.animate_objects:
         # Per-frame object/light diffs through the frozen pipeline
         # (ops/render_dynamic.py), block size 128 as in the JAX CLI.
@@ -151,20 +154,46 @@ def main(argv=None) -> int:
         dyn.freeze(scene.camera)
         render_k = lambda k, cam: dyn.render_dynamic(
             cam, diffs[k], verify=(k % 8 == 0))
+
+        # For --serve: advance the object orbit one diff per rendered
+        # frame (frames are produced on input change, the reference's
+        # main.go:246 rule, so the object moves as the viewer interacts).
+        served = [0]
+
+        def render_arrays(c):
+            k = served[0]
+            served[0] += 1
+            return dyn.render_dynamic(c, diffs[k % len(diffs)],
+                                      verify=(k % 8 == 0))
     else:
         # block_size="auto": the per-scene leaf policy
         # (utils/config.default_block_size).
         culled = CulledRenderer(scene, w, h, block_size="auto",
                                 device=args.device)
         if args.bounces:
-            render = _periodic_verify(
-                culled.freeze_bounced(scene.camera, args.bounces))
+            bounced = culled.freeze_bounced(scene.camera, args.bounces)
+            render = _periodic_verify(bounced)
+            render_arrays = bounced
         else:
             culled.render(scene.camera, block=True)
             culled.freeze(scene.camera)
             render = _periodic_verify(
                 lambda cam, v: culled.render_fast(cam, verify=v))
+            render_arrays = lambda c: culled.render_fast(c)
         render_k = lambda k, cam: render(cam)
+
+    if args.serve:
+        from distributed_raytracer_tpu_torch.runtime import viewer
+
+        host, _, port = args.serve.rpartition(":")
+        cam, stats, dropped = viewer.serve(
+            None, scene.camera, lambda s, c: render_arrays(c), w, h,
+            host=host or "127.0.0.1", port=int(port),
+            on_ready=lambda v: print(f"viewer at {v.url}", flush=True))
+        if stats is not None:
+            print(stats.report())
+        print(f"Frames dropped: {dropped}.")
+        return 0
 
     if args.animation == "none":
         poses = [scene.camera] * args.frames

@@ -2,21 +2,50 @@
 
 The reference was benchmarked with a human orbiting the camera around the
 mesh at ~1 unit distance (final_report.pdf §3.1); with no SDL here, this
-module generates the equivalent camera path and per-frame object motion — a
-deterministic, reproducible replacement for interactive input. (The event
-streams of the JAX package's runtime/animation.py are not part of this
-package yet.)
+module generates equivalent input-event streams for runtime.loop, the
+equivalent camera path and per-frame object motion — a deterministic,
+reproducible replacement for interactive input.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
 from distributed_raytracer_tpu_torch.models.camera import Camera
 from distributed_raytracer_tpu_torch.models.scene import SceneDiff
+
+Event = Tuple
+
+
+def constant_motion(keys: List[str], n_ticks: int) -> Iterator[List[Event]]:
+    """Hold a set of keys for n_ticks ticks, then release."""
+    yield [("key_down", k) for k in keys]
+    for _ in range(n_ticks - 1):
+        yield []
+    yield [("key_up", k) for k in keys]
+
+
+def mouse_pan(dx_per_tick: float, n_ticks: int, width: int) -> Iterator[List[Event]]:
+    """Steady horizontal mouse motion (yaw sweep)."""
+    for _ in range(n_ticks):
+        yield [("mouse", dx_per_tick, 0.0)]
+
+
+def orbit_events(width: int, n_ticks: int, fov: float,
+                 revolutions: float = 1.0) -> Iterator[List[Event]]:
+    """Strafe left while yawing to sweep a full orbit's worth of turn — the
+    motion class used for the reference's benchmarks. Yaw per tick is
+    d_theta; the controller maps mouse dx -> yaw = dx/(width/2) * fov/2, so
+    dx = d_theta * width / fov."""
+    d_theta = 2.0 * math.pi * revolutions / n_ticks
+    dx = d_theta * width / fov
+    yield [("key_down", "a"), ("mouse", dx, 0.0)]
+    for _ in range(n_ticks - 1):
+        yield [("mouse", dx, 0.0)]
+    yield [("key_up", "a")]
 
 
 def orbit_object_diffs(scene, n_frames: int, obj_index: int = 0,

@@ -23,12 +23,17 @@ copy of another commit's distributed_raytracer_tpu_torch package, e.g.
 the workers run in turns: other, this, this, other; each checks that its
 outputs equal the recorded plain-version outputs bit for bit. The frame
 workers, in the same turns, time render_fast() at an orbit pose of the
-640x480 frame (median of 30 synchronized calls) and the frozen bounced
-frame (median of 10), and profile each: the device's busy share of the
-profiled window and the device ms per frame of K1, K2, K3n, K3a and the
-rest (kernels are classed by name: the origin form is a template argument,
-and seed_keys / unpack_keys are instantiated per form, so K3n's key
-launches are booked to K3n).
+640x480 frame (median of 30 synchronized calls), the frozen bounced frame
+and render_dynamic() of the 1080p sphere grid (medians of 10), each also
+by the host's enqueue time, and profile each: the device's busy share of
+the profiled window, kernels and host launch calls per frame, and the
+device ms per frame of K1, K2, K3n, K3a and the rest (kernels are classed
+by name: the origin form is a template argument, and seed_keys /
+unpack_keys are instantiated per form, so K3n's key launches are booked
+to K3n). They also time render_many() of 32 poses per frame (a tree
+without it: 32 render_fast() calls) and run runtime/loop.run_loop over
+120 ticks of orbit_events at 640x480 (FPS; a tree without the loop says
+so).
 
 --cut also times, in every tree, the 640x480 K1 and K2 launches with
 every tile's run of items cut to its first cap items (how much the longest
@@ -106,7 +111,7 @@ CHUNK_SWEEP = ("K1 640x480 primary", "K2 640x480 shadows",
                "K3n bounced 1080p bounce 1", "K3a bounced 1080p bounce 1")
 
 
-def _kernel_class(name: str) -> str:
+def kernel_class(name: str) -> str:
     for k, pat in _CLASSES:
         if re.search(pat, name):
             return k
@@ -115,9 +120,10 @@ def _kernel_class(name: str) -> str:
 
 def _profile(fn, n: int):
     """(busy share of the window, {class: device ms per call}, kernels per
-    call) over n calls of fn under torch.profiler. fn's result must be
-    ready once the current card's work is (the ring frame is gathered on
-    cuda:0)."""
+    call, host launch calls per call) over n calls of fn under
+    torch.profiler; the host calls are the CUDA runtime's kernel, graph
+    and copy launches. fn's result must be ready once the current card's
+    work is (the ring frame is gathered on cuda:0)."""
     import torch
 
     fn()
@@ -146,10 +152,17 @@ def _profile(fn, n: int):
               - min(e["ts"] for e in events))
     per = {}
     for e in dev:
-        k = _kernel_class(e["name"])
+        k = kernel_class(e["name"])
         per[k] = per.get(k, 0.0) + e["dur"] / 1e3 / n
     kernels = sum(e.get("cat") == "kernel" for e in dev) / n
-    return busy / window, per, kernels
+    launches = sum(e.get("cat") == "cuda_runtime"
+                   and re.search(_HOST_LAUNCH, e.get("name", "")) is not None
+                   for e in events) / n
+    return busy / window, per, kernels, launches
+
+
+# The CUDA runtime calls that put work on a stream.
+_HOST_LAUNCH = r"LaunchKernel|GraphLaunch|Memcpy|Memset"
 
 
 def _events_ms(fn, calls: int = 20) -> float:
@@ -226,6 +239,12 @@ def _worker_kernels(path: str, cut: bool) -> list:
 
 
 def _worker_frames() -> dict:
+    """The frames of the tree on the import path: per frame kind the
+    synchronized median ms, the host's enqueue ms (from an idle card to
+    the call's return) and a profile (busy share, device ms per kernel
+    class, kernels and host launch calls per frame). A tree without
+    render_many times 32 render_fast calls in its place; a tree without
+    runtime/loop.py has no loop FPS."""
     import statistics
     import time
 
@@ -233,6 +252,8 @@ def _worker_frames() -> dict:
     import torch
 
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.ops.render_dynamic import (
+        DynamicCulledRenderer)
     from distributed_raytracer_tpu_torch.runtime import animation
     from distributed_raytracer_tpu_torch.utils import scenes
 
@@ -246,6 +267,23 @@ def _worker_frames() -> dict:
             times.append((time.perf_counter() - t0) * 1e3)
         return statistics.median(times)
 
+    def enqueue_ms(fn, n):
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    out = {}
+
+    def frame(key, fn, n, profiled):
+        out[key + "_ms"] = sync_ms(fn, n)
+        out[key + "_enqueue_ms"] = enqueue_ms(fn, n)
+        out[key] = _profile(fn, profiled)
+
     scene = scenes.icosphere_scene(6)
     r = CulledRenderer(scene, 640, 480, block_size="auto", device="cuda")
     r.render(scene.camera, block=True)
@@ -253,8 +291,34 @@ def _worker_frames() -> dict:
     poses = animation.orbit_camera_path(scene.camera, 16, radius=3.0)
     for cam in poses:
         r.render_fast(cam)
-    out = {"render_fast_ms": sync_ms(lambda: r.render_fast(poses[1]), 30),
-           "render_fast": _profile(lambda: r.render_fast(poses[1]), 10)}
+    frame("render_fast", lambda: r.render_fast(poses[1]), 30, 10)
+    many = animation.orbit_camera_path(scene.camera, MANY, radius=3.0)
+    if hasattr(r, "render_many"):
+        batch = lambda: r.render_many(many)
+    else:
+        batch = lambda: [r.render_fast(cam) for cam in many]
+    out["many_native"] = hasattr(r, "render_many")
+    batch()
+    out["many_ms"] = sync_ms(batch, 5) / MANY
+    out["many_enqueue_ms"] = enqueue_ms(batch, 5) / MANY
+    try:
+        from distributed_raytracer_tpu_torch.runtime.loop import run_loop
+    except ImportError:
+        out["loop"] = None
+    else:
+        events = list(animation.orbit_events(640, LOOP_TICKS,
+                                             fov=scene.camera.fov,
+                                             revolutions=0.25))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, stats, dropped = run_loop(None, scene.camera,
+                                     lambda s, c: r.render_fast(c), 640,
+                                     480, events=events)
+        out["loop"] = {"mean_fps": stats.mean_fps,
+                       "median_fps": stats.median_fps, "dropped": dropped,
+                       "frames": stats.frames_drawn,
+                       "ms_per_frame": (time.perf_counter() - t0) * 1e3
+                       / LOOP_TICKS}
     grid = scenes.instanced_grid(scenes.icosphere_scene(3), 4)
     b = CulledRenderer(grid, 1920, 1080, block_size="auto", device="cuda")
     fast = b.freeze_bounced(grid.camera, 2)
@@ -263,9 +327,19 @@ def _worker_frames() -> dict:
                                      revolutions=0.1)
     for cam in gp:
         fast(cam)
-    out["bounced_ms"] = sync_ms(lambda: fast(gp[1]), 10)
-    out["bounced"] = _profile(lambda: fast(gp[1]), 3)
+    frame("bounced", lambda: fast(gp[1]), 10, 3)
+    d = DynamicCulledRenderer(grid, 1920, 1080, device="cuda")
+    d.render(grid.camera, block=True)
+    d.freeze(grid.camera)
+    diffs = animation.orbit_object_diffs(grid, 16)
+    for k, diff in enumerate(diffs):
+        d.render_dynamic(grid.camera, diff, verify=(k % 8 == 0))
+    frame("dynamic", lambda: d.render_dynamic(grid.camera, diffs[3]), 10, 3)
     return out
+
+
+# Frames of render_many's batch, and run_loop's orbit_events ticks.
+MANY, LOOP_TICKS = 32, 120
 
 
 def _values_equal(got, want) -> bool:
@@ -494,7 +568,7 @@ def _class_ms(fn, cls: str, n: int, cards: int) -> float:
             fn()
         _sync_all(cards)
     return sum(e.device_time_total for e in prof.key_averages()
-               if _kernel_class(e.key) == cls) / 1e3 / n
+               if kernel_class(e.key) == cls) / 1e3 / n
 
 
 def _ring_mesh(cards: int) -> list:
@@ -613,7 +687,7 @@ def _main_ring(a, here: str, say) -> None:
                 say(f"        {chunk} items per block: query {ms:.4f} ms, "
                     f"kernels {k_ms:.4f} ms")
     for who, res in runs:
-        busy, per, nk = res["frame_profile"]
+        busy, per, nk, _ = res["frame_profile"]
         say(f"[ring] {who} RDMA frame {RING_W}x{RING_H}, {RING_N} ranks on "
             f"{mesh}: {res['frame_ms']:.3f} ms synchronized (median of 10); "
             f"profiled (3 frames): busy {busy:.3f} (any card), {nk:.0f} "
@@ -806,13 +880,28 @@ def _main_traversal(a, here: str, say, bsr_trace) -> None:
                         f"items, kernels {ms:.4f} ms")
         for who, tree in turns:
             f = _run_worker(tree, "frames")
-            for key in ("render_fast", "bounced"):
-                busy, per, nk = f[key]
+            for key in ("render_fast", "bounced", "dynamic"):
+                busy, per, nk, nl = f[key]
                 say(f"[frames] {who} {key}: {f[key + '_ms']:.3f} ms "
-                    f"synchronized (median); profiled: busy {busy:.3f}, "
-                    f"{nk:.0f} kernels per frame, device ms per frame "
+                    f"synchronized (median), host enqueue "
+                    f"{f[key + '_enqueue_ms']:.3f} ms; profiled: busy "
+                    f"{busy:.3f}, {nk:.0f} kernels and {nl:.0f} host launch "
+                    f"calls per frame, device ms per frame "
                     + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
                         per.items())))
+            say(f"[frames] {who} render_many K={MANY}"
+                + ("" if f["many_native"] else " (no render_many: "
+                   f"{MANY} render_fast calls)")
+                + f": {f['many_ms']:.3f} ms per frame synchronized (median "
+                  f"of 5 batches), host enqueue {f['many_enqueue_ms']:.3f} "
+                  "ms per frame")
+            loop = f["loop"]
+            say(f"[frames] {who} run_loop 640x480, {LOOP_TICKS} ticks: "
+                + ("no runtime/loop.py in this tree" if loop is None else
+                   f"mean FPS {loop['mean_fps']:.1f}, median "
+                   f"{loop['median_fps']:.1f}, {loop['frames']} frames, "
+                   f"{loop['dropped']} dropped, {loop['ms_per_frame']:.3f} "
+                   "ms per frame over the loop"))
     for tag, wrapper, (args, kwargs) in launches:
         if tag not in CHUNK_SWEEP:
             continue

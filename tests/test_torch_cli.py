@@ -4,6 +4,7 @@
 CPU and must write the frames the port's own render() (render_bounced()
 with --bounces, render_dynamic() with --animate-objects, render_frame()
 with --mode sequential, the sharded renderer with --mode sharded) gives;
+--serve in each of those modes serves the loop until a client sends Esc;
 the modes that are not ported yet exit non-zero with a message that names
 them. The
 runtime
@@ -75,7 +76,7 @@ def test_cli_writes_the_frames_render_gives(scene_path, tmp_path):
     (["--mode", "sharded-bvh"], "--mode sharded-bvh"),
     (["--mode", "ring"], "--mode ring"),
     (["--mode", "halo", "--devices", "2"], "--mode halo"),
-    (["--serve", "127.0.0.1:0"], "--serve"),
+    (["--mode", "ring", "--serve", "127.0.0.1:0"], "--mode ring"),
     (["--multihost"], "--multihost"),
 ])
 def test_unported_options_exit_with_their_name(scene_path, flags, name):
@@ -83,6 +84,54 @@ def test_unported_options_exit_with_their_name(scene_path, flags, name):
         run.main([scene_path, "64", "48", "--device", "cpu", *flags])
     assert isinstance(exc.value.code, str)     # exit status 1
     assert name in exc.value.code and "not yet ported" in exc.value.code
+
+
+@pytest.mark.parametrize("flags", [
+    [], ["--bounces", "1"], ["--animate-objects"], ["--mode", "sequential"],
+    ["--mode", "sharded", "--devices", "2"]])
+def test_cli_serve_ends_on_esc(scene_path, flags, monkeypatch, capsys):
+    """--serve runs the interactive loop behind the browser viewer: a
+    client holds "w" until a frame is shown, fetches it and the stats,
+    then sends Esc, and run.main returns 0."""
+    import json
+    import threading
+    import time
+    import urllib.request
+
+    from distributed_raytracer_tpu_torch.runtime import viewer
+
+    seen = {}
+    serve = viewer.serve
+
+    def post(v, ev):
+        urllib.request.urlopen(urllib.request.Request(
+            v.url + "input", method="POST", data=json.dumps(ev).encode()),
+            timeout=30).read()
+
+    def client(v):
+        post(v, {"kind": "key_down", "key": "w"})
+        deadline = time.monotonic() + 120
+        while v.stats_dict()["frames"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.02)
+        with urllib.request.urlopen(v.url + "frame.png", timeout=30) as r:
+            seen["png"] = r.read()
+        with urllib.request.urlopen(v.url + "stats", timeout=30) as r:
+            seen["stats"] = json.loads(r.read())
+        post(v, {"kind": "key_down", "key": "esc"})
+
+    def serve_with_client(*args, on_ready=None, **kwargs):
+        def ready(v):
+            on_ready(v)
+            threading.Thread(target=client, args=(v,), daemon=True).start()
+        return serve(*args, on_ready=ready, **kwargs)
+
+    monkeypatch.setattr(viewer, "serve", serve_with_client)
+    assert run.main([scene_path, "32", "24", "--device", "cpu", "--serve",
+                     "127.0.0.1:0", *flags]) == 0
+    out = capsys.readouterr().out
+    assert "viewer at http://127.0.0.1:" in out
+    assert "Frames dropped: 0." in out
+    assert seen["png"].startswith(b"\x89PNG") and seen["stats"]["frames"] >= 1
 
 
 def test_cli_bounces_report_fps(scene_path, tmp_path, capsys):

@@ -11,7 +11,8 @@ MODULES = ["ops.render", "ops.intersect", "ops.shade", "ops.colour",
            "ops.raygen", "ops.ring_trace", "ops.bsr_trace", "parallel",
            "parallel.mesh", "parallel.tile", "parallel.render_sharded",
            "parallel.ring", "run", "utils.trace_cases", "tools.kernel_ab",
-           "tools.merge_cost", "tools.sass_loops"]
+           "tools.merge_cost", "tools.sass_loops", "ops.frozen_graph",
+           "runtime.controller", "runtime.loop", "runtime.viewer"]
 
 CHECK = """
 import importlib, pkgutil, sys
