@@ -43,7 +43,7 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      > 0 after it.
   2b. The bounced 1920x1080 depth-2 frame of the sphere grid end to end:
      render_bounced() with its per-bounce counts, freeze_bounced(), an
-     8-pose orbit through the frozen renderer with verify=True, the frozen
+     6-pose orbit through the frozen renderer with verify=True, the frozen
      renderer timed without verify, and one frozen call under sync-debug
      "error". The counters are reset before this phase; per-ray-origin
      nearest (K3n) and K2 launches must be > 0 after it. The frame must
@@ -83,7 +83,7 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      depth-2 render_bounced of the 1080p sphere grid with use_mxu=True
      (bsr_any_mxu > 0) within the same bound of the use_mxu=False frame.
   2d. The dynamic renderer (DynamicCulledRenderer) on the sphere grid at
-     1920x1080, for use_mxu False and True: object 0 orbits through 16
+     1920x1080, for use_mxu False and True: object 0 orbits through 12
      diffs of orbit_object_diffs with verify on every 8th frame; each frame
      within tests/test_dynamic.py's bound (max-channel diff > 2/255 on
      < 0.5% of pixels, mean |diff| < 1e-3) of render() on a fresh bake of
@@ -138,11 +138,34 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      counters are reset before the RDMA frames; K6 and K7 must be > 0.
      4c. make_sharded_renderer over 4 ranks equals render_frame to atol
      2e-5.
+  5. The culled multi-rank schedules, RING_N = 4 ranks sharing cuda:0
+     (frames and measurements from tools/schedule_frames.py: synchronized
+     frame ms, median of 5; from one torch.profiler window of 2 frames
+     the busy share, kernel launches per frame by class and host launch
+     calls per frame; the peak device memory of one frame).
+     5a. Equal and balanced bands (parallel/render_sharded_bvh.py) of
+     instanced_grid(icosphere_scene(3), 12) (144 spheres, 184,320
+     triangles) at 3840x2160 over 4 orbit poses, each frame within 2e-5
+     of the single-rank render_fast frame of the same bake, balanced ==
+     equal bit for bit; the launch counters are reset before the bands
+     are built and K1, K2 must be > 0 after their first frames (later
+     frames are graph replays). Then bounced bands of the 1080p sphere
+     grid at depth 2 against the single-rank freeze_bounced frame (atol
+     2e-5; K3n and K2 > 0).
+     5b. The culled ring (parallel/ring_bvh.py) of icosphere_scene(8)
+     (1,310,720 triangles) at 640x480 against the single-rank frame built
+     from the ring's own bake (atol 2e-5), launches per frame (K1, K2 >
+     0); the 640x480 sphere grid with bounces 2 against the single-rank
+     render_bounced (atol 2e-5), one K1, K2 and K3n call recorded on it
+     (gid_base != 0, a carried init, the most live items) held bit for
+     bit against its plain version and timed; dynamic=True over 2 orbit
+     diffs against fresh bakes of the moved scenes (phase 2d's bound).
   3. The command line: the 640x480 sphere written as OBJ + scene.json, 30
      frames through distributed_raytracer_tpu_torch.run.main on cuda; then
      the sphere grid, 8 frames at 1920x1080 with --bounces 2, and 8 with
-     --animate-objects; 3 frames at 320x240 with --mode sequential and
-     with --mode sharded --devices 4.
+     --animate-objects; 3 frames at 320x240 with --mode sequential, with
+     --mode sharded --devices 4, with --mode sharded-bvh --devices 4
+     (with and without --balance) and with --mode ring --devices 4.
   3b. runtime/loop.run_loop at 640x480 over 120 ticks of orbit_events on
      the frozen renderer (verify every 8th frame): no drops, frames shown
      in order, the last equal to render_fast of the final camera, FPS and
@@ -183,8 +206,8 @@ PLAIN_REPEATS_BIG = 3
 # The bounced path: instanced_grid(icosphere_scene(3), 4) at 1080p, depth 2.
 BW, BH, DEPTH = 1920, 1080, 2
 GRID_SUBDIV, GRID_N = 3, 4
-BOUNCE_ORBIT = 8
-DYN_FRAMES = 16
+BOUNCE_ORBIT = 6
+DYN_FRAMES = 12
 # Phase 4: the ring's rank counts (all on cuda:0) and the RDMA frames.
 RING_RANKS = (1, 2, 4)
 RING_N = 4
@@ -427,7 +450,7 @@ def bits_equal(got, want) -> bool:
 
 
 def compare_kernel(bsr_trace, key, args, kwargs, plain_repeats=REPEATS,
-                   tag=None):
+                   tag=None, phase="1"):
     """One kernel against its plain version on (args, kwargs), with
     exit_every 0 and 32: every output bit for bit. Returns {"max_abs_err",
     "ms" (device time of one call, every launch in it), "call_ms" (the
@@ -465,10 +488,10 @@ def compare_kernel(bsr_trace, key, args, kwargs, plain_repeats=REPEATS,
                        warmup=1 if plain_repeats < REPEATS else 2)
     st = worklist_stats(args, kwargs, name == "bsr_nearest")
     share = st["bound_ms"] / ms
-    print(f"[phase 1] {tag or KERNELS[key][0] + ' ' + key}: "
+    print(f"[phase {phase}] {tag or KERNELS[key][0] + ' ' + key}: "
           f"R={args[0].shape[1]} T={args[2].shape[0]} W={args[3].shape[0]} "
           f"rt={kwargs['rt']} tb={kwargs['tb']} exit_every(path)="
-          f"{kwargs['exit_every']}; {stats_line(st)}; bit-equal to the "
+          f"{kwargs.get('exit_every', 0)}; {stats_line(st)}; bit-equal to the "
           f"plain version at exit_every 0 and 32; kernel {ms:.4f} ms "
           f"(device, mean of {REPEATS} calls) = {share:.2%} of its bound, "
           f"{call_ms:.4f} ms synchronized (median of {REPEATS}); plain "
@@ -1677,6 +1700,194 @@ def phase_ring_frames(grid, ring_trace):
     return launches
 
 
+# Phase 5: the culled multi-rank schedules, RING_N ranks sharing cuda:0
+# (the frames and their measurements: tools/schedule_frames.py).
+RING_DYN_DIFFS = 2
+
+
+def phase_bands(bsr_trace, bounced, grid):
+    """Phase 5a: equal and balanced bands of the 184,320-triangle sphere
+    grid at 3840x2160 against the single-rank frame of the same bake, and
+    the bounced bands of the 1080p sphere grid against the single-rank
+    freeze_bounced frame."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.parallel import render_sharded_bvh
+    from distributed_raytracer_tpu_torch.tools import schedule_frames as sf
+
+    mesh = ["cuda:0"] * RING_N
+    scene = sf.band_scene()
+    t0 = time.perf_counter()
+    bake = scene.bake_bvh(block_size=128)
+    poses = sf.orbit(scene, sf.BAND_POSES)
+    single, refs = sf.single_band_refs(scene, bake, poses)
+    print(f"[phase 5a] {scene.num_tris} triangles, {bake[1].num_blocks} "
+          f"blocks at {sf.BAND_W}x{sf.BAND_H}: bake, upload and "
+          f"{sf.BAND_POSES} single-rank frames {time.perf_counter() - t0:.1f} "
+          "s")
+    reset_launches(bsr_trace)
+    t0 = time.perf_counter()
+    equal, balanced = sf.build_bands(scene, bake, mesh, poses)
+    worst = sf.check_bands(equal, balanced, refs, poses)
+    torch.cuda.synchronize()
+    launches = dict(bsr_trace.LAUNCHES)
+    print(f"[phase 5a] equal and balanced bands, {RING_N} ranks on cuda:0: "
+          f"built, sized and {sf.BAND_POSES} poses in "
+          f"{time.perf_counter() - t0:.1f} s; every frame within {worst} of "
+          f"the single-rank frame (atol 2e-5), balanced == equal bit for "
+          f"bit; buckets {equal.buckets()}; balanced layout "
+          f"{balanced.layout()}; launches while building and capturing "
+          f"{launches}")
+    for name in ("bsr_nearest", "bsr_any"):
+        check(launches[name] > 0, f"{name} was not launched on the bands")
+    for what, fn in (("single rank", lambda: single.render_fast(poses[1])),
+                     ("equal bands", lambda: equal(poses[1])),
+                     ("balanced bands", lambda: balanced(poses[1]))):
+        print(f"[phase 5a] {what}: {sf.stats_line(sf.stats(fn))}")
+
+    prebaked = (bounced.arrays_host, bounced.tree)
+    reset_launches(bsr_trace)
+    bands = render_sharded_bvh.make_sharded_bounced_renderer(
+        None, BW, BH, DEPTH, mesh=mesh, prebaked=prebaked,
+        sizing_camera=grid.camera)
+    one = CulledRenderer(None, BW, BH, prebaked=prebaked,
+                         device="cuda").freeze_bounced(grid.camera, DEPTH)
+    diff = 0.0
+    for cam in grid_poses(grid, 2):
+        got = bands(cam, verify=True)
+        diff = max(diff, float((got - one(cam, verify=True)).abs().max()))
+    torch.cuda.synchronize()
+    got = dict(bsr_trace.LAUNCHES)
+    print(f"[phase 5a] bounced bands, {BW}x{BH} depth {DEPTH}, {RING_N} "
+          f"ranks: 2 poses within {diff} of the single-rank freeze_bounced "
+          f"frame (atol 2e-5); buckets {bands.buckets()}; launches {got}; "
+          f"{sf.stats_line(sf.stats(lambda: bands(grid.camera)))}")
+    check(diff <= 2e-5, "bounced bands differ from the single-rank frame")
+    check(got["bsr_nearest_rays"] > 0 and got["bsr_any"] > 0,
+          "the bounced bands launched no K3n or K2")
+    for key, n in got.items():
+        launches[key] += n
+    return launches
+
+
+def ring_call(seen: dict, key: str):
+    """Of the recorded ring calls of `key` on a shard other than rank 0's
+    own (gid_base != 0) with a carried state (a finite init t, or an init
+    flag set), the one with the most live work items."""
+    import torch
+
+    calls = []
+    for args, kwargs in seen.get(key, []):
+        init = kwargs.get("init_t", kwargs.get("init"))
+        carried = (bool(torch.isfinite(init).any()) if "init_t" in kwargs
+                   else bool(init.any()))
+        if int(kwargs["gid_base"].item()) != 0 and carried:
+            calls.append((int(args[6].item()), args, kwargs))
+    check(bool(calls) and max(c[0] for c in calls) > 0,
+          f"no {key} call with gid_base != 0, a carried init and work on "
+          "the ring")
+    _, args, kwargs = max(calls, key=lambda c: c[0])
+    return args, kwargs
+
+
+def phase_ring_bvh(bsr_trace, grid):
+    """Phase 5b: the culled ring of icosphere_scene(8) at 640x480 against
+    the single-rank frame of its own bake; the sphere grid with bounces 2
+    (against render_bounced) and dynamic (against fresh bakes); K1, K2 and
+    K3n recorded on the ring with gid_base != 0 and carried seeds, each
+    bit for bit against its plain version."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.parallel import ring_bvh
+    from distributed_raytracer_tpu_torch.runtime import animation
+    from distributed_raytracer_tpu_torch.tools import schedule_frames as sf
+
+    mesh = ["cuda:0"] * RING_N
+    scene = sf.ring_scene()
+    reset_launches(bsr_trace)
+    t0 = time.perf_counter()
+    ring = ring_bvh.RingCulledRenderer(scene, sf.RING_W, sf.RING_H,
+                                       mesh=mesh)
+    build_s = time.perf_counter() - t0
+    single = CulledRenderer(None, sf.RING_W, sf.RING_H, prebaked=ring.bake,
+                            device="cuda")
+    ref = single.render(scene.camera, block=True)
+    single.freeze(scene.camera)
+    diff = sf.check_ring(ring, ref, scene.camera)
+    torch.cuda.synchronize()
+    launches = dict(bsr_trace.LAUNCHES)
+    reset_launches(bsr_trace)
+    ring.render(scene.camera)
+    torch.cuda.synchronize()
+    per_frame = dict(bsr_trace.LAUNCHES)
+    print(f"[phase 5b] ring, {scene.num_tris} triangles, {ring.nb_ext} "
+          f"blocks ({ring.nb_loc} per rank, local levels {ring.n_levels}), "
+          f"{RING_N} ranks on cuda:0, {sf.RING_W}x{sf.RING_H}: bake, upload "
+          f"and sizing {build_s:.1f} s; frame within {diff} of the "
+          f"single-rank frame (atol 2e-5); buckets {ring.w_pads} / "
+          f"{ring.w_pads_sh}; scheduled pairs {ring.scheduled_pairs()}; "
+          f"launches per frame {per_frame}")
+    for name in ("bsr_nearest", "bsr_any"):
+        check(per_frame[name] > 0, f"{name} was not launched on the ring")
+    for what, fn in (("single rank", lambda: single.render_fast(
+                          scene.camera)),
+                     ("ring", lambda: ring.render(scene.camera))):
+        print(f"[phase 5b] {what}: {sf.stats_line(sf.stats(fn))}")
+    del ring, single
+
+    reset_launches(bsr_trace)
+    rb = ring_bvh.RingCulledRenderer(grid, W, H, mesh=mesh, bounces=DEPTH)
+    seen = {}
+    with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
+        img = rb.render(grid.camera, verify=True)
+    one = CulledRenderer(None, W, H, prebaked=rb.bake, device="cuda")
+    diff = float((img - one.render_bounced(grid.camera, DEPTH,
+                                           block=True)).abs().max())
+    torch.cuda.synchronize()
+    got = dict(bsr_trace.LAUNCHES)
+    reset_launches(bsr_trace)
+    rb.render(grid.camera)
+    torch.cuda.synchronize()
+    per_frame = dict(bsr_trace.LAUNCHES)
+    print(f"[phase 5b] ring, sphere grid {W}x{H}, bounces {DEPTH}: within "
+          f"{diff} of the single-rank render_bounced (atol 2e-5); launches "
+          f"per frame {per_frame}; "
+          f"{sf.stats_line(sf.stats(lambda: rb.render(grid.camera)))}")
+    check(diff <= 2e-5, "bounced ring differs from render_bounced")
+    for key in ("bsr_nearest", "bsr_any", "bsr_nearest_rays"):
+        check(per_frame[key] > 0, f"{key} was not launched on the ring")
+        args, kwargs = ring_call(seen, key)
+        compare_kernel(bsr_trace, key, args, kwargs, phase="5b",
+                       tag=f"{KERNELS[key][0]} {key} on the ring, gid_base "
+                           f"{int(kwargs['gid_base'].item())}, carried init")
+    for key, n in got.items():
+        launches[key] += n
+    del rb, seen
+
+    reset_launches(bsr_trace)
+    rd = ring_bvh.RingCulledRenderer(grid, W, H, mesh=mesh, dynamic=True)
+    diffs = animation.orbit_object_diffs(grid, 4)[1:1 + RING_DYN_DIFFS]
+    worst = (0.0, 0.0)
+    for d in diffs:
+        img = rd.render_dynamic(grid.camera, d, verify=True)
+        m = moved_grid(grid, d)
+        want = CulledRenderer(m, W, H, device="cuda").render(m.camera,
+                                                             block=True)
+        worst = tuple(map(max, worst, close_frames(
+            "ring render_dynamic vs a fresh bake", img, want,
+            mean_bound=1e-3)))
+    torch.cuda.synchronize()
+    for key, n in bsr_trace.LAUNCHES.items():
+        launches[key] += n
+    print(f"[phase 5b] ring dynamic, sphere grid {W}x{H}: "
+          f"{RING_DYN_DIFFS} orbit diffs, worst {worst[0]:.6%} of pixels > "
+          f"2/255, mean {worst[1]:.3e} against fresh bakes; "
+          f"{sf.stats_line(sf.stats(lambda: rd.render_dynamic(grid.camera, diffs[0])))}")
+    return launches
+
+
 def write_scene(d: str, scene, mesh) -> str:
     """The scene as OBJ + MTL + scene.json (the reference's schema): one
     mesh, one `objs` entry per object of the scene."""
@@ -1913,6 +2124,8 @@ def main() -> int:
     phase_graphs(renderer, scene, bounced, grid)
     kernels.update(phase_ring_kernels(grid, ring_trace))
     runs.append(phase_ring_frames(grid, ring_trace))
+    runs.append(phase_bands(bsr_trace, bounced, grid))
+    runs.append(phase_ring_bvh(bsr_trace, grid))
     for got in runs:
         for key, n in got.items():
             launches[key] = launches.get(key, 0) + n
@@ -1924,7 +2137,11 @@ def main() -> int:
     run_cli(grid, grid_mesh, (BW, BH), 8,
             ["--animate-objects", "--revolutions", "0.1"])
     for flags in (["--mode", "sequential"],
-                  ["--mode", "sharded", "--devices", str(RING_N)]):
+                  ["--mode", "sharded", "--devices", str(RING_N)],
+                  ["--mode", "sharded-bvh", "--devices", str(RING_N)],
+                  ["--mode", "sharded-bvh", "--devices", str(RING_N),
+                   "--balance"],
+                  ["--mode", "ring", "--devices", str(RING_N)]):
         run_cli(grid, grid_mesh, (320, 240), 3,
                 flags + ["--revolutions", "0.1"])
     phase_loop(renderer, scene, mesh)

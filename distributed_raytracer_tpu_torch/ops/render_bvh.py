@@ -38,6 +38,12 @@ again per bounce over the previous bounce's reflection rays, whose nearest
 query runs the per-ray-origin kernel. `freeze_bounced(camera, depth)`
 returns the same pipeline with per-bounce buckets and no host sync.
 
+A renderer may draw one band of a larger frame (parallel/render_sharded_bvh.py):
+`raygen_height` is the full frame's height, which rays project with, and
+`set_rays(perm, live)` writes the band's pixel of every ray slot and which
+slots are live into the renderer's buffers in place, so frozen graphs that
+read them see the new values on their next replay.
+
 `use_mxu=True` runs the shared-origin launches (stage 3 and every shadow
 query, bounced ones included) in the tensor-core form of the JAX package's
 MXU kernels: a static direction matrix (`bsr_trace.pack_dirs`) and
@@ -73,6 +79,23 @@ def _tile_bucket(n: int, n_tiles: int) -> int:
     """Capacity for the compacted hit-TILE set: pow2, floor 8, capped at
     the full tile count (cap = no compaction, overflow impossible)."""
     return min(n_tiles, max(8, 1 << max(0, int(n - 1).bit_length())))
+
+
+def reflect_rows(cfg: RenderConfig, prep: PackedPrep, rays: torch.Tensor,
+                 valid: torch.Tensor):
+    """Reflection rays (8, C) and their liveness (C,) from one bounce's
+    shading prep: the shading normal mirrors the direction and lifts the
+    origin off the surface; dead rays (misses, zero Ks) are live False.
+    Shared with the geometry-sharded schedules (parallel/halo_bvh.py)."""
+    n = prep.normal
+    d = rays[3:6]
+    d_dot_n = shade._sum3(d * n)
+    refl = shade._normalize_rows(d - 2.0 * d_dot_n[None, :] * n)
+    side = torch.where(shade._sum3(n * refl) >= 0.0, 1.0, -1.0)
+    o = (prep.x + cfg.shadow_offset * refl
+         + (cfg.shadow_normal_offset * side)[None, :] * n)
+    return (bsr_trace.pack_rays_rows(o, refl),
+            valid & (prep.ks > 0.0).any(dim=0))
 
 
 class DeviceScene(NamedTuple):
@@ -151,6 +174,9 @@ class CulledRenderer:
             block_size = default_block_size(
                 scene.num_tris if scene is not None else 1 << 30)
         self.width, self.height, self.cfg = width, height, cfg
+        # The frame height rays project with: the band renderers of
+        # parallel/render_sharded_bvh.py set the full frame's.
+        self.raygen_height = height
         self.rt, self.tb = ray_tile, block_size
         # Amortized front-to-back early exit of the traversal kernels:
         # refresh the per-tile bound every `exit_every` work items; 0 = off;
@@ -220,7 +246,10 @@ class CulledRenderer:
         self.tile_h = ray_tile // self.tile_w
         perm, _, n_slots = cull.tiled_ray_order(width, height, self.tile_w,
                                                 self.tile_h)
+        # Flat pixel index of every ray slot, and (None = all live) the
+        # slots whose rays count: buffers written in place (set_rays).
         self._perm = put(perm.astype(np.int64))
+        self._live = None
         self.n_pad = n_slots
         self.n_tiles = self.n_pad // ray_tile
         self._no_excl = torch.full((self.n_pad,), -1, dtype=torch.int32,
@@ -251,6 +280,21 @@ class CulledRenderer:
         return torch.cat([fold(tris_packed, light_pos[li])
                           for li in range(light_pos.shape[0])])
 
+    def set_rays(self, perm, live=None) -> None:
+        """Writes the flat pixel index of every ray slot ((n_pad,) ints, of
+        a raygen_height-high frame) and the live slots ((n_pad,) bool, or
+        None for all) into the renderer's buffers in place, on the current
+        stream. Dead slots drop out of the cull's tile hulls, so a tile
+        of dead rays costs no work."""
+        self._perm.copy_(torch.as_tensor(perm).reshape(self.n_pad))
+        if live is None:
+            self._live = None
+        elif self._live is None:
+            self._live = torch.as_tensor(live).to(self.device).reshape(
+                self.n_pad).clone()
+        else:
+            self._live.copy_(torch.as_tensor(live).reshape(self.n_pad))
+
     # -- helpers ---------------------------------------------------------
 
     def _sync(self) -> None:
@@ -274,10 +318,10 @@ class CulledRenderer:
     # -- stage A: primary rays + cull ------------------------------------
 
     def _stage_a(self, sc: DeviceScene, cam: CameraArrays):
-        d_rows = raygen.ray_rows_flat(cam, self.width, self.height,
+        d_rows = raygen.ray_rows_flat(cam, self.width, self.raygen_height,
                                       self._perm)
         rays = bsr_trace.pack_rays_rows(cam.pos, d_rows)
-        ti = cull.tile_intervals_packed(rays, self.rt)
+        ti = cull.tile_intervals_packed(rays, self.rt, live=self._live)
         mask1, entry1, c1 = cull.multilevel_mask(ti, sc.block_lo,
                                                  sc.block_hi, self.groups)
         return rays, ti, mask1, entry1, c1
@@ -299,6 +343,22 @@ class CulledRenderer:
             counts.append(int(c[-1]))
             pads.append(_bucket(counts[-1]))
         return tuple(pads), tuple(counts)
+
+    def per_tile_cells(self, camera) -> torch.Tensor:
+        """(n_tiles,) int32 on the device: the fine-level cull cells of
+        every ray tile for `camera`, the per-tile work that the balanced
+        band split sums per tile row (parallel/render_sharded_bvh.py). One
+        host sync per level, as render() sizes."""
+        sc, cam = self.dev_scene, raygen.camera_arrays(camera, self.device)
+        _, ti, mask1, entry1, c1 = self._stage_a(sc, cam)
+        pads, _ = self._size_pads(sc, ti, mask1, entry1, c1)
+        wl, _ = cull.multilevel_worklist(ti, mask1, entry1, c1, sc.block_lo,
+                                         sc.block_hi, self.groups, pads)
+        real = (torch.arange(pads[-1], device=self.device)
+                < wl.count).to(torch.int32)
+        return torch.zeros(self.n_tiles, dtype=torch.int32,
+                           device=self.device).index_add_(
+                               0, wl.tile_ids.long(), real)
 
     # -- stage B: nearest hit + shadow masks -----------------------------
 
@@ -614,7 +674,8 @@ class CulledRenderer:
 
     def _graph_key(self, kind: str, pads) -> tuple:
         """Everything that shapes a frozen frame's graph."""
-        return (kind, pads, self.exit_every, self.use_mxu)
+        return (kind, pads, self.exit_every, self.use_mxu,
+                self._live is not None)
 
     def _frame_graph(self, kind: str, inputs: dict) -> frozen_graph.FrameGraph:
         """The graph of one frozen frame kind, its static inputs shaped
@@ -684,16 +745,8 @@ class CulledRenderer:
         direction and lifts the origin off the surface; dead rays (misses,
         zero Ks, non-hit tiles) are zeros with live=False, which cull
         away."""
-        cfg, prep = self.cfg, sh.prep
-        n = prep.normal
-        d = sh.rays_h[3:6]
-        d_dot_n = shade._sum3(d * n)
-        refl = shade._normalize_rows(d - 2.0 * d_dot_n[None, :] * n)
-        side = torch.where(shade._sum3(n * refl) >= 0.0, 1.0, -1.0)
-        o = (prep.x + cfg.shadow_offset * refl
-             + (cfg.shadow_normal_offset * side)[None, :] * n)
-        r_rays_h = bsr_trace.pack_rays_rows(o, refl)
-        r_live_h = sh.hits_h.valid & (prep.ks > 0.0).any(dim=0)
+        r_rays_h, r_live_h = reflect_rows(self.cfg, sh.prep, sh.rays_h,
+                                          sh.hits_h.valid)
         return (self._gather_tiles(r_rays_h, sh.tpos, sh.hit_tile),
                 self._gather_tiles(r_live_h, sh.tpos, sh.hit_tile,
                                    fill=False))

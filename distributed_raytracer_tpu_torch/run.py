@@ -12,6 +12,12 @@ device (`--device`, default cuda). Modes:
                `--devices N` ranks (parallel/render_sharded.py); the ranks
                are a device list, rank i on cuda:(i % cards), so N ranks
                may share one card, or all on the CPU with --device cpu
+  sharded-bvh - the culled renderer on one band of rows per rank
+               (parallel/render_sharded_bvh.py), `--balance` for
+               cost-balanced band heights, `--bounces N` on equal bands
+  ring       - the culled geometry ring (parallel/ring_bvh.py): triangle
+               shards rotate past resident rays, `--bounces N`, and
+               `--animate-objects` through per-frame scene diffs
 With no display, the interactive loop becomes a scripted camera
 animation (default: orbit, the reference's benchmark motion); frames can
 be written as PNGs, and the exit report reproduces the master's FPS
@@ -20,8 +26,8 @@ runs the interactive loop (runtime/loop.py) behind the browser viewer
 (runtime/viewer.py) instead, in every ported mode, until a client sends
 Esc.
 
-The JAX package's other modes (sharded-bvh, halo, ring) and `--multihost`
-are not ported yet; asking for one exits with a message that says so.
+The JAX package's halo mode and `--multihost` are not ported yet; asking
+for one exits with a message that says so.
 """
 
 from __future__ import annotations
@@ -43,15 +49,20 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("width", type=int)
     p.add_argument("height", type=int)
     p.add_argument("--mode", choices=_MODES, default="culled",
-                   help="sequential, culled and sharded are ported")
+                   help="all but halo are ported")
     p.add_argument("--bounces", type=int, default=0,
-                   help="Whitted reflection bounces (culled mode)")
+                   help="Whitted reflection bounces (culled, sharded-bvh "
+                        "and ring modes)")
     p.add_argument("--devices", type=int, default=None,
-                   help="rank count for --mode sharded")
+                   help="rank count for the sharded, sharded-bvh and ring "
+                        "modes (default: one per card)")
+    p.add_argument("--balance", action="store_true",
+                   help="cost-balanced band heights for --mode sharded-bvh "
+                        "(the least-loaded-scheduler analog)")
     p.add_argument("--animate-objects", action="store_true",
                    help="orbit object 0 via per-frame SceneDiffs (the "
                         "reference's per-WorkOrder EnvMutables, "
-                        "master/main.go:260-266; culled mode)")
+                        "master/main.go:260-266; culled and ring modes)")
     p.add_argument("--object-radius", type=float, default=1.0,
                    help="orbit radius for --animate-objects")
     p.add_argument("--serve", metavar="HOST:PORT", default=None,
@@ -76,7 +87,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-_PORTED_MODES = ("sequential", "culled", "sharded")
+_PORTED_MODES = ("sequential", "culled", "sharded", "sharded-bvh", "ring")
 
 
 def _unported(args) -> str | None:
@@ -106,14 +117,19 @@ def main(argv=None) -> int:
     if what is not None:
         raise SystemExit(f"{what} is not yet ported to "
                          "distributed_raytracer_tpu_torch (--mode "
-                         "sequential, culled and sharded are); use "
-                         "distributed_raytracer_tpu for it")
+                         "sequential, culled, sharded, sharded-bvh and ring "
+                         "are); use distributed_raytracer_tpu for it")
     if args.bounces < 0:
         raise SystemExit(f"--bounces {args.bounces}: must be >= 0")
-    if args.animate_objects and (args.mode != "culled" or args.bounces):
-        # The JAX package's message (its halo/ring modes are not ported).
-        raise SystemExit("--animate-objects supports --mode "
-                         "culled/halo/ring (--bounces on halo/ring)")
+    if args.animate_objects:
+        # The JAX package's messages (its halo mode is not ported).
+        if args.mode not in ("culled", "ring") or (
+                args.bounces and args.mode == "culled"):
+            raise SystemExit("--animate-objects supports --mode "
+                             "culled/halo/ring (--bounces on halo/ring)")
+        if args.serve and args.mode != "culled":
+            raise SystemExit("--animate-objects + --serve needs --mode "
+                             "culled; --multihost is unsupported")
 
     from distributed_raytracer_tpu_torch.models.scene import load_scene
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
@@ -122,6 +138,10 @@ def main(argv=None) -> int:
 
     scene = load_scene(args.scene)
     w, h = args.width, args.height
+    diffs = (animation.orbit_object_diffs(scene, args.frames,
+                                          radius=args.object_radius,
+                                          revolutions=args.revolutions)
+             if args.animate_objects else None)
 
     if args.mode in ("sequential", "sharded"):
         # The dense sweep; --bounces applies to culled mode only, as in the
@@ -140,15 +160,39 @@ def main(argv=None) -> int:
             render = lambda cam: sharded(arrays, cam)
         render_k = lambda k, cam: render(cam)
         render_arrays = render
+    elif args.mode in ("sharded-bvh", "ring"):
+        from distributed_raytracer_tpu_torch.parallel import (
+            render_sharded, render_sharded_bvh, ring_bvh)
+
+        mesh = render_sharded.default_mesh(args.devices, args.device)
+        if args.mode == "ring":
+            # Ring bounces move no rays: reflection rays stay resident and
+            # the next rotation streams the geometry past them.
+            r = ring_bvh.RingCulledRenderer(scene, w, h, mesh=mesh,
+                                            bounces=args.bounces,
+                                            dynamic=args.animate_objects)
+            render_v = r.render
+        elif args.bounces:
+            r = render_sharded_bvh.make_sharded_bounced_renderer(
+                scene, w, h, args.bounces, mesh=mesh)
+            render_v = r
+        else:
+            r = render_sharded_bvh.make_sharded_culled_renderer(
+                scene, w, h, mesh=mesh, balance=args.balance)
+            render_v = r
+        if args.animate_objects:
+            render_k = lambda k, cam: r.render_dynamic(
+                cam, diffs[k], verify=(k % 8 == 0))
+        else:
+            render = _periodic_verify(render_v)
+            render_k = lambda k, cam: render(cam)
+        render_arrays = render_v
     elif args.animate_objects:
         # Per-frame object/light diffs through the frozen pipeline
         # (ops/render_dynamic.py), block size 128 as in the JAX CLI.
         from distributed_raytracer_tpu_torch.ops.render_dynamic import (
             DynamicCulledRenderer)
 
-        diffs = animation.orbit_object_diffs(
-            scene, args.frames, radius=args.object_radius,
-            revolutions=args.revolutions)
         dyn = DynamicCulledRenderer(scene, w, h, device=args.device)
         dyn.render(scene.camera, block=True)
         dyn.freeze(scene.camera)

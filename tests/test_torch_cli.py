@@ -3,7 +3,8 @@
 `python -m distributed_raytracer_tpu_torch` renders the tetra scene on the
 CPU and must write the frames the port's own render() (render_bounced()
 with --bounces, render_dynamic() with --animate-objects, render_frame()
-with --mode sequential, the sharded renderer with --mode sharded) gives;
+with --mode sequential, the sharded renderer with --mode sharded, the
+one-rank culled frames with --mode sharded-bvh and --mode ring) gives;
 --serve in each of those modes serves the loop until a client sends Esc;
 the modes that are not ported yet exit non-zero with a message that names
 them. The
@@ -73,10 +74,10 @@ def test_cli_writes_the_frames_render_gives(scene_path, tmp_path):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--mode", "sharded-bvh"], "--mode sharded-bvh"),
-    (["--mode", "ring"], "--mode ring"),
+    (["--mode", "halo"], "--mode halo"),
+    (["--mode", "halo", "--bounces", "1"], "--mode halo"),
     (["--mode", "halo", "--devices", "2"], "--mode halo"),
-    (["--mode", "ring", "--serve", "127.0.0.1:0"], "--mode ring"),
+    (["--mode", "halo", "--serve", "127.0.0.1:0"], "--mode halo"),
     (["--multihost"], "--multihost"),
 ])
 def test_unported_options_exit_with_their_name(scene_path, flags, name):
@@ -88,7 +89,9 @@ def test_unported_options_exit_with_their_name(scene_path, flags, name):
 
 @pytest.mark.parametrize("flags", [
     [], ["--bounces", "1"], ["--animate-objects"], ["--mode", "sequential"],
-    ["--mode", "sharded", "--devices", "2"]])
+    ["--mode", "sharded", "--devices", "2"],
+    ["--mode", "sharded-bvh", "--devices", "2"],
+    ["--mode", "ring", "--devices", "2"]])
 def test_cli_serve_ends_on_esc(scene_path, flags, monkeypatch, capsys):
     """--serve runs the interactive loop behind the browser viewer: a
     client holds "w" until a frame is shown, fetches it and the stats,
@@ -214,6 +217,48 @@ def test_cli_dense_modes_write_render_frame(scene_path, tmp_path, capsys,
         # channel then differs by at most 1.
         diff = np.abs(got.astype(int) - framebuffer.to_u8(want.numpy()))
         assert diff.max() <= (0 if flags[1] == "sequential" else 1)
+        assert got.max() > 0
+
+
+@pytest.mark.parametrize("flags", [
+    ["--mode", "sharded-bvh", "--devices", "2"],
+    ["--mode", "sharded-bvh", "--devices", "2", "--balance"],
+    ["--mode", "sharded-bvh", "--devices", "2", "--bounces", "1"],
+    ["--mode", "ring", "--devices", "2"],
+    ["--mode", "ring", "--bounces", "1"],
+    ["--mode", "ring", "--devices", "2", "--animate-objects"]])
+def test_cli_culled_multi_rank_modes_write_the_one_rank_frames(
+        scene_path, tmp_path, capsys, flags):
+    """Bands (equal, balanced, bounced) and the geometry ring over CPU
+    ranks write the frames the one-rank culled renderer gives for the same
+    bake (block size 128): render(), render_bounced() with --bounces, and
+    with --animate-objects the dynamic renderer's render_dynamic() of the
+    same orbit diffs."""
+    from distributed_raytracer_tpu_torch.ops.render_dynamic import (
+        DynamicCulledRenderer)
+
+    out = str(tmp_path / "frames")
+    assert run.main([scene_path, "64", "48", *flags, "--frames", "2",
+                     "--fps-target", "0", "--device", "cpu", "--out", out,
+                     "--radius", "3", "--object-radius", "0.5"]) == 0
+    report = capsys.readouterr().out
+    assert "Mean FPS" in report and "Throughput" in report
+    scene = load_scene(scene_path)
+    poses = animation.orbit_camera_path(scene.camera, 2, radius=3.0)
+    if "--animate-objects" in flags:
+        r = DynamicCulledRenderer(scene, 64, 48, device="cpu")
+        r.freeze(scene.camera)
+        diffs = animation.orbit_object_diffs(scene, 2, radius=0.5)
+        frame = lambda k, cam: r.render_dynamic(cam, diffs[k], verify=True)
+    else:
+        r = CulledRenderer(scene, 64, 48, device="cpu")
+        bounces = int(flags[flags.index("--bounces") + 1]
+                      if "--bounces" in flags else 0)
+        frame = lambda k, cam: r.render_bounced(cam, bounces)
+    for k, cam in enumerate(poses):
+        want = framebuffer.to_u8(frame(k, cam).numpy())
+        got = jframebuffer.read_png(os.path.join(out, f"frame_{k:05d}.png"))
+        np.testing.assert_array_equal(got, want)
         assert got.max() > 0
 
 

@@ -11,7 +11,9 @@ package's own sync render of the pose counts. Those agree on the primary
 levels and the hit tiles; the shadow counts of the tetrahedron's second
 pose differ by one coarse cell (port 9, JAX 10) in the sync renders
 already, before any batch: a shadow work-list difference between the two
-packages that the images do not show (ROADMAP Queue 3). The port's frames
+packages that the images do not show, from the light gate at a light in
+the plane of a face (test_shadow_gap_is_the_light_gate_under_xla_fusion;
+ROADMAP Queue 3). The port's frames
 equal its own render_fast of each pose bit for bit, and Camera and host
 CameraArrays inputs give the same batch.
 
@@ -20,16 +22,21 @@ bit-equal to the eager stages, a frame returned earlier is unchanged by
 later calls, a refreeze recaptures, and render_many equals render_fast.
 """
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 import torch
 
 from distributed_raytracer_tpu.ops.render_bvh import CulledRenderer as JaxRenderer
+from distributed_raytracer_tpu.ops.render_bvh import _tile_bucket as jtile_bucket
 from distributed_raytracer_tpu.utils import scenes as jscenes
 from distributed_raytracer_tpu_torch.models.camera import Camera
 from distributed_raytracer_tpu_torch.models.scene import from_reference
-from distributed_raytracer_tpu_torch.ops import frozen_graph, raygen
+from distributed_raytracer_tpu_torch.ops import cull, frozen_graph, raygen, shade
 from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+from distributed_raytracer_tpu_torch.ops.shade import PackedPrep
 from distributed_raytracer_tpu_torch.utils import scenes
 
 W, H = 64, 48
@@ -216,3 +223,66 @@ def test_cuda_render_many_equals_render_fast(cuda_renderer):
     assert counts.shape == (6, len(r._frozen_pads))
     for k, cam in enumerate(cams):
         assert torch.equal(imgs[k], r.render_fast(cam))
+
+
+def test_shadow_gap_is_the_light_gate_under_xla_fusion(tetra_scene):
+    """Where the shadow counts differ from JAX's (the tetrahedron's pose
+    moved 0.3 left and turned 0.2 at 64x48: coarse and fine 9 in the port,
+    10 in JAX), the light gate decides it. Light 1, (-4, 2, 3), lies in the
+    plane x + y + z = 1 of the tetrahedron's slanted face, so l.n is 0 in
+    real arithmetic on that face and its rounding's sign opens or shuts the
+    gate (contribution > 0):
+
+      - on JAX's own shading prep, the port's light_gates_rows equals the
+        JAX gate run op by op (no fusion) bit for bit: both sum in the JAX
+        source's order;
+      - under jit, XLA fuses the hit point and the gate's dot products into
+        multiply-adds, and the gate differs from the op-by-op one only on
+        light 1's rays with |l.n| < 1e-7;
+      - the extra shadow cell comes from those rays alone: the jitted
+        shadow rays with the op-by-op gate give the op-by-op cell count.
+    """
+    w, h = 64, 48
+    bake = tetra_scene.bake_bvh(block_size=64)
+    jr = JaxRenderer(None, w, h, interpret=True, prebaked=bake)
+    cam = tetra_scene.camera.move(0.3, leftward=True).yaw(0.2).to_arrays()
+    rays, ti, m1, e1, c1 = jr._stage_a(cam, jr._perm, jr.block_lo,
+                                       jr.block_hi)
+    pads, _ = jr._size_pads(ti, m1, e1, c1, jr.block_lo, jr.block_hi)
+    hits, hcount, _ = jr._stage_b1_fn(pads, jr.arrays, jr.tris_packed,
+                                      jr.tris_dirs, jr.block_lo,
+                                      jr.block_hi, rays, ti, m1, e1, c1)
+    args = (jr.arrays, jr.shade_tbl, jr.block_lo, jr.block_hi, rays, hits)
+    ht_pad = jtile_bucket(int(hcount), jr.n_tiles)
+    eager = jr._stage_b2_fn(ht_pad, *args)
+    fused = jax.jit(functools.partial(jr._stage_b2_fn, ht_pad))(*args)
+    t = lambda x: torch.from_numpy(np.array(x))
+    port_gate = shade.light_gates_rows(
+        t(jr.arrays.light_col), t(rays[0:3, 0]),
+        PackedPrep(*(t(f) for f in eager[3])), t(eager[2].valid))
+    eager_live, fused_live = np.asarray(eager[4]), np.asarray(fused[4])
+    assert np.array_equal(port_gate.numpy(), eager_live)
+
+    flipped = np.argwhere(eager_live != fused_live)
+    assert len(flipped) > 0 and set(flipped[:, 0]) == {1}
+    q = np.asarray(fused[3].q, np.float64)
+    normal = np.asarray(fused[3].normal, np.float64)
+    for li, ray in flipped:
+        assert abs(q[li, 3:6, ray] @ normal[:, ray]) < 1e-7
+    assert int(fused[8]) == int(eager[8]) + 1      # the extra coarse cell
+
+    q_rev = t(fused[3].q_rev)
+    blo, bhi = t(jr.block_lo), t(jr.block_hi)
+
+    def coarse_cells(live_l):
+        total = 0
+        for li in range(q_rev.shape[0]):
+            hull = cull.tile_intervals_packed(q_rev[li], jr.rt,
+                                              live=t(live_l[li]),
+                                              use_tmax=True)
+            total += int(cull.multilevel_mask(hull, blo, bhi,
+                                              jr.groups)[2])
+        return total
+
+    assert coarse_cells(fused_live) == int(fused[8])
+    assert coarse_cells(eager_live) == int(eager[8])
