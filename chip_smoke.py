@@ -160,12 +160,25 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      (gid_base != 0, a carried init, the most live items) held bit for
      bit against its plain version and timed; dynamic=True over 2 orbit
      diffs against fresh bakes of the moved scenes (phase 2d's bound).
+     5c. The culled halo (parallel/halo_bvh.py) of icosphere_scene(8) at
+     640x480: against the single-rank frame built from the halo's own bake
+     (atol 2e-5), 8 frames bit-identical to the first (a missing event
+     wait in mesh.all_to_all shows as a frame that changes from run to
+     run), launches per frame (K1, K2 > 0) and the frame's stats; the
+     640x480 sphere grid with bounces 2 against the single-rank
+     render_bounced (atol 2e-5), one K3n call recorded on it (gid_base !=
+     0, the most live items) held bit for bit against its plain version;
+     dynamic=True over 2 orbit diffs against fresh bakes of the moved
+     scenes (phase 2d's bound); the dense make_halo_renderer
+     (parallel/halo.py) of the sphere grid at 320x240 against render_frame
+     (phase 4b's bound).
   3. The command line: the 640x480 sphere written as OBJ + scene.json, 30
      frames through distributed_raytracer_tpu_torch.run.main on cuda; then
      the sphere grid, 8 frames at 1920x1080 with --bounces 2, and 8 with
      --animate-objects; 3 frames at 320x240 with --mode sequential, with
      --mode sharded --devices 4, with --mode sharded-bvh --devices 4
-     (with and without --balance) and with --mode ring --devices 4.
+     (with and without --balance), with --mode ring --devices 4 and with
+     --mode halo --devices 4 (also with --bounces 2).
   3b. runtime/loop.run_loop at 640x480 over 120 ticks of orbit_events on
      the frozen renderer (verify every 8th frame): no drops, frames shown
      in order, the last equal to render_fast of the final camera, FPS and
@@ -182,7 +195,9 @@ bound_ms, bound_by, share_of_bound, library_ms: null, no single PyTorch
 call computes any of them) and, last, one JSON line {"ok": true, "device":
 {...}}.
 Exits non-zero without that line on any failure, when CUDA is not
-available, or when run outside the repository.
+available, or when run outside the repository; on a failure it first
+prints the card's name and power limit and the ECC, retired-page,
+remapped-row and Xid lines of `nvidia-smi -q`.
 """
 
 from __future__ import annotations
@@ -197,6 +212,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import traceback
 
 W, H = 640, 480
 SUBDIV = 6          # icosphere_scene(6): 81,920 triangles
@@ -1888,6 +1904,141 @@ def phase_ring_bvh(bsr_trace, grid):
     return launches
 
 
+def halo_call(seen: dict, key: str):
+    """Of the recorded halo calls of `key` on a shard other than rank 0's
+    (gid_base != 0), the one with the most live work items."""
+    calls = [(int(args[6].item()), args, kwargs)
+             for args, kwargs in seen.get(key, [])
+             if int(kwargs["gid_base"].item()) != 0]
+    check(bool(calls) and max(c[0] for c in calls) > 0,
+          f"no {key} call with gid_base != 0 and work on the halo")
+    _, args, kwargs = max(calls, key=lambda c: c[0])
+    return args, kwargs
+
+
+HALO_FRAMES = 8
+
+
+def phase_halo(bsr_trace, grid):
+    """Phase 5c: the culled halo of icosphere_scene(8) at 640x480 against
+    the single-rank frame of its own bake, 8 frames bit-identical; the
+    sphere grid with bounces 2 (against render_bounced, K3n recorded and
+    held to its plain version) and dynamic (against fresh bakes); the
+    dense halo at 320x240 against render_frame."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops.render import (render_frame,
+                                                            scene_on)
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.parallel import halo, halo_bvh
+    from distributed_raytracer_tpu_torch.runtime import animation
+    from distributed_raytracer_tpu_torch.tools import schedule_frames as sf
+
+    mesh = ["cuda:0"] * RING_N
+    scene = sf.ring_scene()
+    reset_launches(bsr_trace)
+    t0 = time.perf_counter()
+    hb = halo_bvh.HaloCulledRenderer(scene, sf.RING_W, sf.RING_H, mesh=mesh)
+    build_s = time.perf_counter() - t0
+    single = CulledRenderer(None, sf.RING_W, sf.RING_H, prebaked=hb.bake,
+                            device="cuda")
+    ref = single.render(scene.camera, block=True)
+    single.freeze(scene.camera)
+    diff = sf.check_ring(hb, ref, scene.camera)
+    frames = [hb.render(scene.camera) for _ in range(HALO_FRAMES)]
+    torch.cuda.synchronize()
+    same = sum(bool(torch.equal(f, frames[0])) for f in frames)
+    launches = dict(bsr_trace.LAUNCHES)
+    reset_launches(bsr_trace)
+    hb.render(scene.camera)
+    torch.cuda.synchronize()
+    per_frame = dict(bsr_trace.LAUNCHES)
+    print(f"[phase 5c] halo, {scene.num_tris} triangles, {hb.nb_ext} "
+          f"blocks ({hb.nb_loc} per rank, local levels {hb.n_levels}), "
+          f"{RING_N} ranks on cuda:0, {sf.RING_W}x{sf.RING_H}: bake, upload "
+          f"and sizing {build_s:.1f} s; frame within {diff} of the "
+          f"single-rank frame (atol 2e-5); {same} of {HALO_FRAMES} frames "
+          f"bit-identical to the first; buckets {hb.w_pads} / "
+          f"{hb.w_pads_sh}; scheduled pairs {hb.scheduled_pairs()}; "
+          f"exchange {sf.halo_bytes(hb)} bytes per frame; launches per "
+          f"frame {per_frame}")
+    check(same == HALO_FRAMES, "halo frames differ from run to run")
+    for name in ("bsr_nearest", "bsr_any"):
+        check(per_frame[name] > 0, f"{name} was not launched on the halo")
+    st = sf.stats(lambda: hb.render(scene.camera))
+    print(f"[phase 5c] halo: {sf.stats_line(st)}")
+    del hb, single, frames
+
+    reset_launches(bsr_trace)
+    rb = halo_bvh.HaloCulledRenderer(grid, W, H, mesh=mesh, bounces=DEPTH)
+    seen = {}
+    with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
+        img = rb.render(grid.camera, verify=True)
+    one = CulledRenderer(None, W, H, prebaked=rb.bake, device="cuda")
+    diff = float((img - one.render_bounced(grid.camera, DEPTH,
+                                           block=True)).abs().max())
+    torch.cuda.synchronize()
+    for key, n in bsr_trace.LAUNCHES.items():
+        launches[key] += n
+    reset_launches(bsr_trace)
+    rb.render(grid.camera)
+    torch.cuda.synchronize()
+    per_frame = dict(bsr_trace.LAUNCHES)
+    print(f"[phase 5c] halo, sphere grid {W}x{H}, bounces {DEPTH}: within "
+          f"{diff} of the single-rank render_bounced (atol 2e-5); launches "
+          f"per frame {per_frame}; "
+          f"{sf.stats_line(sf.stats(lambda: rb.render(grid.camera)))}")
+    check(diff <= 2e-5, "bounced halo differs from render_bounced")
+    for key in ("bsr_nearest", "bsr_any", "bsr_nearest_rays"):
+        check(per_frame[key] > 0, f"{key} was not launched on the halo")
+    args, kwargs = halo_call(seen, "bsr_nearest_rays")
+    compare_kernel(bsr_trace, "bsr_nearest_rays", args, kwargs, phase="5c",
+                   tag=f"K3n bsr_nearest_rays on the halo, gid_base "
+                       f"{int(kwargs['gid_base'].item())}")
+    for key, n in per_frame.items():
+        launches[key] += n
+    del rb, seen
+
+    reset_launches(bsr_trace)
+    rd = halo_bvh.HaloCulledRenderer(grid, W, H, mesh=mesh, dynamic=True)
+    diffs = animation.orbit_object_diffs(grid, 4)[1:1 + RING_DYN_DIFFS]
+    worst = (0.0, 0.0)
+    for d in diffs:
+        img = rd.render_dynamic(grid.camera, d, verify=True)
+        m = moved_grid(grid, d)
+        want = CulledRenderer(m, W, H, device="cuda").render(m.camera,
+                                                             block=True)
+        worst = tuple(map(max, worst, close_frames(
+            "halo render_dynamic vs a fresh bake", img, want,
+            mean_bound=1e-3)))
+    torch.cuda.synchronize()
+    for key, n in bsr_trace.LAUNCHES.items():
+        launches[key] += n
+    st = sf.stats(lambda: rd.render_dynamic(grid.camera, diffs[0]))
+    print(f"[phase 5c] halo dynamic, sphere grid {W}x{H}: "
+          f"{RING_DYN_DIFFS} orbit diffs, worst {worst[0]:.6%} of pixels > "
+          f"2/255, mean {worst[1]:.3e} against fresh bakes; "
+          f"{sf.stats_line(st)}")
+    del rd
+
+    dw, dh = 320, 240
+    arrays = grid.bake()
+    dense = render_frame(scene_on(arrays, "cuda:0"), grid.camera, dw, dh)
+    dh_render = halo.make_halo_renderer(halo.pad_for_ring(arrays, RING_N),
+                                        dw, dh, mesh=mesh)
+    t0 = time.perf_counter()
+    img = dh_render(grid.camera)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    dense_ms = time_ms(lambda: dh_render(grid.camera), repeats=1, warmup=0)
+    print(f"[phase 5c] dense halo, sphere grid {dw}x{dh}, {RING_N} ranks on "
+          f"cuda:0: first call {first_s * 1e3:.1f} ms, second "
+          f"{dense_ms:.1f} ms; halo density "
+          f"{dh_render.halo_density(grid.camera):.4f}")
+    close_frames("dense halo vs render_frame", img, dense, frac_bound=0.002)
+    return launches
+
+
 def write_scene(d: str, scene, mesh) -> str:
     """The scene as OBJ + MTL + scene.json (the reference's schema): one
     mesh, one `objs` entry per object of the scene."""
@@ -2126,6 +2277,7 @@ def main() -> int:
     runs.append(phase_ring_frames(grid, ring_trace))
     runs.append(phase_bands(bsr_trace, bounced, grid))
     runs.append(phase_ring_bvh(bsr_trace, grid))
+    runs.append(phase_halo(bsr_trace, grid))
     for got in runs:
         for key, n in got.items():
             launches[key] = launches.get(key, 0) + n
@@ -2141,7 +2293,10 @@ def main() -> int:
                   ["--mode", "sharded-bvh", "--devices", str(RING_N)],
                   ["--mode", "sharded-bvh", "--devices", str(RING_N),
                    "--balance"],
-                  ["--mode", "ring", "--devices", str(RING_N)]):
+                  ["--mode", "ring", "--devices", str(RING_N)],
+                  ["--mode", "halo", "--devices", str(RING_N)],
+                  ["--mode", "halo", "--devices", str(RING_N), "--bounces",
+                   str(DEPTH)]):
         run_cli(grid, grid_mesh, (320, 240), 3,
                 flags + ["--revolutions", "0.1"])
     phase_loop(renderer, scene, mesh)
@@ -2157,5 +2312,45 @@ def main() -> int:
     return 0
 
 
+ERROR_SECTIONS = ("ECC Mode", "ECC Errors", "Retired Pages",
+                  "Remapped Rows")
+
+
+def error_counters() -> None:
+    """After a failure: the card's name and power limit, and the ECC,
+    retired-page, remapped-row and Xid lines of `nvidia-smi -q` (each
+    section's header with its indented lines)."""
+    try:
+        print(f"gpu: {gpu_query()}")
+        report = subprocess.run(["nvidia-smi", "-q"], capture_output=True,
+                                text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError) as e:
+        print(f"chip_smoke: no error counters: {e}")
+        return
+    depth = None
+    for line in report.splitlines():
+        indent = len(line) - len(line.lstrip())
+        if depth is not None and indent <= depth:
+            depth = None
+        if line.strip().startswith(ERROR_SECTIONS):
+            depth = indent
+        if depth is not None or "xid" in line.lower():
+            print(f"nvidia-smi: {line.rstrip()}")
+
+
+def run() -> int:
+    """main(); on a failure, a traceback and the card's error counters,
+    and a non-zero exit."""
+    try:
+        rc = main()
+    except Exception:
+        traceback.print_exc()
+        rc = 1
+    if rc:
+        sys.stdout.flush()
+        error_counters()
+    return rc
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(run())

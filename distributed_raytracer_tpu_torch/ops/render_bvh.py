@@ -712,16 +712,17 @@ class CulledRenderer:
         converge)."""
         img, counts = frame(self._frozen_pads)
         if verify:
-            fits = False
+            fits = lambda got: all(g <= p for g, p in
+                                   zip(got, self._frozen_pads))
             for _ in range(8):   # each round strictly grows some bucket
                 got = tuple(counts.tolist())
-                if all(g <= p for g, p in zip(got, self._frozen_pads)):
-                    fits = True
+                if fits(got):
                     break
                 self._last_counts = got
                 self.freeze(camera)   # grow-only
                 img, counts = frame(self._frozen_pads)
-            if not fits:
+            # Warn only when the last frame still overflows.
+            if not fits(tuple(counts.tolist())):
                 _log.warning(
                     "%s verify did not converge in 8 rounds "
                     "(counts %s vs pads %s); image may drop blocks", name,
@@ -867,16 +868,17 @@ class CulledRenderer:
                 # Loop until every bounce's counts fit: an overflowed
                 # level truncates the next level's list, so its reported
                 # count is an undercount and one refreeze is not enough.
-                fits = False
+                fits = lambda got: all(g <= p for gb, pb in
+                                       zip(got, state["pads"])
+                                       for g, p in zip(gb, pb))
                 for _ in range(8):
                     got = counts.tolist()
-                    if all(g <= p for gb, pb in zip(got, state["pads"])
-                           for g, p in zip(gb, pb)):
-                        fits = True
+                    if fits(got):
                         break
                     freeze_from(got)
                     img, counts = frame(state["pads"])
-                if not fits:
+                # Warn only when the last frame still overflows.
+                if not fits(counts.tolist()):
                     _log.warning(
                         "bounced verify did not converge in 8 rounds "
                         "(counts %s vs pads %s); image may drop blocks",

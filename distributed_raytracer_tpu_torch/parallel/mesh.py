@@ -10,11 +10,11 @@ CUDA; a mixed mesh raises.
 `Ranks` holds the per-rank execution state of one renderer: each CUDA rank
 gets a compute stream and a copy stream of its own. Per-rank work is
 enqueued under `ranks.on(r)`; data crosses ranks only through the
-collectives below (`send`, `rotate_right`, `all_gather`, `fetch_rows`,
-`copy_async`, `gather`), which are explicit copies between per-rank
-tensors, ordered by CUDA events. The host enqueues every wait after the
-event it waits on was recorded, and no kernel ever waits on a flag that
-another kernel writes: ranks sharing one card then cannot deadlock (a
+collectives below (`send`, `rotate_right`, `all_gather`, `all_to_all`,
+`fetch_rows`, `copy_async`, `gather`), which are explicit copies between
+per-rank tensors, ordered by CUDA events. The host enqueues every wait
+after the event it waits on was recorded, and no kernel ever waits on a
+flag that another kernel writes: ranks sharing one card then cannot deadlock (a
 kernel spinning on its neighbour's flag could fill every SM while the
 neighbour's kernel waits to launch). Nothing here waits on the host.
 
@@ -149,14 +149,38 @@ def rotate_right(ranks: Ranks, xs: Sequence[torch.Tensor]) -> List:
     return [send(ranks, xs[(i - 1) % n], (i - 1) % n, i) for i in range(n)]
 
 
-def all_gather(ranks: Ranks, xs: Sequence[torch.Tensor]) -> List:
-    """Every rank gets the concatenation of all ranks' xs (dim 0), made on
-    its own compute stream."""
+def all_gather(ranks: Ranks, xs: Sequence[torch.Tensor],
+               dim: int = 0) -> List:
+    """Every rank gets the concatenation of all ranks' xs along `dim`, made
+    on its own compute stream."""
     out = []
     for dst in range(ranks.n):
         parts = [send(ranks, xs[src], src, dst) for src in range(ranks.n)]
         with ranks.on(dst):
-            out.append(torch.cat(parts))
+            out.append(torch.cat(parts, dim=dim))
+    return out
+
+
+def all_to_all(ranks: Ranks, parts: Sequence[torch.Tensor]) -> List:
+    """`jax.lax.all_to_all(x, split_axis=0, concat_axis=0, tiled=True)`:
+    dim 0 of every parts[src] splits into n equal chunks, and out[dst] is
+    the concatenation of chunk dst of parts[src] over src = 0..n-1, made on
+    dst's compute stream. Chunks cross cards by `send`'s copies; ranks on
+    one card pass views."""
+    n = ranks.n
+    out = []
+    for dst in range(n):
+        pieces = []
+        for src in range(n):
+            c = parts[src].shape[0] // n
+            if c * n != parts[src].shape[0]:
+                raise ValueError(f"all_to_all: dim 0 of rank {src}'s part "
+                                 f"({parts[src].shape[0]}) does not split "
+                                 f"into {n} chunks")
+            pieces.append(send(ranks, parts[src][dst * c:(dst + 1) * c],
+                               src, dst))
+        with ranks.on(dst):
+            out.append(torch.cat(pieces))
     return out
 
 

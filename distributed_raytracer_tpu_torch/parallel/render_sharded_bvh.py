@@ -94,13 +94,19 @@ class BandRenderer:
         return (mesh_mod.gather(self.ranks, imgs),
                 mesh_mod.gather(self.ranks, counts))
 
+    def _fits(self, counts: torch.Tensor) -> bool:
+        """Every band's counts within the buckets."""
+        worst = counts.amax(dim=0).cpu()
+        return bool((worst <= torch.tensor(self._pads,
+                                           dtype=worst.dtype)).all())
+
     def _refreeze(self, counts: torch.Tensor) -> bool:
         """Grows the buckets (never shrinking one) to fit the worst band's
         counts; False when they fit already."""
+        if self._fits(counts):
+            return False
         worst = counts.amax(dim=0)
         pads = torch.tensor(self._pads, dtype=worst.dtype)
-        if bool((worst.cpu() <= pads).all()):
-            return False
         new = torch.tensor(self._pads_from(worst.tolist()), dtype=pads.dtype)
         self._pads = _nested(torch.maximum(new, pads).tolist())
         return True
@@ -111,13 +117,12 @@ class BandRenderer:
             # Loop until every band's counts fit: a level-1 overflow makes
             # the reported level-2 counts undercounts, so one refreeze from
             # the reported values can still truncate.
-            fits = False
             for _ in range(8):
                 if not self._refreeze(counts):
-                    fits = True
                     break
                 out, counts = self.device_fn(cam)
-            if not fits:
+            # Warn only when the last frame still overflows.
+            if not self._fits(counts):
                 _log.warning("band verify did not converge in 8 rounds "
                              "(counts %s); image may drop blocks",
                              counts.tolist())

@@ -44,7 +44,6 @@ until every reported count fits, up to 8 rounds.
 
 from __future__ import annotations
 
-import logging
 from typing import Optional
 
 import numpy as np
@@ -55,18 +54,16 @@ from distributed_raytracer_tpu_torch.models.scene import Scene, SceneDiff
 from distributed_raytracer_tpu_torch.ops import bsr_trace, cull, raygen, shade
 from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
 from distributed_raytracer_tpu_torch.parallel.halo_bvh import (
-    DynGeometry, ShardedGeometry, _pad_to_shardable, apply_diff_sharded,
+    ShardedCulledRenderer, ShardedGeometry, _put, apply_diff_sharded,
     reflect_rows)
 from distributed_raytracer_tpu_torch.utils.config import (DEFAULT_CONFIG,
                                                           RenderConfig)
-
-_log = logging.getLogger(__name__)
 
 AXIS = "ring"
 _bucket = bsr_trace.bucket_w_pad
 
 
-class RingCulledRenderer:
+class RingCulledRenderer(ShardedCulledRenderer):
     """Geometry-rotation renderer with per-step hierarchical BVH culling
     over a mesh of ranks (default: one per card).
 
@@ -75,6 +72,8 @@ class RingCulledRenderer:
     fits, instead of dropping candidate blocks. `bake` holds the unpadded
     (SceneArrays, BlockBVH) the shards were cut from."""
 
+    kind = "ring"
+
     def __init__(self, scene: Scene, width: int, height: int, mesh=None,
                  sizing_camera: Optional[Camera] = None,
                  margin: float = 2.0, cfg: RenderConfig = DEFAULT_CONFIG,
@@ -82,91 +81,22 @@ class RingCulledRenderer:
                  dynamic: bool = False, bounces: int = 0,
                  local_levels: Optional[int] = None, local_group: int = 16,
                  tile_w: Optional[int] = None):
-        self.mesh = mesh_mod.check_mesh(
-            mesh_mod.default_mesh() if mesh is None else mesh)
-        self.ranks = mesh_mod.Ranks(self.mesh)
-        self.n = n = len(self.mesh)
-        self.bounces = int(bounces)
-        self.width, self.height, self.cfg = width, height, cfg
-        self.rt, self.tb = ray_tile, block_size
-        self.margin = margin
-
-        # dynamic=True: the per-object grouped bake, whose leaf blocks
-        # shift exactly under a SceneDiff (render_dynamic). The diff folds
-        # into the resident shard before the first rotation, so every step
-        # of every bounce streams the moved geometry.
-        if dynamic:
-            (arrays, tree, obj_id, block_obj,
-             obj_pos0) = scene.bake_bvh_grouped(block_size=block_size)
-        else:
-            arrays, tree = scene.bake_bvh(block_size=block_size)
-        self.bake = (arrays, tree)
-        # Per-step hierarchy over the rotating shard's blocks: from 1,024
-        # blocks per shard the flat (tiles x blocks) mask and its sort
-        # dominate a step, so local superblock levels are added (the
-        # padding keeps groups inside one shard).
-        if local_levels is None:
-            local_levels = 2 if -(-tree.num_blocks // n) >= 1024 else 1
-        self.loc_groups = (local_group,) * (local_levels - 1)
-        self.n_levels = local_levels
-        arrays, lo, hi = _pad_to_shardable(
-            arrays, tree, n, align=local_group if self.loc_groups else 1)
-        self.nb_ext = lo.shape[0]
-        self.nb_loc = self.nb_ext // n
-        self.t_loc = self.nb_loc * block_size
-        tris16 = bsr_trace.pack_tris(arrays)
-        table32 = shade.pack_table(arrays, xp=np)
-
-        def put(a, d):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(d)
-
-        t_loc, nb_loc = self.t_loc, self.nb_loc
-        self.geom = [ShardedGeometry(
-            tris16=put(tris16[r * t_loc:(r + 1) * t_loc], d),
-            table32=put(table32[r * t_loc:(r + 1) * t_loc], d),
-            block_lo=put(lo[r * nb_loc:(r + 1) * nb_loc], d),
-            block_hi=put(hi[r * nb_loc:(r + 1) * nb_loc], d),
-            base=torch.full((1,), r * t_loc, dtype=torch.int32, device=d))
-            for r, d in enumerate(self.mesh)]
-        self.lights_pos = [put(arrays.light_pos, d) for d in self.mesh]
-        self.lights_col = [put(arrays.light_col, d) for d in self.mesh]
-        self.n_lights = int(arrays.light_pos.shape[0])
-        if dynamic:
-            pad_b = self.nb_ext - tree.num_blocks
-            obj_id = np.pad(np.asarray(obj_id, np.int64),
-                            (0, pad_b * block_size))
-            block_obj = np.pad(np.asarray(block_obj, np.int64), (0, pad_b))
-            self._dyn = [DynGeometry(
-                obj_id=put(obj_id[r * t_loc:(r + 1) * t_loc], d),
-                block_obj=put(block_obj[r * nb_loc:(r + 1) * nb_loc], d),
-                obj_pos0=put(np.asarray(obj_pos0, np.float32), d))
-                for r, d in enumerate(self.mesh)]
-        else:
-            self._dyn = None
-
-        # 2D screen-tile ray layout, padded to a whole number of tiles per
-        # rank with copies of the last pixel. `tile_w` overrides the
-        # aspect: squarer tiles have tighter hulls per ray, which cuts the
+        # dynamic=True: the SceneDiff folds into the resident shard before
+        # the first rotation, so every step of every bounce streams the
+        # moved geometry. `tile_w` overrides the ray tiles' aspect:
+        # squarer tiles have tighter hulls per ray, which cuts the
         # scheduled pairs on surface-heavy scenes, at the cost of more
         # tiles.
-        self.tile_w = 32 if tile_w is None else tile_w
-        self.tile_h = ray_tile // self.tile_w
-        perm, _, self.n_pad = cull.tiled_ray_order(width, height,
-                                                   self.tile_w, self.tile_h)
-        nt_ext = -(-(self.n_pad // ray_tile) // n) * n
-        self.n_pad_ext = nt_ext * ray_tile
-        perm = np.concatenate([perm, np.full(
-            (self.n_pad_ext - self.n_pad,), width * height - 1, np.int32)])
-        self.r_loc = self.n_pad_ext // n
-        self.nt_loc = self.r_loc // ray_tile
-        self._perm = [put(perm[r * self.r_loc:(r + 1) * self.r_loc]
-                          .astype(np.int64), d)
-                      for r, d in enumerate(self.mesh)]
-
+        perm, host = self._build(scene, width, height, mesh, margin, cfg,
+                                 block_size, ray_tile, dynamic, bounces,
+                                 local_levels, local_group,
+                                 tile_w=32 if tile_w is None else tile_w)
+        r_loc = self.r_loc
+        self.nt_loc = r_loc // ray_tile
+        self._perm = [_put(perm[r * r_loc:(r + 1) * r_loc].astype(np.int64),
+                           d) for r, d in enumerate(self.mesh)]
         camera = sizing_camera if sizing_camera is not None else scene.camera
-        self.sizing_counts = self._sizing_counts(
-            camera, perm, tris16, table32, lo, hi)
-        self.w_pads = self.w_pads_sh = None
+        self.sizing_counts = self._sizing_counts(camera, perm, *host)
         self._freeze(self.sizing_counts)
         # Per-rank counts of the last frame, (n, B+1, 2 * n_levels + 2);
         # None until a frame has run.
@@ -237,11 +167,11 @@ class RingCulledRenderer:
         of the primary cells, then of the shadow cells (max over lights),
         coarsest first: the bucket-sizing inputs."""
         dev = self.mesh[0]
-        put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-        tris16, table32, blo, bhi = put(tris16), put(table32), put(lo), put(hi)
+        tris16, table32, blo, bhi = (_put(a, dev) for a in (tris16, table32,
+                                                             lo, hi))
         cam = raygen.camera_arrays(camera, dev)
         rays = bsr_trace.pack_rays_rows(cam.pos, raygen.ray_rows_flat(
-            cam, self.width, self.height, put(perm.astype(np.int64))))
+            cam, self.width, self.height, _put(perm.astype(np.int64), dev)))
         live = torch.ones(self.n_pad_ext, dtype=torch.bool, device=dev)
         excl = torch.full((self.n_pad_ext,), -1, dtype=torch.int32,
                           device=dev)
@@ -421,81 +351,7 @@ class RingCulledRenderer:
             new.append(torch.where(visited, h, hit[li]))
         st[:3] = [torch.stack(new) if new else hit, cvec, csum]
 
-    def _freeze(self, counts: np.ndarray) -> None:
-        """Per-bounce per-level buckets from (B+1, 2 * n_levels) counts x
-        margin, grow-only (a verify loop that could shrink a bucket would
-        lose its convergence argument)."""
-        counts = np.asarray(counts)
-        nl = self.n_levels
-        w_pads = tuple(tuple(_bucket(int(c), self.margin) for c in row[:nl])
-                       for row in counts)
-        w_pads_sh = tuple(tuple(_bucket(int(c), self.margin)
-                                for c in row[nl:2 * nl]) for row in counts)
-        if self.w_pads is not None:
-            grow = lambda new, old: tuple(tuple(map(max, a, b))
-                                          for a, b in zip(new, old))
-            w_pads = grow(w_pads, self.w_pads)
-            w_pads_sh = grow(w_pads_sh, self.w_pads_sh)
-        self.w_pads, self.w_pads_sh = w_pads, w_pads_sh
-
     # -- public ----------------------------------------------------------
-
-    def _assemble(self, rows: torch.Tensor) -> torch.Tensor:
-        """(3, n_pad_ext) tile-major rows -> the (H, W, 3) frame."""
-        tw, th = self.tile_w, self.tile_h
-        tx, ty = -(-self.width // tw), -(-self.height // th)
-        img = rows[:, :self.n_pad].reshape(3, ty, tx, th, tw)
-        img = img.permute(1, 3, 2, 4, 0).reshape(ty * th, tx * tw, 3)
-        return img[:self.height, :self.width]
-
-    def _counts_fit(self, counts: torch.Tensor) -> bool:
-        worst = counts.amax(dim=0).tolist()            # (B+1, 2nl + 2)
-        nl = self.n_levels
-        return all(int(c) <= p for b, row in enumerate(worst)
-                   for c, p in zip(row[:2 * nl],
-                                   self.w_pads[b] + self.w_pads_sh[b]))
-
-    def _verify_loop(self, dispatch, rows, counts):
-        """Refreezes from the reported counts until they all fit (up to 8
-        rounds): a truncated level makes the finer counts undercounts, and
-        later bounces' rays come from earlier, possibly truncated, hits, so
-        one refreeze is not enough."""
-        fits = False
-        for _ in range(8):
-            if self._counts_fit(counts):
-                fits = True
-                break
-            self._freeze(counts.amax(dim=0)[:, :2 * self.n_levels].cpu()
-                         .numpy())
-            rows, counts = dispatch()
-        if not fits:
-            _log.warning("ring verify did not converge in 8 rounds (counts "
-                         "%s); image may drop blocks", counts.tolist())
-        return rows, counts
-
-    def render(self, camera, verify: bool = False) -> torch.Tensor:
-        """The (H, W, 3) frame on rank 0's device."""
-        rows, counts = self.device_fn(camera)
-        if verify:
-            rows, counts = self._verify_loop(lambda: self.device_fn(camera),
-                                             rows, counts)
-        self.last_counts = counts
-        return self._assemble(rows)
-
-    def render_dynamic(self, camera, diff: SceneDiff,
-                       verify: bool = False) -> torch.Tensor:
-        """One frame with the frame's SceneDiff folded into every shard
-        before the rotation (needs dynamic=True); composes with bounces."""
-        if self._dyn is None:
-            raise ValueError("build with dynamic=True for render_dynamic")
-        diff = SceneDiff(*(torch.as_tensor(np.asarray(a, np.float32))
-                           for a in diff))
-        rows, counts = self.device_fn(camera, diff)
-        if verify:
-            rows, counts = self._verify_loop(
-                lambda: self.device_fn(camera, diff), rows, counts)
-        self.last_counts = counts
-        return self._assemble(rows)
 
     def scheduled_pairs(self) -> Optional[int]:
         """(ray, triangle) pairs the last frame's nearest queries scheduled

@@ -15,6 +15,9 @@ device (`--device`, default cuda). Modes:
   sharded-bvh - the culled renderer on one band of rows per rank
                (parallel/render_sharded_bvh.py), `--balance` for
                cost-balanced band heights, `--bounces N` on equal bands
+  halo       - the culled geometry halo (parallel/halo_bvh.py): triangle
+               shards stay put and the rays are exchanged, `--bounces N`,
+               and `--animate-objects` through per-frame scene diffs
   ring       - the culled geometry ring (parallel/ring_bvh.py): triangle
                shards rotate past resident rays, `--bounces N`, and
                `--animate-objects` through per-frame scene diffs
@@ -26,8 +29,8 @@ runs the interactive loop (runtime/loop.py) behind the browser viewer
 (runtime/viewer.py) instead, in every ported mode, until a client sends
 Esc.
 
-The JAX package's halo mode and `--multihost` are not ported yet; asking
-for one exits with a message that says so.
+The JAX package's `--multihost` is not ported yet; asking for it exits
+with a message that says so.
 """
 
 from __future__ import annotations
@@ -48,21 +51,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("scene", help="JSON scene file (reference schema)")
     p.add_argument("width", type=int)
     p.add_argument("height", type=int)
-    p.add_argument("--mode", choices=_MODES, default="culled",
-                   help="all but halo are ported")
+    p.add_argument("--mode", choices=_MODES, default="culled")
     p.add_argument("--bounces", type=int, default=0,
-                   help="Whitted reflection bounces (culled, sharded-bvh "
-                        "and ring modes)")
+                   help="Whitted reflection bounces (culled, sharded-bvh, "
+                        "halo and ring modes)")
     p.add_argument("--devices", type=int, default=None,
-                   help="rank count for the sharded, sharded-bvh and ring "
-                        "modes (default: one per card)")
+                   help="rank count for the sharded, sharded-bvh, halo "
+                        "and ring modes (default: one per card)")
     p.add_argument("--balance", action="store_true",
                    help="cost-balanced band heights for --mode sharded-bvh "
                         "(the least-loaded-scheduler analog)")
     p.add_argument("--animate-objects", action="store_true",
                    help="orbit object 0 via per-frame SceneDiffs (the "
                         "reference's per-WorkOrder EnvMutables, "
-                        "master/main.go:260-266; culled and ring modes)")
+                        "master/main.go:260-266; culled, halo and ring "
+                        "modes)")
     p.add_argument("--object-radius", type=float, default=1.0,
                    help="orbit radius for --animate-objects")
     p.add_argument("--serve", metavar="HOST:PORT", default=None,
@@ -87,17 +90,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
-_PORTED_MODES = ("sequential", "culled", "sharded", "sharded-bvh", "ring")
-
-
-def _unported(args) -> str | None:
-    if args.mode not in _PORTED_MODES:
-        return f"--mode {args.mode}"
-    if args.multihost:
-        return "--multihost"
-    return None
-
-
 def _periodic_verify(render_v, period: int = 8):
     """Check the frozen work-list buckets (a host sync) every `period`
     frames only, so a silent overflow lasts at most period - 1 frames."""
@@ -113,17 +105,15 @@ def _periodic_verify(render_v, period: int = 8):
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
-    what = _unported(args)
-    if what is not None:
-        raise SystemExit(f"{what} is not yet ported to "
-                         "distributed_raytracer_tpu_torch (--mode "
-                         "sequential, culled, sharded, sharded-bvh and ring "
-                         "are); use distributed_raytracer_tpu for it")
+    if args.multihost:
+        raise SystemExit("--multihost is not yet ported to "
+                         "distributed_raytracer_tpu_torch (every --mode "
+                         "is); use distributed_raytracer_tpu for it")
     if args.bounces < 0:
         raise SystemExit(f"--bounces {args.bounces}: must be >= 0")
     if args.animate_objects:
-        # The JAX package's messages (its halo mode is not ported).
-        if args.mode not in ("culled", "ring") or (
+        # The JAX package's guards and messages.
+        if args.mode not in ("culled", "halo", "ring") or (
                 args.bounces and args.mode == "culled"):
             raise SystemExit("--animate-objects supports --mode "
                              "culled/halo/ring (--bounces on halo/ring)")
@@ -160,17 +150,19 @@ def main(argv=None) -> int:
             render = lambda cam: sharded(arrays, cam)
         render_k = lambda k, cam: render(cam)
         render_arrays = render
-    elif args.mode in ("sharded-bvh", "ring"):
+    elif args.mode in ("sharded-bvh", "halo", "ring"):
         from distributed_raytracer_tpu_torch.parallel import (
-            render_sharded, render_sharded_bvh, ring_bvh)
+            halo_bvh, render_sharded, render_sharded_bvh, ring_bvh)
 
         mesh = render_sharded.default_mesh(args.devices, args.device)
-        if args.mode == "ring":
-            # Ring bounces move no rays: reflection rays stay resident and
-            # the next rotation streams the geometry past them.
-            r = ring_bvh.RingCulledRenderer(scene, w, h, mesh=mesh,
-                                            bounces=args.bounces,
-                                            dynamic=args.animate_objects)
+        if args.mode in ("halo", "ring"):
+            # Halo bounces gather the reflection rays and fold the
+            # candidates home again; ring bounces move no rays (they stay
+            # resident and the next rotation streams the geometry past).
+            cls = (halo_bvh.HaloCulledRenderer if args.mode == "halo"
+                   else ring_bvh.RingCulledRenderer)
+            r = cls(scene, w, h, mesh=mesh, bounces=args.bounces,
+                    dynamic=args.animate_objects)
             render_v = r.render
         elif args.bounces:
             r = render_sharded_bvh.make_sharded_bounced_renderer(

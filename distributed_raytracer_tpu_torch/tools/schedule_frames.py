@@ -3,16 +3,18 @@
     python3 -m distributed_raytracer_tpu_torch.tools.schedule_frames \\
         [--cards N]
 
-Two frames, RANKS ranks each:
+Three frames, RANKS ranks each:
   - bands (parallel/render_sharded_bvh.py): instanced_grid(
     icosphere_scene(3), 12), 144 spheres and 184,320 triangles, at
     3840x2160, equal and cost-balanced bands, over BAND_POSES orbit poses;
     every frame against the single-rank CulledRenderer.render_fast frame of
     the same bake (atol 2e-5), and the balanced frame against the equal one
     bit for bit;
-  - the culled geometry ring (parallel/ring_bvh.py): icosphere_scene(8),
-    1,310,720 triangles, at 640x480, against the single-rank
-    CulledRenderer frame built from the ring's own bake (atol 2e-5).
+  - the culled geometry ring (parallel/ring_bvh.py) and the culled
+    geometry halo (parallel/halo_bvh.py): icosphere_scene(8), 1,310,720
+    triangles, at 640x480, each against the single-rank CulledRenderer
+    frame built from its own bake (atol 2e-5); the halo also with its
+    exchange's bytes per frame (`halo_bytes`).
 For each frame and for its single-rank reference: the synchronized frame
 time (median of FRAMES), and from one torch.profiler window of
 PROFILE_FRAMES frames the device's busy share (the union of kernel and
@@ -222,11 +224,31 @@ def ring_scene():
 
 
 def check_ring(ring, ref, cam) -> float:
+    """The ring's (or the halo's) verified frame within 2e-5 of `ref`;
+    returns the largest |diff|."""
     img = ring.render(cam, verify=True)
     diff = float((img.to(ref.device) - ref).abs().max())
     check(tuple(img.shape) == (RING_H, RING_W, 3) and diff <= 2e-5,
-          f"ring frame differs from the single-rank frame by {diff}")
+          f"{type(ring).__name__} frame differs from the single-rank frame "
+          f"by {diff}")
     return diff
+
+
+def halo_bytes(halo) -> int:
+    """Bytes the halo's collectives move per frame between ranks, counting
+    every (source, destination) pair of distinct ranks as a transfer,
+    whether the ranks share a card or not: per bounce one all_to_all of
+    (t, gid, 32-word row) per ray, per light one all_gather of the 8-word
+    queries, the liveness and one all_to_all of a 4-byte bit; one
+    all_gather of the exclusion ids; per further bounce one all_gather of
+    the reflection rays and their liveness."""
+    n, r_loc = halo.n, halo.r_loc
+    a2a = lambda words: n * (n - 1) * r_loc * words * 4
+    gather = lambda nbytes: n * (n - 1) * r_loc * nbytes
+    per_bounce = (a2a(34) + gather(4)
+                  + halo.n_lights * (gather(32 + 1) + a2a(1)))
+    return ((halo.bounces + 1) * per_bounce
+            + halo.bounces * gather(32 + 1))
 
 
 def time_bands(layouts: dict, order: list) -> dict:
@@ -259,19 +281,20 @@ def time_bands(layouts: dict, order: list) -> dict:
     return res
 
 
-def time_ring(layouts: dict, order: list) -> dict:
-    """The culled ring frames of every layout, checked, then timed in
-    `order`."""
+def time_geometry(kind: str, layouts: dict, order: list) -> dict:
+    """The culled `kind` ("ring" or "halo") frames of every layout,
+    checked, then timed in `order`."""
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
-    from distributed_raytracer_tpu_torch.parallel import ring_bvh
+    from distributed_raytracer_tpu_torch.parallel import halo_bvh, ring_bvh
 
+    cls = (halo_bvh.HaloCulledRenderer if kind == "halo"
+           else ring_bvh.RingCulledRenderer)
     scene = ring_scene()
     built = {}
     for name, mesh in layouts.items():
         t0 = time.perf_counter()
-        built[name] = ring_bvh.RingCulledRenderer(scene, RING_W, RING_H,
-                                                  mesh=mesh)
-        print(f"[ring] {name}: {scene.num_tris} triangles, "
+        built[name] = cls(scene, RING_W, RING_H, mesh=mesh)
+        print(f"[{kind}] {name}: {scene.num_tris} triangles, "
               f"{built[name].nb_ext} blocks ({built[name].nb_loc} per rank), "
               f"local levels {built[name].n_levels}: bake, upload and "
               f"sizing {time.perf_counter() - t0:.1f} s")
@@ -280,17 +303,22 @@ def time_ring(layouts: dict, order: list) -> dict:
                             device="cuda:0")
     ref = single.render(scene.camera, block=True)
     single.freeze(scene.camera)
-    for name, ring in built.items():
-        diff = check_ring(ring, ref, scene.camera)
-        print(f"[ring] {name}: frame within {diff} of the single-rank frame; "
-              f"scheduled pairs {ring.scheduled_pairs()}")
-    res = {"single": stats(lambda: single.render_fast(scene.camera))}
-    print(f"[ring] single rank: {stats_line(res['single'])}")
+    res = {}
+    for name, r in built.items():
+        diff = check_ring(r, ref, scene.camera)
+        extra = (f"; exchange {halo_bytes(r)} bytes per frame"
+                 if kind == "halo" else "")
+        print(f"[{kind}] {name}: frame within {diff} of the single-rank "
+              f"frame; scheduled pairs {r.scheduled_pairs()}{extra}")
+        if kind == "halo":
+            res["halo_bytes"] = halo_bytes(r)
+    res["single"] = stats(lambda: single.render_fast(scene.camera))
+    print(f"[{kind}] single rank: {stats_line(res['single'])}")
     for i, name in enumerate(order):
-        ring = built[name]
-        s = stats(lambda: ring.render(scene.camera))
+        r = built[name]
+        s = stats(lambda: r.render(scene.camera))
         res[f"{name} turn {i // len(layouts)}"] = s
-        print(f"[ring] {name}: {stats_line(s)}")
+        print(f"[{kind}] {name}: {stats_line(s)}")
     return res
 
 
@@ -316,7 +344,9 @@ def main(argv=None) -> int:
                                          for i in range(RANKS)]
     order = list(layouts) + list(layouts)[::-1]
     out = {"gpu": card, "ranks": RANKS, "bands": time_bands(layouts, order),
-           "ring": time_ring(layouts, order), "gpu_after": gpu_query()}
+           "ring": time_geometry("ring", layouts, order),
+           "halo": time_geometry("halo", layouts, order),
+           "gpu_after": gpu_query()}
     print(json.dumps(out))
     return 0
 

@@ -4,12 +4,10 @@
 CPU and must write the frames the port's own render() (render_bounced()
 with --bounces, render_dynamic() with --animate-objects, render_frame()
 with --mode sequential, the sharded renderer with --mode sharded, the
-one-rank culled frames with --mode sharded-bvh and --mode ring) gives;
---serve in each of those modes serves the loop until a client sends Esc;
-the modes that are not ported yet exit non-zero with a message that names
-them. The
-runtime
-helpers copied from the JAX package (FPS statistics, PNG encoding, the orbit
+one-rank culled frames with --mode sharded-bvh, --mode halo and --mode
+ring) gives; --serve in each of those modes serves the loop until a client
+sends Esc; --multihost, which is not ported yet, exits non-zero with a
+message that names it. The runtime helpers copied from the JAX package (FPS statistics, PNG encoding, the orbit
 path) must give identical results.
 """
 
@@ -74,10 +72,11 @@ def test_cli_writes_the_frames_render_gives(scene_path, tmp_path):
 
 
 @pytest.mark.parametrize("flags,name", [
-    (["--mode", "halo"], "--mode halo"),
-    (["--mode", "halo", "--bounces", "1"], "--mode halo"),
-    (["--mode", "halo", "--devices", "2"], "--mode halo"),
-    (["--mode", "halo", "--serve", "127.0.0.1:0"], "--mode halo"),
+    (["--mode", "halo", "--multihost"], "--multihost"),
+    (["--mode", "halo", "--bounces", "1", "--multihost"], "--multihost"),
+    (["--mode", "halo", "--devices", "2", "--multihost"], "--multihost"),
+    (["--mode", "halo", "--serve", "127.0.0.1:0", "--multihost"],
+     "--multihost"),
     (["--multihost"], "--multihost"),
 ])
 def test_unported_options_exit_with_their_name(scene_path, flags, name):
@@ -91,6 +90,7 @@ def test_unported_options_exit_with_their_name(scene_path, flags, name):
     [], ["--bounces", "1"], ["--animate-objects"], ["--mode", "sequential"],
     ["--mode", "sharded", "--devices", "2"],
     ["--mode", "sharded-bvh", "--devices", "2"],
+    ["--mode", "halo", "--devices", "2"],
     ["--mode", "ring", "--devices", "2"]])
 def test_cli_serve_ends_on_esc(scene_path, flags, monkeypatch, capsys):
     """--serve runs the interactive loop behind the browser viewer: a
@@ -226,11 +226,14 @@ def test_cli_dense_modes_write_render_frame(scene_path, tmp_path, capsys,
     ["--mode", "sharded-bvh", "--devices", "2", "--bounces", "1"],
     ["--mode", "ring", "--devices", "2"],
     ["--mode", "ring", "--bounces", "1"],
-    ["--mode", "ring", "--devices", "2", "--animate-objects"]])
+    ["--mode", "ring", "--devices", "2", "--animate-objects"],
+    ["--mode", "halo", "--devices", "2"],
+    ["--mode", "halo", "--devices", "2", "--bounces", "1"],
+    ["--mode", "halo", "--devices", "2", "--animate-objects"]])
 def test_cli_culled_multi_rank_modes_write_the_one_rank_frames(
         scene_path, tmp_path, capsys, flags):
-    """Bands (equal, balanced, bounced) and the geometry ring over CPU
-    ranks write the frames the one-rank culled renderer gives for the same
+    """Bands (equal, balanced, bounced), the geometry halo and the
+    geometry ring over CPU ranks write the frames the one-rank culled renderer gives for the same
     bake (block size 128): render(), render_bounced() with --bounces, and
     with --animate-objects the dynamic renderer's render_dynamic() of the
     same orbit diffs."""
@@ -263,9 +266,10 @@ def test_cli_culled_multi_rank_modes_write_the_one_rank_frames(
 
 
 def test_unported_mode_exits_nonzero(scene_path):
-    res = run_module([scene_path, "64", "48", "--mode", "halo"])
+    res = run_module([scene_path, "64", "48", "--mode", "halo",
+                      "--multihost"])
     assert res.returncode == 1
-    assert "--mode halo is not yet ported" in res.stderr
+    assert "--multihost is not yet ported" in res.stderr
 
 
 def test_frame_stats_match():
