@@ -172,6 +172,30 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      scenes (phase 2d's bound); the dense make_halo_renderer
      (parallel/halo.py) of the sphere grid at 320x240 against render_frame
      (phase 4b's bound).
+  2f. One CUDA culled frame of icosphere_scene(3) at 160x120 against the
+     float64 oracle (utils/oracle.render_oracle, the port's copy of the
+     JAX package's) under the repository's golden tolerance
+     (oracle.assert_images_close); the oracle's time is printed.
+  6. Multihost (parallel/multihost.py) through
+     tools/multihost_worker.py, after the kernels are built: 2 processes
+     of 2 ranks each on cuda:0 (over gloo, the only transport two
+     processes on one card have; every child bounded by a timeout, killed
+     with its stderr printed on a failure): the culled halo of
+     icosphere_scene(8) at 640x480 and the equal bands of the 4K sphere
+     grid at 3840x2160 at full size, then the culled ring, the balanced
+     bands and the bounced bands (depth 2) on the 640x480 sphere grid.
+     Each frame equals the single-process 4-rank frame of the same bake on
+     the same card bit for bit, with the same buckets, counts and bake
+     checksum; every process launched K1 and K2 (K3n and K2 on the
+     bounced bands, which trace bounce 0 with K3n too); each frame's time
+     beside the single process's, and the bytes that crossed processes. With two or more cards the halo also runs
+     with one process per card over NCCL; with one, a line says NCCL was
+     not exercised. The children's K1, K2 and K3n launches count in the
+     JSON line.
+  6b. The command line with --multihost (after phase 3): 2 processes of
+     2 ranks on cuda:0, 3 frames of the sphere grid at 320x240 with
+     --mode halo and with --mode sharded-bvh --balance: process 0 prints
+     the FPS report and writes every frame, process 1 neither.
   3. The command line: the 640x480 sphere written as OBJ + scene.json, 30
      frames through distributed_raytracer_tpu_torch.run.main on cuda; then
      the sphere grid, 8 frames at 1920x1080 with --bounces 2, and 8 with
@@ -2039,6 +2063,155 @@ def phase_halo(bsr_trace, grid):
     return launches
 
 
+ORACLE_SUBDIV, ORACLE_W, ORACLE_H = 3, 160, 120
+
+
+def phase_oracle() -> None:
+    """Phase 2f: one CUDA frame of icosphere_scene(3) at 160x120 held to
+    the float64 oracle (utils/oracle.py, the JAX package's copied) with the
+    repository's golden tolerance, assert_images_close."""
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.utils import oracle, scenes
+
+    scene = scenes.icosphere_scene(ORACLE_SUBDIV)
+    got = CulledRenderer(scene, ORACLE_W, ORACLE_H, device="cuda").render(
+        scene.camera, block=True).cpu().numpy()
+    t0 = time.perf_counter()
+    want, aux = oracle.render_oracle(scene, ORACLE_W, ORACLE_H,
+                                     return_aux=True)
+    oracle_s = time.perf_counter() - t0
+    oracle.assert_images_close(got, want, aux)
+    print(f"[phase 2f] icosphere_scene({ORACLE_SUBDIV}) {ORACLE_W}x"
+          f"{ORACLE_H}, CUDA culled frame vs the float64 oracle: "
+          f"assert_images_close holds (max |diff| "
+          f"{float(abs(got - want).max()):.3e}, continuity pixels "
+          f"{float((~oracle.discontinuity_mask(aux)).mean()):.3f}); oracle "
+          f"{oracle_s:.1f} s")
+
+
+# Phase 6: multihost on the one card. MH_PROCS worker processes of 2 ranks
+# each share cuda:0 (over gloo), against the single-process 4-rank frames.
+MH_PROCS = 2
+MH_FRAMES = 3
+MH_TIMEOUT_S = 420
+
+
+def mh_cases():
+    """(scene spec, size, modes, depth) of phase 6: the culled halo of the
+    1.31 M-triangle sphere and the equal 4K bands at full size, the ring,
+    the balanced and the bounced bands on the 640x480 sphere grid."""
+    from distributed_raytracer_tpu_torch.tools import schedule_frames as sf
+
+    return [(f"icosphere:{sf.RING_SUBDIV}", (sf.RING_W, sf.RING_H), "halo",
+             1),
+            (f"grid:{sf.BAND_GRID[0]}:{sf.BAND_GRID[1]}",
+             (sf.BAND_W, sf.BAND_H), "sharded-bvh", 1),
+            (f"grid:{GRID_SUBDIV}:{GRID_N}", (W, H),
+             "ring,sharded-bvh-balanced,sharded-bvh-bounced", DEPTH)]
+
+
+def mh_check(tag, reports, mode, scene, size, depth, refs) -> dict:
+    """One mode of a phase-6 run held to the single-process 4-rank frame
+    of the same bake on cuda:0 (refs caches it by (mode, size)): bit for
+    bit, the same buckets and counts, the same bake; every process
+    launched K1 and K2 (K3n and K2 on the bounced bands). Prints the frame
+    times and the bytes that crossed processes; returns the summed
+    launches."""
+    import numpy as np
+    import torch
+
+    from distributed_raytracer_tpu_torch.tools import multihost_worker as mw
+
+    w, h = size
+    key = (mode, size)
+    if key not in refs:
+        case = mw.render_case(mode, scene, w, h, ["cuda:0"] * RING_N, depth)
+        torch.cuda.synchronize()
+        ms = mw.timed(case.pop("render"), scene.camera, MH_FRAMES,
+                      torch.device("cuda:0"), lambda: None)
+        refs[key] = case, statistics.median(ms)
+    case, single_ms = refs[key]
+    want = case["frame"]
+    runs = [r["modes"][mode] for r in reports]
+    got = np.load(f"{reports[0]['out']}-{mode}.npy")
+    check(got.shape == want.shape and bool(np.array_equal(got, want)),
+          f"{tag} {mode}: the multi-process frame differs from the "
+          f"single-process frame (max |diff| "
+          f"{float(np.abs(got - want).max())})")
+    for run in runs:
+        check(case["checksum"].startswith(run["checksum"]),
+              f"{tag} {mode}: bakes differ")
+        for k in ("buckets", "counts", "layout"):
+            check(run[k] == case[k],
+                  f"{tag} {mode}: {k} differ from the single process's")
+        # The bounced bands trace every bounce, bounce 0 included, with
+        # the per-ray-origin K3n (as the JAX package does): K1 stays 0.
+        need = ("K3n", "K2") if mode.endswith("bounced") else ("K1", "K2")
+        for k in need:
+            check(run["launches"][k] > 0,
+                  f"{tag} {mode}: a process launched no {k}")
+    print(f"[phase 6] {tag} {mode} {w}x{h}: frame == the single-process "
+          f"{RING_N}-rank frame bit for bit; buckets {runs[0]['buckets']}; "
+          f"launches per process "
+          f"{[r['modes'][mode]['launches'] for r in reports]}; frame "
+          f"{statistics.median(runs[0]['ms']):.3f} ms (median of "
+          f"{MH_FRAMES}, process 0) against the single process's "
+          f"{single_ms:.3f} ms; {sum(r['bytes_per_frame'] for r in runs):.0f}"
+          f" bytes per frame crossed processes in "
+          f"{runs[0]['exchanges_per_frame']:.0f} exchanges")
+    return {name: sum(r["launches"][k] for r in runs)
+            for k, name in mw.KERNEL_KEYS.items()}
+
+
+def phase_multihost() -> dict:
+    """Phase 6: parallel/multihost.py on the card, through
+    tools/multihost_worker.py: MH_PROCS processes of 2 ranks each on
+    cuda:0 over gloo for every case of mh_cases(); with 2 or more cards
+    the halo again with one process per card over NCCL."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.tools import multihost_worker as mw
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches = {name: 0 for name in mw.KERNEL_KEYS.values()}
+    refs = {}
+    with tempfile.TemporaryDirectory() as d:
+        runs = [(f"{MH_PROCS} processes on cuda:0", [0] * MH_PROCS, "gloo",
+                 case) for case in mh_cases()]
+        if torch.cuda.device_count() >= 2:
+            runs.append(("2 processes, one card each", [0, 1], "nccl",
+                         mh_cases()[0]))
+        for i, (tag, cards, backend, (spec, size, modes, depth)) in \
+                enumerate(runs):
+            out = os.path.join(d, f"frame{i}")
+            t0 = time.perf_counter()
+            reports = mw.launch(
+                len(cards), spec, out, modes, cards=cards,
+                extra=["--device", "cuda", "--size", f"{size[0]}x{size[1]}",
+                       "--depth", str(depth), "--frames", str(MH_FRAMES)],
+                timeout_s=MH_TIMEOUT_S)
+            for r in reports:
+                r["out"] = out
+            check({r["backend"] for r in reports} == {backend},
+                  f"{tag}: transport {[r['backend'] for r in reports]}, "
+                  f"not {backend}")
+            print(f"[phase 6] {tag}, {spec} at {size[0]}x{size[1]}: "
+                  f"{len(cards)} processes (transport {backend}) ran "
+                  f"{modes} in {time.perf_counter() - t0:.1f} s")
+            scene = mw.load(spec)
+            for mode in modes.split(","):
+                got = mh_check(tag, reports, mode, scene, size, depth, refs)
+                for name, n in got.items():
+                    launches[name] += n
+        if torch.cuda.device_count() < 2:
+            print("[phase 6] NCCL was not exercised: this machine has one "
+                  "card (information, not a pass)")
+    refs.clear()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def write_scene(d: str, scene, mesh) -> str:
     """The scene as OBJ + MTL + scene.json (the reference's schema): one
     mesh, one `objs` entry per object of the scene."""
@@ -2098,6 +2271,44 @@ def run_cli(scene, mesh, size, frames: int, flags) -> None:
         print(f"[phase 3] {what}: {line}")
     print(f"[phase 3] {what}: CLI total {secs:.1f} s (scene load, bake, "
           f"sizing, {frames} frames)")
+
+
+def mh_cli(scene, mesh, flags) -> None:
+    """Phase 6b: the command line with --multihost, 2 processes of 2 ranks
+    sharing cuda:0 (--device cuda, the default), 3 frames of the sphere
+    grid at 320x240: process 0 prints the report and writes every frame,
+    process 1 neither; both print their transport (gloo)."""
+    import numpy as np
+
+    from distributed_raytracer_tpu_torch.tools import multihost_worker as mw
+
+    radius = float(np.linalg.norm(np.asarray(scene.camera.pos)))
+    port = mw.free_port()
+    with tempfile.TemporaryDirectory() as d:
+        path = write_scene(d, scene, mesh)
+        out = os.path.join(d, "frames")
+        cmds = [[sys.executable, "-m", "distributed_raytracer_tpu_torch",
+                 path, "320", "240", "--frames", "3", "--fps-target", "0",
+                 "--radius", repr(radius), "--revolutions", "0.1", "--out",
+                 out, "--multihost", "--coordinator", f"127.0.0.1:{port}",
+                 "--num-processes", "2", "--process-id", str(i),
+                 "--devices", str(RING_N), *flags] for i in range(2)]
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="0")
+        t0 = time.perf_counter()
+        outs = mw.run_all(cmds, [env, env], MH_TIMEOUT_S,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+        secs = time.perf_counter() - t0
+        frames = sorted(os.listdir(out))
+    what = " ".join(flags)
+    check("Mean FPS" in outs[0] and "Mean FPS" not in outs[1],
+          f"--multihost {what}: the report is not process 0's alone")
+    check(all("transport gloo" in o for o in outs),
+          f"--multihost {what}: transport lines {outs}")
+    check(len(frames) == 3, f"--multihost {what}: frames {frames}")
+    fps = [l for l in outs[0].splitlines() if l.startswith("Mean FPS")]
+    print(f"[phase 6b] CLI --multihost {what}, 2 processes on cuda:0: "
+          f"{fps[0]}; process 0 wrote {len(frames)} frames, process 1 no "
+          f"report; {secs:.1f} s")
 
 
 LOOP_TICKS = 120        # phase 3b: orbit_events ticks of the loop
@@ -2278,6 +2489,8 @@ def main() -> int:
     runs.append(phase_bands(bsr_trace, bounced, grid))
     runs.append(phase_ring_bvh(bsr_trace, grid))
     runs.append(phase_halo(bsr_trace, grid))
+    phase_oracle()
+    runs.append(phase_multihost())
     for got in runs:
         for key, n in got.items():
             launches[key] = launches.get(key, 0) + n
@@ -2299,6 +2512,8 @@ def main() -> int:
                    str(DEPTH)]):
         run_cli(grid, grid_mesh, (320, 240), 3,
                 flags + ["--revolutions", "0.1"])
+    for flags in (["--mode", "halo"], ["--mode", "sharded-bvh", "--balance"]):
+        mh_cli(grid, grid_mesh, flags)
     phase_loop(renderer, scene, mesh)
 
     print(f"gpu: {gpu_query()}")

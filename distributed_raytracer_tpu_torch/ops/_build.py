@@ -10,12 +10,20 @@ and the flags, so an edited source rebuilds and an unchanged one loads the
 library already built. `build_all()` runs one nvcc per source, all at
 once. A failed build raises with nvcc's output; nothing falls back.
 
+Builds are safe across processes (the ranks of a multi-process run load
+the kernels at first use): a library is built under an exclusive `fcntl`
+lock on its own lock file in _build/, into a temporary name that is then
+renamed, and a process that takes the lock after another has built the
+library loads that one. So one nvcc runs per library, and no process ever
+loads a half-written file.
+
 Importing this module builds nothing and needs no CUDA toolkit.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import subprocess
@@ -64,7 +72,8 @@ _SIGNATURES = {
         "drt_cuda_error_string": (ctypes.c_char_p, [_i32]),
     },
 }
-# One lock per library: two libraries build at once, one never twice.
+# One lock per library within a process (its lock file orders processes):
+# two libraries build at once, one never twice.
 _locks = {name: threading.Lock() for name in _SIGNATURES}
 
 
@@ -90,21 +99,25 @@ def _compile(name: str) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
-    # Build into a temporary name and rename: a concurrent build of the
-    # same source never leaves a half-written library under the final name.
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed to build {src.name} "
-                               f"(exit {res.returncode}):\n{res.stderr}")
-        build_logs[name] = res.stdout + res.stderr
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with open(BUILD_DIR / f".lib{name}.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():            # another process built it meanwhile
+            return out
+        # Build into a temporary name and rename: no process ever finds a
+        # half-written library under the final name.
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        try:
+            res = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed to build {src.name} "
+                                   f"(exit {res.returncode}):\n{res.stderr}")
+            build_logs[name] = res.stdout + res.stderr
+            os.replace(tmp, out)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
     return out
 
 

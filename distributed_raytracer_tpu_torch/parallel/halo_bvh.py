@@ -52,6 +52,15 @@ per-shard column sums of the full-scene level masks are the ranks' counts
 exactly. render(cam, verify=True) refreezes grow-only until every
 reported count fits, up to 8 rounds.
 
+Over a multi-process mesh (parallel/multihost.py) each process holds and
+runs its own ranks' shards; every per-rank loop runs over `ranks.local`,
+the collectives cross processes, the frame's rows come home to process 0
+(None elsewhere, assembled there) and the per-rank counts reach every
+process, so the verify loop refreezes alike everywhere. Every process
+sizes the buckets on its own device over the full geometry, and the
+sizing counts are maxed over the processes, so all freeze the same
+buckets.
+
 The module also holds the pieces parallel/ring_bvh.py shares: the
 reflection rays of one bounce (`reflect_rows`, ops/render_bvh.py's), the
 per-rank geometry shard (`ShardedGeometry`) and its ownership maps for
@@ -186,7 +195,7 @@ class ShardedCulledRenderer:
         host arrays of the full geometry the sizing pass reads."""
         self.mesh = mesh_mod.check_mesh(
             mesh_mod.default_mesh() if mesh is None else mesh)
-        self.ranks = mesh_mod.Ranks(self.mesh)
+        self.ranks = ranks = mesh_mod.Ranks(self.mesh)
         self.n = n = len(self.mesh)
         self.bounces = int(bounces)
         self.width, self.height, self.cfg = width, height, cfg
@@ -213,15 +222,18 @@ class ShardedCulledRenderer:
         self.t_loc = t_loc = nb_loc * block_size
         tris16 = bsr_trace.pack_tris(arrays)
         table32 = shade.pack_table(arrays, xp=np)
-        self.geom = [ShardedGeometry(
-            tris16=_put(tris16[r * t_loc:(r + 1) * t_loc], d),
-            table32=_put(table32[r * t_loc:(r + 1) * t_loc], d),
-            block_lo=_put(lo[r * nb_loc:(r + 1) * nb_loc], d),
-            block_hi=_put(hi[r * nb_loc:(r + 1) * nb_loc], d),
-            base=torch.full((1,), r * t_loc, dtype=torch.int32, device=d))
-            for r, d in enumerate(self.mesh)]
-        self.lights_pos = [_put(arrays.light_pos, d) for d in self.mesh]
-        self.lights_col = [_put(arrays.light_col, d) for d in self.mesh]
+        mesh = self.mesh
+        self.geom = ranks.per_rank(lambda r: ShardedGeometry(
+            tris16=_put(tris16[r * t_loc:(r + 1) * t_loc], mesh[r]),
+            table32=_put(table32[r * t_loc:(r + 1) * t_loc], mesh[r]),
+            block_lo=_put(lo[r * nb_loc:(r + 1) * nb_loc], mesh[r]),
+            block_hi=_put(hi[r * nb_loc:(r + 1) * nb_loc], mesh[r]),
+            base=torch.full((1,), r * t_loc, dtype=torch.int32,
+                            device=mesh[r])))
+        self.lights_pos = ranks.per_rank(
+            lambda r: _put(arrays.light_pos, mesh[r]))
+        self.lights_col = ranks.per_rank(
+            lambda r: _put(arrays.light_col, mesh[r]))
         self.n_lights = int(arrays.light_pos.shape[0])
         self._dyn = None
         if dynamic:
@@ -231,11 +243,11 @@ class ShardedCulledRenderer:
             obj_id = np.pad(np.asarray(obj_id, np.int64),
                             (0, pad_b * block_size))
             block_obj = np.pad(np.asarray(block_obj, np.int64), (0, pad_b))
-            self._dyn = [DynGeometry(
-                obj_id=_put(obj_id[r * t_loc:(r + 1) * t_loc], d),
-                block_obj=_put(block_obj[r * nb_loc:(r + 1) * nb_loc], d),
-                obj_pos0=_put(np.asarray(obj_pos0, np.float32), d))
-                for r, d in enumerate(self.mesh)]
+            self._dyn = ranks.per_rank(lambda r: DynGeometry(
+                obj_id=_put(obj_id[r * t_loc:(r + 1) * t_loc], mesh[r]),
+                block_obj=_put(block_obj[r * nb_loc:(r + 1) * nb_loc],
+                               mesh[r]),
+                obj_pos0=_put(np.asarray(obj_pos0, np.float32), mesh[r])))
         self.tile_w = tile_w
         self.tile_h = ray_tile // tile_w
         perm, _, self.n_pad = cull.tiled_ray_order(width, height,
@@ -264,6 +276,12 @@ class ShardedCulledRenderer:
             w_pads = grow(w_pads, self.w_pads)
             w_pads_sh = grow(w_pads_sh, self.w_pads_sh)
         self.w_pads, self.w_pads_sh = w_pads, w_pads_sh
+
+    def _sizing_device(self):
+        """(device, light positions, light colours) of the build-time
+        sizing pass: this process's first rank's."""
+        r = self.ranks.local[0]
+        return self.mesh[r], self.lights_pos[r], self.lights_col[r]
 
     def _assemble(self, rows: torch.Tensor) -> torch.Tensor:
         """(3, n_pad_ext) tile-major rows -> the (H, W, 3) frame."""
@@ -303,14 +321,15 @@ class ShardedCulledRenderer:
     # -- public ----------------------------------------------------------
 
     def render(self, camera, verify: bool = False) -> torch.Tensor:
-        """The (H, W, 3) frame on rank 0's device; verify=True refreezes
-        until the counts fit."""
+        """The (H, W, 3) frame on rank 0's device (None in the other
+        processes of a multi-process mesh); verify=True refreezes until
+        the counts fit."""
         rows, counts = self.device_fn(camera)
         if verify:
             rows, counts = self._verify_loop(lambda: self.device_fn(camera),
                                              rows, counts)
         self.last_counts = counts
-        return self._assemble(rows)
+        return None if rows is None else self._assemble(rows)
 
     def render_dynamic(self, camera, diff: SceneDiff,
                        verify: bool = False) -> torch.Tensor:
@@ -325,7 +344,7 @@ class ShardedCulledRenderer:
             rows, counts = self._verify_loop(
                 lambda: self.device_fn(camera, diff), rows, counts)
         self.last_counts = counts
-        return self._assemble(rows)
+        return None if rows is None else self._assemble(rows)
 
 
 class HaloCulledRenderer(ShardedCulledRenderer):
@@ -358,15 +377,17 @@ class HaloCulledRenderer(ShardedCulledRenderer):
         # Every rank makes the whole frame's rays; rank r's resident rays
         # are its r_loc slice of them.
         self.n_tiles = self.n_pad_ext // ray_tile
-        self._perm = [_put(perm.astype(np.int64), d) for d in self.mesh]
+        self._perm = self.ranks.per_rank(
+            lambda r: _put(perm.astype(np.int64), self.mesh[r]))
         camera = sizing_camera if sizing_camera is not None else scene.camera
-        counts = self._sizing_counts(camera, perm, *host)
+        counts = self.ranks.max_over_processes(
+            self._sizing_counts(camera, perm, *host))
         self._freeze(counts.max(axis=1))
         # As in the JAX package, the sizing counts stand in for the last
         # frame's until one has run (in the frame's layout).
         counts = torch.from_numpy(counts.transpose(1, 0, 2).copy())
         self.last_counts = (counts if self.bounces else counts[:, 0]).to(
-            self.mesh[0])
+            self.ranks.device)
 
     # -- sizing (build time, rank 0's device, full geometry) -------------
     #
@@ -390,7 +411,7 @@ class HaloCulledRenderer(ShardedCulledRenderer):
         n_levels) per-shard counts (primary, then the max over lights of
         the shadow cells) and the next bounce's rays."""
         rt = self.rt
-        lpos, lcol = self.lights_pos[0], self.lights_col[0]
+        _, lpos, lcol = self._sizing_device()
         ti = cull.tile_intervals_packed(rays, rt, live=live)
         p_levels = self._per_shard_levels(ti, blo, bhi)
         mask, entry = cull.block_mask_with_entry(ti, blo, bhi)
@@ -424,7 +445,7 @@ class HaloCulledRenderer(ShardedCulledRenderer):
         """(B+1, n, 2 * n_levels) per bounce, per shard, per local level:
         the primary cells, then the max over lights of the shadow cells;
         the bucket-sizing inputs."""
-        dev = self.mesh[0]
+        dev = self._sizing_device()[0]
         tris16, table32, blo, bhi = (_put(a, dev) for a in (tris16, table32,
                                                              lo, hi))
         cam = raygen.camera_arrays(camera, dev)
@@ -447,14 +468,18 @@ class HaloCulledRenderer(ShardedCulledRenderer):
         """One frame over the ranks, with `diff` (a SceneDiff, dynamic=True)
         folded into every shard: (colour rows (3, n_pad_ext), per-rank
         counts in last_counts' layout) on rank 0's device, without a host
-        sync."""
+        sync. Over several processes the rows land on process 0 (None
+        elsewhere) and the counts on every process."""
         ranks, n, rt, r_loc = self.ranks, self.n, self.rt, self.r_loc
+        local = ranks.local
         packed = raygen.camera_packed(camera)
         ranks.begin()
         geom = list(self.geom)
         lpos, lcol = list(self.lights_pos), list(self.lights_col)
-        cam, rays, live, excl, colour, thru, view = ([] for _ in range(7))
-        for r, d in enumerate(self.mesh):
+        cam, rays, live, excl, colour, thru, view = ([None] * n
+                                                    for _ in range(7))
+        for r in local:
+            d = self.mesh[r]
             with ranks.on(r):
                 c = raygen.camera_views(raygen.to_device(packed, d))
                 if diff is not None:
@@ -463,49 +488,51 @@ class HaloCulledRenderer(ShardedCulledRenderer):
                     dd = SceneDiff(*(raygen.to_device(a, d) for a in diff))
                     geom[r] = apply_diff_sharded(geom[r], self._dyn[r], dd)
                     lpos[r], lcol[r] = dd.light_pos, dd.light_col
-                cam.append(c)
-                rays.append(bsr_trace.pack_rays_rows(
+                cam[r] = c
+                rays[r] = bsr_trace.pack_rays_rows(
                     c.pos, raygen.ray_rows_flat(c, self.width, self.height,
-                                                self._perm[r])))
-                live.append(torch.ones(self.n_pad_ext, dtype=torch.bool,
-                                       device=d))
-                excl.append(torch.full((self.n_pad_ext,), -1,
-                                       dtype=torch.int32, device=d))
-                colour.append(torch.zeros((3, r_loc), device=d))
-                thru.append(torch.ones((3, r_loc), device=d))
-                view.append(c.pos)
-        counts = [[] for _ in range(n)]
+                                                self._perm[r]))
+                live[r] = torch.ones(self.n_pad_ext, dtype=torch.bool,
+                                     device=d)
+                excl[r] = torch.full((self.n_pad_ext,), -1,
+                                     dtype=torch.int32, device=d)
+                colour[r] = torch.zeros((3, r_loc), device=d)
+                thru[r] = torch.ones((3, r_loc), device=d)
+                view[r] = c.pos
+        counts = {r: [] for r in local}
         for b in range(self.bounces + 1):
             pads, pads_sh = self.w_pads[b], self.w_pads_sh[b]
-            cand = [self._nearest(geom[r], rays[r], live[r], excl[r],
-                                  cam[r], pads, b == 0, r) for r in range(n)]
-            homed = [mesh_mod.all_to_all(ranks, [c[k] for c in cand])
-                     for k in range(3)]
-            mine, prep, valid, live_l, excl_sh = [], [], [], [], []
-            for r in range(n):
+            cand = ranks.per_rank(lambda r: self._nearest(
+                geom[r], rays[r], live[r], excl[r], cam[r], pads, b == 0, r))
+            homed = [mesh_mod.all_to_all(
+                ranks, [None if c is None else c[k] for c in cand])
+                for k in range(3)]
+            mine, prep, valid, live_l, excl_sh = ([None] * n
+                                                  for _ in range(5))
+            for r in local:
                 with ranks.on(r):
                     best_t, best_i, best_g = self._fold(
                         *(h[r] for h in homed))
                     res = slice(r * r_loc, (r + 1) * r_loc)
                     v = torch.isfinite(best_t) & live[r][res]
-                    mine.append(rays[r][:, res])
+                    mine[r] = rays[r][:, res]
                     p = shade.prepare_packed_rows(
                         lpos[r], mine[r], torch.where(v, best_t, 0.0),
                         best_g.T, self.cfg)
-                    prep.append(p)
-                    valid.append(v)
-                    live_l.append(shade.light_gates_rows(lcol[r], view[r], p,
-                                                         v))
-                    excl_sh.append(torch.where(v, best_i, -1))
+                    prep[r] = p
+                    valid[r] = v
+                    live_l[r] = shade.light_gates_rows(lcol[r], view[r], p,
+                                                       v)
+                    excl_sh[r] = torch.where(v, best_i, -1)
             excl_g = mesh_mod.all_gather(ranks, excl_sh)
             lit, s_counts = self._shadows(geom, prep, live_l, excl_g, lpos,
                                           pads_sh)
-            for r in range(n):
+            for r in local:
                 with ranks.on(r):
                     p, v = prep[r], valid[r]
-                    local = shade.shade_core_rows(lcol[r], view[r], p, v,
-                                                  lit[r])
-                    colour[r] = colour[r] + thru[r] * local
+                    local_c = shade.shade_core_rows(lcol[r], view[r], p, v,
+                                                    lit[r])
+                    colour[r] = colour[r] + thru[r] * local_c
                     counts[r].append(torch.cat([cand[r][3], s_counts[r]]))
                     if b < self.bounces:
                         thru[r] = torch.where(v[None, :], thru[r] * p.ks, 0.0)
@@ -517,14 +544,15 @@ class HaloCulledRenderer(ShardedCulledRenderer):
                 rays = mesh_mod.all_gather(ranks, rays, dim=1)
                 live = mesh_mod.all_gather(ranks, live)
                 excl = excl_g
-        rows, cts = [], []
-        for r in range(n):
+        rows, cts = [None] * n, [None] * n
+        for r in local:
             with ranks.on(r):
-                rows.append(torch.clamp(colour[r], 0.0, 1.0).T)
+                rows[r] = torch.clamp(colour[r], 0.0, 1.0).T
                 c = torch.stack(counts[r])
-                cts.append((c if self.bounces else c[0])[None])
-        return (mesh_mod.gather(ranks, rows).T,
-                mesh_mod.gather(ranks, cts))
+                cts[r] = (c if self.bounces else c[0])[None]
+        out = mesh_mod.gather(ranks, rows)
+        return (None if out is None else out.T,
+                mesh_mod.gather(ranks, cts, everywhere=True))
 
     def _nearest(self, sh: ShardedGeometry, rays, live, excl, cam,
                  pads: tuple, shared: bool, r: int):
@@ -575,15 +603,17 @@ class HaloCulledRenderer(ShardedCulledRenderer):
         (lit (L, r_loc) bool, the shadow level counts, max over lights)."""
         ranks, n, rt = self.ranks, self.n, self.rt
         nl = self.n_levels
-        lit = [[] for _ in range(n)]
-        s_counts = [torch.zeros(nl, dtype=torch.int32, device=d)
-                    for d in self.mesh]
+        lit = ranks.per_rank(lambda r: [])
+        s_counts = ranks.per_rank(lambda r: torch.zeros(
+            nl, dtype=torch.int32, device=self.mesh[r]))
         for li in range(self.n_lights):
-            q_g = mesh_mod.all_gather(ranks, [p.q_rev[li] for p in prep],
-                                      dim=1)
-            live_g = mesh_mod.all_gather(ranks, [lv[li] for lv in live_l])
-            bits = []
-            for r in range(n):
+            q_g = mesh_mod.all_gather(
+                ranks, [None if p is None else p.q_rev[li] for p in prep],
+                dim=1)
+            live_g = mesh_mod.all_gather(
+                ranks, [None if lv is None else lv[li] for lv in live_l])
+            bits = [None] * n
+            for r in ranks.local:
                 sh = geom[r]
                 with ranks.on(r):
                     ti = cull.tile_intervals_packed(q_g[r], rt,
@@ -603,16 +633,17 @@ class HaloCulledRenderer(ShardedCulledRenderer):
                         gid_base=sh.base, rt=rt, tb=self.tb,
                         shared_origin=True)
                     visited = cull.visited_tiles(wl, self.n_tiles)
-                    bits.append(torch.where(visited.repeat_interleave(rt),
-                                            hit, 0))
+                    bits[r] = torch.where(visited.repeat_interleave(rt), hit,
+                                          0)
             homed = mesh_mod.all_to_all(ranks, bits)
-            for r in range(n):
+            for r in ranks.local:
                 with ranks.on(r):
                     lit[r].append(
                         homed[r].reshape(n, self.r_loc).amax(dim=0) == 0)
-        lit = [torch.stack(l) if l else torch.zeros(
-            (0, self.r_loc), dtype=torch.bool, device=d)
-            for l, d in zip(lit, self.mesh)]
+        lit = ranks.per_rank(lambda r: torch.stack(lit[r]) if lit[r]
+                             else torch.zeros((0, self.r_loc),
+                                              dtype=torch.bool,
+                                              device=self.mesh[r]))
         return lit, s_counts
 
     def scheduled_pairs(self) -> int:

@@ -10,7 +10,9 @@ its own device and stream, and the frame is gathered at the end. Rays are
 independent, so no other collective is needed.
 
 A mesh is a tuple of devices (parallel/mesh.py); n ranks may share one
-card, their streams then run side by side.
+card, their streams then run side by side. Over a multi-process mesh
+(parallel/multihost.py) each process renders the rows of its own ranks and
+the frame comes home to process 0.
 """
 
 from __future__ import annotations
@@ -37,12 +39,15 @@ def make_sharded_renderer(width: int, height: int, mesh=None,
     """A (scene, cam) -> (H, W, 3) renderer sharded over `mesh` (default:
     one rank per card). `scene` is a SceneArrays of numpy arrays or
     tensors; it is replicated to each rank's device per call (no copy where
-    it already lies there). The frame lands on rank 0's device.
+    it already lies there). The frame lands on rank 0's device (None in
+    the other processes of a multi-process mesh).
     `render.device_fn(scene, cam)` returns the padded flat
     (n * per_shard, 3) rows; `render.mesh` is the mesh."""
     mesh = mesh_mod.check_mesh(default_mesh() if mesh is None else mesh)
     ranks = mesh_mod.Ranks(mesh)
-    for d in set(mesh):
+    local = ranks.local
+    devices = {mesh[r] for r in local}
+    for d in devices:
         intersect.fp32_matmuls(d)
     n_shards = len(mesh)
     n_rays = width * height
@@ -50,10 +55,10 @@ def make_sharded_renderer(width: int, height: int, mesh=None,
     per_shard = row_partition(n_rays, n_shards, chunk)
 
     def render_padded(scene: SceneArrays, cam) -> torch.Tensor:
-        reps = {d: scene_on(scene, d) for d in set(mesh)}
+        reps = {d: scene_on(scene, d) for d in devices}
         ranks.begin()
-        inputs, parts = [], [[] for _ in range(n_shards)]
-        for r in range(n_shards):
+        inputs, parts = {}, {r: [] for r in local}
+        for r in local:
             with ranks.on(r):
                 sc = reps[mesh[r]]
                 if ranks.cuda:
@@ -62,26 +67,29 @@ def make_sharded_renderer(width: int, height: int, mesh=None,
                 c = raygen.camera_arrays(cam, mesh[r])
                 idx = r * per_shard + torch.arange(
                     per_shard, dtype=torch.int32, device=mesh[r])
-                inputs.append((sc, c, raygen.ray_directions_flat(
-                    c, width, height, idx), shade.pack_table(sc)))
+                inputs[r] = (sc, c, raygen.ray_directions_flat(
+                    c, width, height, idx), shade.pack_table(sc))
         # Chunk by chunk across the ranks, so that no rank's launch queue
         # fills (and blocks the host) before the others have work.
         for s in range(0, per_shard, chunk):
-            for r in range(n_shards):
+            for r in local:
                 sc, c, dirs, table = inputs[r]
                 with ranks.on(r):
                     parts[r].append(trace_rays(sc, c.pos, c.pos,
                                                dirs[s:s + chunk], cfg, table))
-        out = []
-        for r in range(n_shards):
+        out = [None] * n_shards
+        for r in local:
             with ranks.on(r):
-                out.append(torch.cat(parts[r]))
+                out[r] = torch.cat(parts[r])
         return mesh_mod.gather(ranks, out)
 
-    def render(scene: SceneArrays, cam) -> torch.Tensor:
+    def render(scene: SceneArrays, cam) -> Optional[torch.Tensor]:
         """The full frame on rank 0's device (the framebuffer gather: the
-        master reassembling worker tiles, main.go:163-177)."""
-        return render_padded(scene, cam)[:n_rays].reshape(height, width, 3)
+        master reassembling worker tiles, main.go:163-177); None in the
+        other processes of a multi-process mesh."""
+        out = render_padded(scene, cam)
+        return (None if out is None
+                else out[:n_rays].reshape(height, width, 3))
 
     render.device_fn = render_padded
     render.mesh = mesh

@@ -24,6 +24,16 @@ Three constructors, as in the JAX package: equal bands
 (make_sharded_culled_renderer), cost-balanced band heights
 (balance=True, make_balanced_culled_renderer) and bounced bands
 (make_sharded_bounced_renderer).
+
+Over a multi-process mesh (parallel/multihost.py) each process builds and
+runs the bands of its own ranks, and the frame comes home to process 0
+(None elsewhere). Every process must freeze the same buckets, or the
+collectives' shapes differ: the build-time sizing maxes its counts over
+the processes, every frame's per-band counts reach every process, so the
+verify loop's refreeze is one decision taken alike everywhere, and the
+balanced split is struck on process 0 (rank 0's band probes the costs)
+and broadcast. The collectives stay outside the CUDA graphs: each rank
+replays its graph, then the bands are gathered.
 """
 
 from __future__ import annotations
@@ -55,15 +65,17 @@ def _nested(x):
 
 class BandRenderer:
     """render(cam, verify=False) -> the (H, W, 3) frame on rank 0's device,
-    from one band per rank. `device_fn(cam)` gives the stacked band images
+    from one band per rank (None in the other processes of a
+    multi-process mesh). `device_fn(cam)` gives the stacked band images
     and the (n, ...) per-band counts without a host sync; `buckets()` the
     common buckets; `last_counts` the last frame's counts (None before the
-    first); `band` rank 0's renderer, `bands` every rank's."""
+    first); `band` this process's first band renderer (rank 0's in
+    process 0), `bands` every rank's (None at other processes' ranks)."""
 
     def __init__(self, ranks: mesh_mod.Ranks, bands: list, height: int,
                  kind: str, pads, pads_from: Callable):
         self.ranks, self.mesh = ranks, ranks.mesh
-        self.bands, self.band = bands, bands[0]
+        self.bands, self.band = bands, bands[ranks.local[0]]
         self.height = height
         self._kind = kind            # "fast" or "bounced"
         self._pads = pads
@@ -81,18 +93,21 @@ class BandRenderer:
 
     def device_fn(self, cam):
         """(band images stacked on dim 0, per-band counts (n, ...)) on rank
-        0's device; on CUDA each rank replays its graph on its stream."""
+        0's device; on CUDA each rank replays its graph on its stream. Over
+        several processes the images land on process 0 (None elsewhere)
+        and the counts on every process."""
         packed = raygen.camera_packed(cam)
         self.ranks.begin()
-        imgs, counts = [], []
-        for r, band in enumerate(self.bands):
+        imgs, counts = [None] * len(self.bands), [None] * len(self.bands)
+        for r in self.ranks.local:
+            band = self.bands[r]
             with self.ranks.on(r):
                 img, c = band._frozen_frame(self._kind, {"camera": packed},
                                             self._body(band))(self._pads)
-                imgs.append(img)
-                counts.append(c[None])
+                imgs[r] = img
+                counts[r] = c[None]
         return (mesh_mod.gather(self.ranks, imgs),
-                mesh_mod.gather(self.ranks, counts))
+                mesh_mod.gather(self.ranks, counts, everywhere=True))
 
     def _fits(self, counts: torch.Tensor) -> bool:
         """Every band's counts within the buckets."""
@@ -127,9 +142,10 @@ class BandRenderer:
                              "(counts %s); image may drop blocks",
                              counts.tolist())
         self.last_counts = counts
-        return self._assemble(out)
+        return None if out is None else self._assemble(out)
 
     def _assemble(self, out: torch.Tensor) -> torch.Tensor:
+        """The gathered band images as the (H, W, 3) frame."""
         return out[:self.height]
 
 
@@ -172,18 +188,20 @@ def _mesh(mesh) -> tuple:
 
 def _make_bands(scene: Optional[Scene], width: int, band_h: int,
                 height: int, mesh: tuple, cfg: RenderConfig, prebaked):
-    """(Ranks, one band renderer per rank on its device), all from one
-    bake (blocks of 128 unless prebaked), projecting with the full
-    frame's height."""
+    """(Ranks, one band renderer per rank of this process on its device,
+    None at other processes' ranks), all from one bake (blocks of 128
+    unless prebaked), projecting with the full frame's height."""
     if prebaked is None:
         prebaked = scene.bake_bvh(block_size=128)
-    bands = []
-    for d in mesh:
-        band = CulledRenderer(None, width, band_h, cfg=cfg, prebaked=prebaked,
-                              device=d)
-        band.raygen_height = height
-        bands.append(band)
-    return mesh_mod.Ranks(mesh), bands
+    ranks = mesh_mod.Ranks(mesh)
+
+    def band(r):
+        b = CulledRenderer(None, width, band_h, cfg=cfg, prebaked=prebaked,
+                           device=mesh[r])
+        b.raygen_height = height
+        return b
+
+    return ranks, ranks.per_rank(band)
 
 
 def _base_perm(band: CulledRenderer) -> np.ndarray:
@@ -206,25 +224,31 @@ def _equal_bands(scene, width: int, height: int, mesh, cfg, prebaked):
     h_band = -(-height // len(mesh))
     ranks, bands = _make_bands(scene, width, h_band, height, mesh, cfg,
                                prebaked)
-    base = _base_perm(bands[0])
-    for r, band in enumerate(bands):
+    base = _base_perm(bands[ranks.local[0]])
+    for r in ranks.local:
         with ranks.on(r):
-            band.set_rays(_shifted(base, r * h_band * width, width, height))
+            bands[r].set_rays(_shifted(base, r * h_band * width, width,
+                                       height))
     return ranks, bands
 
 
 def _sized(ranks, bands, measure: Callable, pads_from: Callable):
     """The common buckets: measure(band) (a sync render's raw counts) on
-    every rank's stream, maxed over the bands, through pads_from. Every
-    band then takes the early-exit cadence the last band's sizing render
-    chose, as the JAX package's one band renderer does."""
+    every local rank's stream, maxed over the bands (and the processes),
+    through pads_from. Every band then takes the early-exit cadence the
+    last band's sizing render chose, as the JAX package's one band
+    renderer does (broadcast from the process that runs it)."""
     counts = []
-    for r, band in enumerate(bands):
+    for r in ranks.local:
         with ranks.on(r):
-            counts.append(measure(band))
-    for band in bands:
-        band.exit_every = bands[-1].exit_every
-    return pads_from(np.asarray(counts).max(axis=0).tolist())
+            counts.append(measure(bands[r]))
+    worst = ranks.max_over_processes(np.asarray(counts).max(axis=0))
+    last = ranks.n - 1
+    exit_every = int(ranks.broadcast(
+        [bands[last].exit_every if ranks.is_local(last) else 0], last)[0])
+    for r in ranks.local:
+        bands[r].exit_every = exit_every
+    return pads_from(worst.tolist())
 
 
 def _sync_counts(band: CulledRenderer, camera) -> tuple:
@@ -250,7 +274,8 @@ def make_sharded_culled_renderer(scene: Optional[Scene], width: int,
             margin=margin, cfg=cfg, prebaked=prebaked)
     ranks, bands = _equal_bands(scene, width, height, mesh, cfg, prebaked)
     camera = sizing_camera if sizing_camera is not None else scene.camera
-    pads_from = lambda worst: bands[0]._pads_from(worst, margin)
+    pads_from = lambda worst: bands[ranks.local[0]]._pads_from(worst,
+                                                               margin)
     pads = _sized(ranks, bands, lambda b: _sync_counts(b, camera), pads_from)
     return BandRenderer(ranks, bands, height, "fast", pads, pads_from)
 
@@ -286,16 +311,17 @@ def make_balanced_culled_renderer(scene: Optional[Scene], width: int,
     cap = min(ty_full, cap_factor * rows_eq)
     ranks, bands = _make_bands(scene, width, cap * tile_h, height, mesh,
                                cfg, prebaked)
-    probe = bands[0]
-    tx = -(-width // probe.tile_w)
-    slot_row = (np.arange(probe.n_pad) // probe.rt) // tx
-    base = _base_perm(probe)
+    geom = bands[ranks.local[0]]            # every band's shape
+    tx = -(-width // geom.tile_w)
+    slot_row = (np.arange(geom.n_pad) // geom.rt) // tx
+    base = _base_perm(geom)
     band_perm = lambda start: _shifted(base, start * tile_h * width, width,
                                        height)
 
     def probe_costs(cam) -> np.ndarray:
         """(ty_full,) fine cull cells per tile row, probed on rank 0's
         band in windows of `cap` tile rows."""
+        probe = bands[0]
         out = []
         with ranks.on(0):
             for j in range(-(-ty_full // cap)):
@@ -306,18 +332,25 @@ def make_balanced_culled_renderer(scene: Optional[Scene], width: int,
         return np.concatenate(out)
 
     def layout_for(cam):
-        starts, rows = tile_mod.balanced_rows(probe_costs(cam), n, cap)
-        return (np.asarray(starts, np.int32), np.asarray(rows, np.int32))
+        """(starts, rows) of the split for `cam`: struck by the process
+        that runs rank 0 and broadcast, so every process takes the same."""
+        split = np.zeros(2 * n, np.int64)
+        if ranks.is_local(0):
+            split = np.concatenate(tile_mod.balanced_rows(probe_costs(cam),
+                                                          n, cap))
+        split = ranks.broadcast(split, 0)
+        return (split[:n].astype(np.int32), split[n:].astype(np.int32))
 
     def set_layout(starts, rows) -> None:
-        for r, band in enumerate(bands):
+        for r in ranks.local:
             with ranks.on(r):
-                band.set_rays(band_perm(int(starts[r])),
-                              slot_row < int(rows[r]))
+                bands[r].set_rays(band_perm(int(starts[r])),
+                                  slot_row < int(rows[r]))
 
     starts, rows = layout_for(camera)
     set_layout(starts, rows)
-    pads_from = lambda worst: bands[0]._pads_from(worst, margin)
+    pads_from = lambda worst: bands[ranks.local[0]]._pads_from(worst,
+                                                               margin)
     pads = _sized(ranks, bands, lambda b: _sync_counts(b, camera), pads_from)
     return BalancedBandRenderer(
         ranks, bands, height, "fast", pads, pads_from, rows=rows,
@@ -343,7 +376,7 @@ def make_sharded_bounced_renderer(scene: Optional[Scene], width: int,
         band.render_bounced(camera, depth, block=True)
         return band._last_bounce_counts
 
-    pads_from = lambda worst: tuple(bands[0]._pads_from(q, margin)
-                                    for q in worst)
+    pads_from = lambda worst: tuple(
+        bands[ranks.local[0]]._pads_from(q, margin) for q in worst)
     pads = _sized(ranks, bands, measure, pads_from)
     return BandRenderer(ranks, bands, height, "bounced", pads, pads_from)

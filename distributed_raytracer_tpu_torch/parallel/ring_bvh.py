@@ -31,7 +31,11 @@ per bounce:
 
 JAX's `shard_map` body is a host loop here: each step is one pass over the
 ranks under `ranks.on(r)`, then one `mesh.rotate_right` of the shard's five
-tensors (parallel/mesh.py). The frame runs eagerly (no CUDA graph).
+tensors (parallel/mesh.py). The frame runs eagerly (no CUDA graph). Over a
+multi-process mesh each process runs its own ranks (`ranks.local`), the
+rotations cross processes, the rows come home to process 0 and the counts
+reach every process; the sizing counts are maxed over the processes, as
+parallel/halo_bvh.py does.
 
 Work-list buckets are sized at build time on one device over the full
 geometry: each rank meets every shard during the rotation, so the per-level
@@ -93,10 +97,11 @@ class RingCulledRenderer(ShardedCulledRenderer):
                                  tile_w=32 if tile_w is None else tile_w)
         r_loc = self.r_loc
         self.nt_loc = r_loc // ray_tile
-        self._perm = [_put(perm[r * r_loc:(r + 1) * r_loc].astype(np.int64),
-                           d) for r, d in enumerate(self.mesh)]
+        self._perm = self.ranks.per_rank(lambda r: _put(
+            perm[r * r_loc:(r + 1) * r_loc].astype(np.int64), self.mesh[r]))
         camera = sizing_camera if sizing_camera is not None else scene.camera
-        self.sizing_counts = self._sizing_counts(camera, perm, *host)
+        self.sizing_counts = self.ranks.max_over_processes(
+            self._sizing_counts(camera, perm, *host))
         self._freeze(self.sizing_counts)
         # Per-rank counts of the last frame, (n, B+1, 2 * n_levels + 2);
         # None until a frame has run.
@@ -166,7 +171,7 @@ class RingCulledRenderer(ShardedCulledRenderer):
         """(B+1, 2 * n_levels): per bounce, the per-level max over pairs
         of the primary cells, then of the shadow cells (max over lights),
         coarsest first: the bucket-sizing inputs."""
-        dev = self.mesh[0]
+        dev, lpos, lcol = self._sizing_device()
         tris16, table32, blo, bhi = (_put(a, dev) for a in (tris16, table32,
                                                              lo, hi))
         cam = raygen.camera_arrays(camera, dev)
@@ -180,7 +185,7 @@ class RingCulledRenderer(ShardedCulledRenderer):
         for b in range(self.bounces + 1):
             counts, rays, live, excl, view = self._size_step(
                 b == 0, tris16, table32, blo, bhi, rays, live, excl, view,
-                self.lights_pos[0], self.lights_col[0])
+                lpos, lcol)
             out.append(counts.numpy())
         return np.stack(out)
 
@@ -189,14 +194,19 @@ class RingCulledRenderer(ShardedCulledRenderer):
     def device_fn(self, camera, diff=None):
         """One frame over the ranks, with `diff` (a SceneDiff, dynamic=True)
         folded in: (colour rows (3, n_pad_ext), per-rank counts (n, B+1,
-        2 * n_levels + 2)) on rank 0's device, without a host sync."""
+        2 * n_levels + 2)) on rank 0's device, without a host sync. Over
+        several processes the rows land on process 0 (None elsewhere) and
+        the counts on every process."""
         ranks, n, rt, nl = self.ranks, self.n, self.rt, self.n_levels
+        local = ranks.local
         packed = raygen.camera_packed(camera)
         ranks.begin()
         geom = list(self.geom)
         lpos, lcol = list(self.lights_pos), list(self.lights_col)
-        cam, rays, live, excl, colour, thru, view = ([] for _ in range(7))
-        for r, d in enumerate(self.mesh):
+        cam, rays, live, excl, colour, thru, view = ([None] * n
+                                                    for _ in range(7))
+        for r in local:
+            d = self.mesh[r]
             with ranks.on(r):
                 c = raygen.camera_views(raygen.to_device(packed, d))
                 if diff is not None:
@@ -205,40 +215,42 @@ class RingCulledRenderer(ShardedCulledRenderer):
                     dd = SceneDiff(*(raygen.to_device(a, d) for a in diff))
                     geom[r] = apply_diff_sharded(geom[r], self._dyn[r], dd)
                     lpos[r], lcol[r] = dd.light_pos, dd.light_col
-                cam.append(c)
-                rays.append(bsr_trace.pack_rays_rows(c.pos, raygen.ray_rows_flat(
-                    c, self.width, self.height, self._perm[r])))
-                live.append(torch.ones(self.r_loc, dtype=torch.bool, device=d))
-                excl.append(torch.full((self.r_loc,), -1, dtype=torch.int32,
-                                       device=d))
-                colour.append(torch.zeros((3, self.r_loc), device=d))
-                thru.append(torch.ones((3, self.r_loc), device=d))
-                view.append(c.pos)
-        counts = [[] for _ in range(n)]
+                cam[r] = c
+                rays[r] = bsr_trace.pack_rays_rows(c.pos, raygen.ray_rows_flat(
+                    c, self.width, self.height, self._perm[r]))
+                live[r] = torch.ones(self.r_loc, dtype=torch.bool, device=d)
+                excl[r] = torch.full((self.r_loc,), -1, dtype=torch.int32,
+                                     device=d)
+                colour[r] = torch.zeros((3, self.r_loc), device=d)
+                thru[r] = torch.ones((3, self.r_loc), device=d)
+                view[r] = c.pos
+        counts = {r: [] for r in local}
         for b in range(self.bounces + 1):
             pads, pads_sh = self.w_pads[b], self.w_pads_sh[b]
-            ti, state = [], []
-            for r, d in enumerate(self.mesh):
+            ti, state = [None] * n, [None] * n
+            for r in local:
+                d = self.mesh[r]
                 with ranks.on(r):
-                    ti.append(cull.tile_intervals_packed(rays[r], rt,
-                                                         live=live[r]))
-                    state.append([
+                    ti[r] = cull.tile_intervals_packed(rays[r], rt,
+                                                       live=live[r])
+                    state[r] = [
                         torch.full((self.r_loc,), float("inf"), device=d),
                         torch.full((self.r_loc,), bsr_trace.BIG_IDX,
                                    dtype=torch.int32, device=d),
                         torch.zeros((self.r_loc, 32), device=d),
                         torch.zeros(nl, dtype=torch.int32, device=d),
-                        torch.zeros((), dtype=torch.int32, device=d)])
+                        torch.zeros((), dtype=torch.int32, device=d)]
             # Phase 1: n steps of culled nearest against the shard held
             # now, each followed by one rotation.
             for _ in range(n):
-                for r in range(n):
+                for r in local:
                     with ranks.on(r):
                         self._nearest_step(state[r], geom[r], ti[r], rays[r],
                                            excl[r], cam[r], pads, b == 0)
                 geom = self._rotate(geom)
-            prep, valid, lit, s_state = [], [], [], []
-            for r, d in enumerate(self.mesh):
+            prep, valid, s_state = [None] * n, [None] * n, [None] * n
+            for r in local:
+                d = self.mesh[r]
                 with ranks.on(r):
                     best_t, best_i, best_g = state[r][:3]
                     v = torch.isfinite(best_t) & live[r]
@@ -249,29 +261,29 @@ class RingCulledRenderer(ShardedCulledRenderer):
                     tis = [cull.tile_intervals_packed(
                         p.q_rev[li], rt, live=live_l[li], use_tmax=True)
                         for li in range(self.n_lights)]
-                    prep.append(p)
-                    valid.append(v)
-                    s_state.append([
+                    prep[r] = p
+                    valid[r] = v
+                    s_state[r] = [
                         torch.zeros((self.n_lights, self.r_loc),
                                     dtype=torch.int32, device=d),
                         torch.zeros(nl, dtype=torch.int32, device=d),
                         torch.zeros((), dtype=torch.int32, device=d),
-                        tis, torch.where(v, best_i, -1)])
+                        tis, torch.where(v, best_i, -1)]
             # Phase 2: n steps of culled any-hit per light.
             for _ in range(n):
-                for r in range(n):
+                for r in local:
                     with ranks.on(r):
                         self._shadow_step(s_state[r], geom[r], prep[r],
                                           lpos[r], pads_sh)
                 geom = self._rotate(geom)
-            for r in range(n):
+            for r in local:
                 with ranks.on(r):
                     p, v = prep[r], valid[r]
                     hit, cvec_s, csum_s = s_state[r][:3]
                     _, best_i, _, cvec_p, csum_p = state[r]
-                    local = shade.shade_core_rows(lcol[r], view[r], p, v,
-                                                  hit == 0)
-                    colour[r] = colour[r] + thru[r] * local
+                    local_c = shade.shade_core_rows(lcol[r], view[r], p, v,
+                                                    hit == 0)
+                    colour[r] = colour[r] + thru[r] * local_c
                     counts[r].append(torch.cat([cvec_p, cvec_s, csum_p[None],
                                                 csum_s[None]]))
                     if b < self.bounces:
@@ -280,20 +292,22 @@ class RingCulledRenderer(ShardedCulledRenderer):
                                                         v)
                         excl[r] = torch.where(v, best_i, -1)
                         view[r] = p.x
-        rows, cts = [], []
-        for r in range(n):
+        rows, cts = [None] * n, [None] * n
+        for r in local:
             with ranks.on(r):
-                rows.append(torch.clamp(colour[r], 0.0, 1.0).T)
-                cts.append(torch.stack(counts[r])[None])
-        return (mesh_mod.gather(ranks, rows).T,
-                mesh_mod.gather(ranks, cts))
+                rows[r] = torch.clamp(colour[r], 0.0, 1.0).T
+                cts[r] = torch.stack(counts[r])[None]
+        out = mesh_mod.gather(ranks, rows)
+        return (None if out is None else out.T,
+                mesh_mod.gather(ranks, cts, everywhere=True))
 
     def _rotate(self, geom: list) -> list:
         """Every rank's shard to its right neighbour (`ppermute`)."""
-        fields = [mesh_mod.rotate_right(self.ranks, [g[k] for g in geom])
-                  for k in range(len(ShardedGeometry._fields))]
-        return [ShardedGeometry(*(f[r] for f in fields))
-                for r in range(self.n)]
+        fields = [mesh_mod.rotate_right(
+            self.ranks, [None if g is None else g[k] for g in geom])
+            for k in range(len(ShardedGeometry._fields))]
+        return self.ranks.per_rank(
+            lambda r: ShardedGeometry(*(f[r] for f in fields)))
 
     def _nearest_step(self, st: list, sh: ShardedGeometry, ti, rays, excl,
                       cam, pads: tuple, shared: bool) -> None:

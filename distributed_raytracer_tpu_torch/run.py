@@ -29,8 +29,16 @@ runs the interactive loop (runtime/loop.py) behind the browser viewer
 (runtime/viewer.py) instead, in every ported mode, until a client sends
 Esc.
 
-The JAX package's `--multihost` is not ported yet; asking for it exits
-with a message that says so.
+`--multihost --coordinator HOST:PORT --num-processes P --process-id I`
+runs one of P processes of one job (parallel/multihost.py), each on its
+own device (`--device cuda`: card I % cards; several processes may share a
+card). `--devices N` then counts the ranks of the whole job and must split
+evenly over the processes (default: one rank per process). The sharded,
+sharded-bvh, halo and ring modes run one program over every process's
+ranks; sequential and culled modes render the whole frame in every
+process, as the JAX CLI does. Process 0 alone writes the frames and prints
+the report. The transport (NCCL when every process owns a card, else
+gloo) is printed by every process before the first frame.
 """
 
 from __future__ import annotations
@@ -72,7 +80,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
                    help="serve an interactive browser viewer instead of the "
                         "scripted animation (the SDL window analog)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process rendering (not ported)")
+                   help="join a multi-process job (the master/worker "
+                        "topology analog); process 0 assembles + reports")
+    p.add_argument("--coordinator", metavar="HOST:PORT", default=None,
+                   help="coordinator address for --multihost (process 0 "
+                        "binds it, the registrar analog)")
+    p.add_argument("--num-processes", type=int, default=None)
+    p.add_argument("--process-id", type=int, default=None)
     p.add_argument("--frames", type=int, default=60,
                    help="animation frames to render")
     p.add_argument("--animation", choices=["orbit", "strafe", "none"],
@@ -105,10 +119,19 @@ def _periodic_verify(render_v, period: int = 8):
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
-    if args.multihost:
-        raise SystemExit("--multihost is not yet ported to "
-                         "distributed_raytracer_tpu_torch (every --mode "
-                         "is); use distributed_raytracer_tpu for it")
+    multi = args.multihost or args.coordinator is not None
+    if multi:
+        if (args.coordinator is None or args.num_processes is None
+                or args.process_id is None):
+            raise SystemExit("--multihost needs --coordinator HOST:PORT, "
+                             "--num-processes and --process-id")
+        if args.devices is not None and (
+                args.devices < 1 or args.devices % args.num_processes):
+            raise SystemExit(f"--devices {args.devices} must split evenly "
+                             f"over --num-processes {args.num_processes}")
+        if args.serve:
+            raise SystemExit("--serve runs in one process; it does not "
+                             "combine with --multihost")
     if args.bounces < 0:
         raise SystemExit(f"--bounces {args.bounces}: must be >= 0")
     if args.animate_objects:
@@ -117,12 +140,31 @@ def main(argv=None) -> int:
                 args.bounces and args.mode == "culled"):
             raise SystemExit("--animate-objects supports --mode "
                              "culled/halo/ring (--bounces on halo/ring)")
-        if args.serve and args.mode != "culled":
+        if multi or (args.serve and args.mode != "culled"):
             raise SystemExit("--animate-objects + --serve needs --mode "
                              "culled; --multihost is unsupported")
 
+    from distributed_raytracer_tpu_torch.parallel import multihost
+
+    device = args.device
+    if multi:
+        tr = multihost.initialize(args.coordinator, args.num_processes,
+                                  args.process_id, device=args.device)
+        device = multihost.process_device(args.process_id, args.device)
+        print(f"multihost: process {tr.process} of {tr.n_procs} on "
+              f"{device}, transport {tr.backend}", flush=True)
+    try:
+        return _run(args, device)
+    finally:
+        multihost.shutdown()
+
+
+def _run(args, device) -> int:
+    """Builds the mode's renderer on `device` (this process's) and runs the
+    animation or the viewer."""
     from distributed_raytracer_tpu_torch.models.scene import load_scene
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.parallel import multihost
     from distributed_raytracer_tpu_torch.runtime import animation, framebuffer
     from distributed_raytracer_tpu_torch.runtime.stats import FrameTimer
 
@@ -141,20 +183,20 @@ def main(argv=None) -> int:
         from distributed_raytracer_tpu_torch.parallel import render_sharded
 
         if args.mode == "sequential":
-            arrays = scene_on(scene.bake(), args.device)
+            arrays = scene_on(scene.bake(), device)
             render = lambda cam: render_frame(arrays, cam, w, h)
         else:
-            mesh = render_sharded.default_mesh(args.devices, args.device)
-            arrays = scene_on(scene.bake(), mesh[0])
+            mesh = multihost.global_mesh(args.devices, device)
+            arrays = scene_on(scene.bake(), device)
             sharded = render_sharded.make_sharded_renderer(w, h, mesh=mesh)
             render = lambda cam: sharded(arrays, cam)
         render_k = lambda k, cam: render(cam)
         render_arrays = render
     elif args.mode in ("sharded-bvh", "halo", "ring"):
         from distributed_raytracer_tpu_torch.parallel import (
-            halo_bvh, render_sharded, render_sharded_bvh, ring_bvh)
+            halo_bvh, render_sharded_bvh, ring_bvh)
 
-        mesh = render_sharded.default_mesh(args.devices, args.device)
+        mesh = multihost.global_mesh(args.devices, device)
         if args.mode in ("halo", "ring"):
             # Halo bounces gather the reflection rays and fold the
             # candidates home again; ring bounces move no rays (they stay
@@ -185,7 +227,7 @@ def main(argv=None) -> int:
         from distributed_raytracer_tpu_torch.ops.render_dynamic import (
             DynamicCulledRenderer)
 
-        dyn = DynamicCulledRenderer(scene, w, h, device=args.device)
+        dyn = DynamicCulledRenderer(scene, w, h, device=device)
         dyn.render(scene.camera, block=True)
         dyn.freeze(scene.camera)
         render_k = lambda k, cam: dyn.render_dynamic(
@@ -205,7 +247,7 @@ def main(argv=None) -> int:
         # block_size="auto": the per-scene leaf policy
         # (utils/config.default_block_size).
         culled = CulledRenderer(scene, w, h, block_size="auto",
-                                device=args.device)
+                                device=device)
         if args.bounces:
             bounced = culled.freeze_bounced(scene.camera, args.bounces)
             render = _periodic_verify(bounced)
@@ -246,9 +288,10 @@ def main(argv=None) -> int:
 
     # Warm up outside the timed loop (the reference never counts startup
     # either — its first frame just runs slow).
-    render_k(0, poses[0]).cpu()
+    multihost.gather_frame(render_k(0, poses[0]))
 
-    if args.out:
+    master = multihost.is_master()
+    if args.out and master:
         os.makedirs(args.out, exist_ok=True)
 
     timer = FrameTimer()
@@ -257,13 +300,15 @@ def main(argv=None) -> int:
         tick = time.monotonic()
         timer.frame_issued()
         img = render_k(k, cam)
-        if args.out:
+        if args.out and img is not None:
             # u8 on the device before the host copy: 1 byte per channel
             # crosses instead of a float32.
             img = framebuffer.to_u8_device(img)
-        img_np = img.cpu().numpy()
+        # Frame assembly: process 0 holds the frame (the coordinator
+        # painting worker tiles, master/main.go:163-177); None elsewhere.
+        img_np = multihost.gather_frame(img)
         timer.frame_drawn()
-        if args.out:
+        if args.out and img_np is not None:
             framebuffer.write_png(os.path.join(args.out, f"frame_{k:05d}.png"),
                                   img_np)
         if ms_per_frame:
@@ -272,7 +317,7 @@ def main(argv=None) -> int:
                 time.sleep((ms_per_frame - elapsed) / 1000.0)
 
     stats = timer.stats()
-    if stats is not None:
+    if stats is not None and master:
         print(stats.report())
         rays = w * h * (1 + scene.light_pos.shape[0])
         print(f"Throughput: {stats.mean_fps * w * h / 1e6:.2f} M primary "

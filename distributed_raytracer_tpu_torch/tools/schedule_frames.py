@@ -1,7 +1,7 @@
 """Time the culled multi-rank schedules' frames on CUDA ranks.
 
     python3 -m distributed_raytracer_tpu_torch.tools.schedule_frames \\
-        [--cards N]
+        [--cards N] [--procs P]
 
 Three frames, RANKS ranks each:
   - bands (parallel/render_sharded_bvh.py): instanced_grid(
@@ -26,8 +26,16 @@ the cards).
 With --cards 1 (the default) the ranks share cuda:0. With --cards N the
 frames are built twice, the ranks all on cuda:0 and one rank per card
 (rank i on cuda:(i % N)), and timed in turns: one card, N cards, N cards,
-one card. Prints one line per measurement and, last, one JSON line of
-everything with the card's name and power limit.
+one card. With --procs P the ranks also run in P processes
+(parallel/multihost.py, through tools/multihost_worker.py: RANKS / P
+ranks each, process i on card i % N, so NCCL when P <= N): one turn in
+the middle of each frame's turns (one card, N cards, P processes, N
+cards, one card), each process reporting its frame times (every frame
+begun at a barrier), its busy share and host launch calls per frame from
+its own torch.profiler window, and the bytes it sent to the others; each
+frame is checked equal to the in-process frame. Prints one line per
+measurement and, last, one JSON line of everything with the card's name
+and power limit.
 """
 
 from __future__ import annotations
@@ -251,9 +259,60 @@ def halo_bytes(halo) -> int:
             + halo.bounces * gather(32 + 1))
 
 
-def time_bands(layouts: dict, order: list) -> dict:
+def procs_turn(spec: str, size, mode: str, procs: int, cards: int,
+               ref, extra=()) -> dict:
+    """One multi-process turn: `procs` workers (RANKS / procs ranks each,
+    process i on card i % cards) render `mode` of `spec`, checked equal to
+    the in-process frame `ref` (numpy); per process the median frame ms,
+    busy share and host launch calls per frame, and the bytes it sent."""
+    import numpy as np
+
+    from distributed_raytracer_tpu_torch.tools import multihost_worker as mw
+
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "frame")
+        reports = mw.launch(
+            procs, spec, out, mode, cards=[i % cards for i in range(procs)],
+            extra=["--device", "cuda", "--size", f"{size[0]}x{size[1]}",
+                   "--ranks-per-process", str(RANKS // procs), "--frames",
+                   str(FRAMES), "--profile", *extra], timeout_s=900)
+        got = np.load(f"{out}-{mode}.npy")
+    diff = float(np.abs(got - ref).max())
+    check(bool(np.array_equal(got, ref)),
+          f"{procs}-process {mode} frame differs from the in-process frame "
+          f"by {diff}")
+    runs = [r["modes"][mode] for r in reports]
+    return {"backend": reports[0]["backend"],
+            "ms": statistics.median(runs[0]["ms"]),
+            "ms_per_process": [statistics.median(r["ms"]) for r in runs],
+            "busy": [r["busy"] for r in runs],
+            "host_launch_calls": [r["host_launch_calls"] for r in runs],
+            "bytes_per_frame": [r["bytes_per_frame"] for r in runs],
+            "launches": [r["launches"] for r in runs]}
+
+
+def procs_line(s: dict) -> str:
+    return (f"{s['ms']:.3f} ms per frame (median of {FRAMES}, process 0; "
+            f"per process {[round(v, 3) for v in s['ms_per_process']]}); "
+            f"transport {s['backend']}; busy per process "
+            f"{[round(v, 3) for v in s['busy']]}; host launch calls per "
+            f"frame per process {[round(v) for v in s['host_launch_calls']]}"
+            f"; bytes sent per frame per process {s['bytes_per_frame']}; "
+            f"frame launches per process {s['launches']}; equal to the "
+            "in-process frame bit for bit")
+
+
+def _turns(order: list, n_layouts: int, procs):
+    """The turn order with the multi-process turn (`procs`, a name or
+    None) in the middle."""
+    if procs is None:
+        return list(order)
+    return order[:n_layouts] + [procs] + order[n_layouts:]
+
+
+def time_bands(layouts: dict, order: list, procs=None) -> dict:
     """The band frames of every layout (name -> mesh), checked, then
-    timed in `order`."""
+    timed in `order`; procs = (P, cards) adds the P-process turn."""
     scene = band_scene()
     t0 = time.perf_counter()
     bake = scene.bake_bvh(block_size=128)
@@ -273,17 +332,30 @@ def time_bands(layouts: dict, order: list) -> dict:
               f"bit; layout {built[name][1].layout()}")
     res = {"single": stats(lambda: single.render_fast(poses[1]))}
     print(f"[bands] single rank: {stats_line(res['single'])}")
-    for i, name in enumerate(order):
+    name0, i = next(iter(built)), 0
+    for name in _turns(order, len(layouts),
+                       procs and f"{procs[0]} processes"):
+        if name not in built:
+            ref = built[name0][0](poses[1]).cpu().numpy()
+            s = procs_turn(f"grid:{BAND_GRID[0]}:{BAND_GRID[1]}",
+                           (BAND_W, BAND_H), "sharded-bvh", *procs, ref,
+                           extra=["--orbit", str(BAND_POSES)])
+            res[f"{name} equal"] = s
+            print(f"[bands] {name}, equal: {procs_line(s)}")
+            continue
         for kind, r in zip(("equal", "balanced"), built[name]):
             s = stats(lambda: r(poses[1]))
             res[f"{name} {kind} turn {i // len(layouts)}"] = s
             print(f"[bands] {name}, {kind}: {stats_line(s)}")
+        i += 1
     return res
 
 
-def time_geometry(kind: str, layouts: dict, order: list) -> dict:
+def time_geometry(kind: str, layouts: dict, order: list,
+                  procs=None) -> dict:
     """The culled `kind` ("ring" or "halo") frames of every layout,
-    checked, then timed in `order`."""
+    checked, then timed in `order`; procs = (P, cards) adds the P-process
+    turn."""
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
     from distributed_raytracer_tpu_torch.parallel import halo_bvh, ring_bvh
 
@@ -314,11 +386,22 @@ def time_geometry(kind: str, layouts: dict, order: list) -> dict:
             res["halo_bytes"] = halo_bytes(r)
     res["single"] = stats(lambda: single.render_fast(scene.camera))
     print(f"[{kind}] single rank: {stats_line(res['single'])}")
-    for i, name in enumerate(order):
+    i = 0
+    for name in _turns(order, len(layouts),
+                       procs and f"{procs[0]} processes"):
+        if name not in built:
+            ref = next(iter(built.values())).render(
+                scene.camera, verify=True).cpu().numpy()
+            s = procs_turn(f"icosphere:{RING_SUBDIV}", (RING_W, RING_H),
+                           kind, *procs, ref)
+            res[name] = s
+            print(f"[{kind}] {name}: {procs_line(s)}")
+            continue
         r = built[name]
         s = stats(lambda: r.render(scene.camera))
         res[f"{name} turn {i // len(layouts)}"] = s
         print(f"[{kind}] {name}: {stats_line(s)}")
+        i += 1
     return res
 
 
@@ -327,6 +410,7 @@ def main(argv=None) -> int:
 
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--cards", type=int, default=1)
+    p.add_argument("--procs", type=int, default=1)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("schedule_frames: CUDA is not available")
@@ -342,10 +426,14 @@ def main(argv=None) -> int:
     if args.cards > 1:
         layouts[f"{args.cards} cards"] = [f"cuda:{i % args.cards}"
                                          for i in range(RANKS)]
+    check(args.procs >= 1 and RANKS % args.procs == 0,
+          f"--procs {args.procs} does not divide {RANKS} ranks")
     order = list(layouts) + list(layouts)[::-1]
-    out = {"gpu": card, "ranks": RANKS, "bands": time_bands(layouts, order),
-           "ring": time_geometry("ring", layouts, order),
-           "halo": time_geometry("halo", layouts, order),
+    procs = (args.procs, args.cards) if args.procs > 1 else None
+    out = {"gpu": card, "ranks": RANKS, "procs": args.procs,
+           "bands": time_bands(layouts, order, procs),
+           "ring": time_geometry("ring", layouts, order, procs),
+           "halo": time_geometry("halo", layouts, order, procs),
            "gpu_after": gpu_query()}
     print(json.dumps(out))
     return 0

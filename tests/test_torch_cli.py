@@ -6,8 +6,9 @@ with --bounces, render_dynamic() with --animate-objects, render_frame()
 with --mode sequential, the sharded renderer with --mode sharded, the
 one-rank culled frames with --mode sharded-bvh, --mode halo and --mode
 ring) gives; --serve in each of those modes serves the loop until a client
-sends Esc; --multihost, which is not ported yet, exits non-zero with a
-message that names it. The runtime helpers copied from the JAX package (FPS statistics, PNG encoding, the orbit
+sends Esc; --multihost without its coordinator, process count and
+process id exits non-zero with a message that names it (the
+multi-process runs themselves: tests/test_torch_multihost.py). The runtime helpers copied from the JAX package (FPS statistics, PNG encoding, the orbit
 path) must give identical results.
 """
 
@@ -80,10 +81,12 @@ def test_cli_writes_the_frames_render_gives(scene_path, tmp_path):
     (["--multihost"], "--multihost"),
 ])
 def test_unported_options_exit_with_their_name(scene_path, flags, name):
+    """--multihost is ported; without the job's coordinator, process count
+    and process id it exits with a message that names it and them."""
     with pytest.raises(SystemExit) as exc:
         run.main([scene_path, "64", "48", "--device", "cpu", *flags])
     assert isinstance(exc.value.code, str)     # exit status 1
-    assert name in exc.value.code and "not yet ported" in exc.value.code
+    assert name in exc.value.code and "--coordinator" in exc.value.code
 
 
 @pytest.mark.parametrize("flags", [
@@ -269,7 +272,7 @@ def test_unported_mode_exits_nonzero(scene_path):
     res = run_module([scene_path, "64", "48", "--mode", "halo",
                       "--multihost"])
     assert res.returncode == 1
-    assert "--multihost is not yet ported" in res.stderr
+    assert "--multihost needs --coordinator" in res.stderr
 
 
 def test_frame_stats_match():

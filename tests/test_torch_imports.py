@@ -14,7 +14,8 @@ MODULES = ["ops.render", "ops.intersect", "ops.shade", "ops.colour",
            "tools.merge_cost", "tools.sass_loops", "ops.frozen_graph",
            "runtime.controller", "runtime.loop", "runtime.viewer",
            "parallel.render_sharded_bvh", "parallel.halo",
-           "parallel.halo_bvh", "parallel.ring_bvh"]
+           "parallel.halo_bvh", "parallel.ring_bvh", "parallel.multihost",
+           "utils.oracle", "tools.multihost_worker"]
 
 CHECK = """
 import importlib, pkgutil, sys
@@ -24,7 +25,7 @@ for name in names:
     importlib.import_module(name)
 want = ["distributed_raytracer_tpu_torch." + m for m in %r]
 assert not set(want) - set(names), sorted(set(want) - set(names))
-assert len(names) >= 46, names
+assert len(names) >= 49, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "distributed_raytracer_tpu.")))

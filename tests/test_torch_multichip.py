@@ -11,7 +11,8 @@ spheres (instanced_grid(icosphere_scene(2), 2): 1,280 triangles in 10
 leaf blocks of 128, so every rank holds geometry). The schedules: bands
 (equal, balanced, bounced), the dense ring (both transports), the dense
 halo, the culled halo (plain, bounced, dynamic, dynamic with bounces) and
-the culled ring (plain, bounced, dynamic). Only --multihost is not ported.
+the culled ring (plain, bounced, dynamic). The same schedules across
+real processes: tests/test_torch_multihost.py.
 """
 
 import copy
