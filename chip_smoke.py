@@ -211,13 +211,47 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      mouse events, waits for 5 frames, fetches /frame.png (a lit 640x480
      PNG) and /stats, posts Esc, and the run must exit 0 with no frame
      dropped.
+  7. Config 5 of the JAX bench: icosphere_scene(9) (5,242,880 triangles,
+     blocks of 128, a three-level cull) at 640x480, its bake built once
+     and cached by tools/bake_cache.py (synthesis, bake and write times
+     printed). For 16x16 ray tiles (ray_tile 256, tile_w 16, the bench's
+     form) and then the default 32x16 (ray_tile 512): render(), freeze(),
+     a 3-pose orbit through render_fast(verify=True), the counters reset
+     before and K1, K2 > 0 after; the frame's K1 and K2 launches bit for
+     bit against their plain versions (compare_kernel); pose 0 within 2e-5
+     of the frame rendered with the plain versions swapped in on the card;
+     the counts per level, the sizing pose's scheduled pairs, the stage
+     split of render() (tools/config_ab.breakdown), the peak device memory
+     the renderer and its frames add, and cull_levels. Then both shapes
+     timed in turns (16x16, 32x16, 16x16, 32x16; each turn the
+     synchronized median of 10 frames over the poses), with Gpairs/s and
+     the share of the H100 roofline (utils/profiling.orbit_work over the
+     timed frames' exact counts), and the ratio of their scheduled pairs.
+  7b. tools/config_ab.py's per-variant function on config 1 (base,
+     rt256sq); a utils/profiling.trace of 3 replays of config 5's 16x16
+     frame, read by tools/xprof.py: its top kernels must name K1 and K2,
+     and its busy share must be within 0.05 of
+     tools/schedule_frames.profile on the same frames (both parse with
+     profiling.anatomy, so this shows only that two windows agree). Then,
+     in a fresh process (one that holds CUDA graphs can lose kernel
+     records from a later profiler window), anatomy against clocks it
+     does not read: 3 matmul chains between CUDA events, each followed by
+     a 10 ms host sleep; its device ms within 4% of the events', its busy
+     share within 0.03 of the events' device time over the host's wall
+     time, and its two longest idle gaps each holding a sleep.
+  7c. tools/loop_recovery_smoke.run_smoke with its children on cuda:0: a
+     healthy pass, then the child SIGKILLed mid-stream and a fresh child
+     started by the loop's recover hook: exactly one recovery, two child
+     processes in the faulted pass, every later frame equal to the healthy
+     pass's bit for bit (each child bounded by a timeout, its stderr
+     printed on a failure).
 
 Prints the versions, the card's name and power limit, the build time and
-each kernel's registers and spills, each phase's numbers, one JSON line of
-per-kernel results (launches on the paths, max_abs_err, ms, plain_ms,
-bound_ms, bound_by, share_of_bound, library_ms: null, no single PyTorch
-call computes any of them) and, last, one JSON line {"ok": true, "device":
-{...}}.
+each kernel's registers and spills, each phase's numbers and seconds, one
+JSON line of per-kernel results (launches on the paths, max_abs_err, ms,
+plain_ms, bound_ms, bound_by, share_of_bound, library_ms: null, no single
+PyTorch call computes any of them) and, last, one JSON line {"ok": true,
+"device": {...}}.
 Exits non-zero without that line on any failure, when CUDA is not
 available, or when run outside the repository; on a failure it first
 prints the card's name and power limit and the ECC, retired-page,
@@ -272,46 +306,11 @@ KERNELS = {
 }
 
 
-# Published H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): FP32
-# outside the tensor cores and HBM3 bandwidth. Bounds are reckoned against
-# them.
-PEAK_FP32 = 67e12
-PEAK_BYTES = 3.35e12
-# FP32 operations per (ray, triangle) pair (csrc/pair_math.cuh), by origin
-# form: den 5, the division 1, u 7, v 7, u + v 1 with a shared origin; the
-# three origin dots and their folds add 18 with per-ray origins.
-OPS_PER_PAIR = {True: 21, False: 39}
-# The tensor-core form (K4, K5): per pair 3 passes x 3 dots x 3
-# multiply-adds (54 operations) at the dense TF32 peak, beside the 6 FP32
-# operations of the epilogue (the division, two products, three sums);
-# as issued, with K padded to 8: 3 x 3 x 8 x 2 = 144.
-PEAK_TF32 = 495e12
-MXU_TENSOR_OPS, MXU_FP32_OPS, MXU_ISSUED_OPS = 54, 6, 144
-
-
-def mxu_bounds(pairs: int) -> dict:
-    """K4/K5's bounds in ms: the tensor-core one (the larger of the tensor
-    and the FP32 epilogue times), the tensor work as issued, and the
-    21-operation FP32 bound that K1/K2 are held to."""
-    return {"tensor": max(pairs * MXU_TENSOR_OPS / PEAK_TF32,
-                          pairs * MXU_FP32_OPS / PEAK_FP32) * 1e3,
-            "issued": pairs * MXU_ISSUED_OPS / PEAK_TF32 * 1e3,
-            "fp32": pairs * OPS_PER_PAIR[True] / PEAK_FP32 * 1e3}
-
-
 def tensor_bytes(x) -> int:
     """Bytes of every tensor in x (a tensor, or a tuple/list of them)."""
     if isinstance(x, (tuple, list)):
         return sum(tensor_bytes(a) for a in x)
     return x.numel() * x.element_size() if hasattr(x, "numel") else 0
-
-
-def bound_ms(pairs: int, shared: bool, n_bytes: int):
-    """(least time in ms, "operations" or "bytes"): the larger of the pair
-    math over the FP32 peak and the bytes moved over the memory rate."""
-    ops = pairs * OPS_PER_PAIR[shared] / PEAK_FP32 * 1e3
-    mem = n_bytes / PEAK_BYTES * 1e3
-    return (ops, "operations") if ops >= mem else (mem, "bytes")
 
 
 def worklist_stats(args, kwargs, nearest: bool) -> dict:
@@ -320,14 +319,16 @@ def worklist_stats(args, kwargs, nearest: bool) -> dict:
     max) and its bound (inputs read once, the outputs written once)."""
     import torch
 
+    from distributed_raytracer_tpu_torch.utils import profiling
+
     rays, tile_ids, count = args[0], args[3], args[6]
     n = min(int(count.item()), tile_ids.shape[0])
     per = torch.bincount(tile_ids[:n].long())
     per = per[per > 0].double()
     pairs = n * kwargs["rt"] * kwargs["tb"]
     out_bytes = rays.shape[1] * (8 if nearest else 4)
-    ms, by = bound_ms(pairs, kwargs["shared_origin"],
-                      tensor_bytes(args) + out_bytes)
+    ms, by = profiling.bound_ms(pairs, kwargs["shared_origin"],
+                                tensor_bytes(args) + out_bytes)
     return {"items": n, "pairs": pairs, "tiles": int(per.numel()),
             "mean": float(per.mean()) if n else 0.0,
             "p99": float(torch.quantile(per, 0.99)) if n else 0.0,
@@ -853,6 +854,8 @@ def compare_mxu(bsr_trace, key, args, kwargs, twin, plain_repeats=REPEATS,
     work. Returns the kernel's JSON fields and "twin_ms"."""
     import torch
 
+    from distributed_raytracer_tpu_torch.utils import profiling
+
     name = key.removesuffix("_mxu")
     kernel = getattr(bsr_trace, name)
     plain = getattr(bsr_trace, name + "_ref")
@@ -884,7 +887,7 @@ def compare_mxu(bsr_trace, key, args, kwargs, twin, plain_repeats=REPEATS,
     plain_ms = time_ms(lambda: plain(*args, **kwargs), repeats=plain_repeats,
                        warmup=1 if plain_repeats < REPEATS else 2)
     st = worklist_stats(args, kwargs, name == "bsr_nearest")
-    bd = mxu_bounds(st["pairs"])
+    bd = profiling.mxu_bounds(st["pairs"])
     mem_ms = st["bound_ms"] if st["bound_by"] == "bytes" else 0.0
     bound, by = ((bd["tensor"], "operations") if bd["tensor"] >= mem_ms
                  else (mem_ms, "bytes"))
@@ -1226,7 +1229,7 @@ def graph_case(tag, r, kind, use_mxu, items, replay, eager, sync):
     import torch
 
     from distributed_raytracer_tpu_torch.ops import bsr_trace, frozen_graph
-    from distributed_raytracer_tpu_torch.tools.kernel_ab import kernel_class
+    from distributed_raytracer_tpu_torch.utils.profiling import kernel_class
 
     counts = frozen_graph.COUNTS
     # Forced small buckets: the verify loop overflows, recaptures and
@@ -1518,15 +1521,18 @@ def ring_bound(name: str, args, kwargs):
     triangles, 21 operations per pair for K6 tiles whose rays share an
     origin (the fold) and 39 otherwise; inputs read once, outputs written
     once."""
+    from distributed_raytracer_tpu_torch.utils import profiling
+
     rays, tris, rt = args[1], args[2], kwargs["rt"]
     t_all = sum(x.shape[0] for x in tris)
     pairs = sum(x.shape[1] for x in rays) * t_all
     shared = (sum(int(shared_origin_tiles(x, rt).sum()) for x in rays) * rt
               * t_all if name == "ring_nearest" else 0)
-    ops_ms = lambda p, form: p * OPS_PER_PAIR[form] / PEAK_FP32 * 1e3
+    ops_ms = lambda p, form: (p * profiling.OPS_PER_PAIR[form]
+                              / profiling.PEAK_FP32 * 1e3)
     out_bytes = sum(x.shape[1] for x in rays) * (
         8 if name == "ring_nearest" else 4)
-    mem = (tensor_bytes(args[1:4]) + out_bytes) / PEAK_BYTES * 1e3
+    mem = (tensor_bytes(args[1:4]) + out_bytes) / profiling.PEAK_BYTES * 1e3
     ops = ops_ms(shared, True) + ops_ms(pairs - shared, False)
     bound, by = (ops, "operations") if ops >= mem else (mem, "bytes")
     return bound, by, ops_ms(pairs, False), pairs
@@ -2431,6 +2437,287 @@ def phase_loop(renderer, scene, mesh) -> None:
               f"{time.perf_counter() - t0:.1f} s in all")
 
 
+# Phase 7: the JAX bench's config 5, icosphere_scene(9) at 640x480, with
+# the bench's 16x16 ray tiles and with the default 32x16 ones.
+C5_SUB = 9
+C5_TILES = (("16x16", 256, 16), ("32x16", 512, 32))
+C5_ORBIT = 3
+C5_FRAMES = 10
+
+
+def config5_pass(tag, arrays, tree, cam, poses, bsr_trace):
+    """Phase 7 on one tile shape: the frame on the card against its plain
+    versions. Returns (renderer, its launches on the path, results)."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.tools import config_ab
+    from distributed_raytracer_tpu_torch.utils import profiling
+
+    rt, tw = dict((t, (r, w)) for t, r, w in C5_TILES)[tag]
+    reset_launches(bsr_trace)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    r = CulledRenderer(None, W, H, prebaked=(arrays, tree), ray_tile=rt,
+                       tile_w=tw, device="cuda:0")
+    build_s = time.perf_counter() - t0
+    seen = {}
+    t0 = time.perf_counter()
+    with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
+        sync_img = r.render(cam, block=True)
+    render_s = time.perf_counter() - t0
+    counts = r._last_counts
+    sizing_pairs = profiling.frame_work(r, 1.0).pairs
+    r.freeze(cam)
+    imgs = [r.render_fast(p, verify=True) for p in poses]
+    torch.cuda.synchronize()
+    launches = dict(bsr_trace.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    for name in ("bsr_nearest", "bsr_any"):
+        check(launches[name] > 0, f"config 5 {tag}: {name} was not launched")
+    for img in imgs:
+        check(tuple(img.shape) == (H, W, 3) and bool(img.isfinite().all()),
+              f"config 5 {tag}: orbit frame shape / finiteness")
+    hit = float((sync_img.sum(-1) > 0).float().mean())
+    check(hit > 0.05, f"config 5 {tag}: hit fraction {hit}")
+    fast0 = r.render_fast(cam, verify=True)
+    check(float((fast0 - sync_img).abs().max()) <= 2e-5,
+          f"config 5 {tag}: render_fast != render on the sizing pose")
+    print(f"[phase 7] {tag} tiles (rt {rt}, tile_w {tw}): {r.n_tiles} ray "
+          f"tiles, cull_levels {r.n_levels} (groups {r.groups}), exit_every "
+          f"{r.exit_every}; renderer built in {build_s:.1f} s, render() "
+          f"{render_s:.2f} s; the sizing pose's counts per level {counts}, "
+          f"scheduled pairs {sizing_pairs} ({sizing_pairs / 1e9:.3f} G); "
+          f"pads after the orbit {r._frozen_pads}; launches {launches}; peak "
+          f"device memory above the run's earlier allocations {peak:.2f} "
+          "GiB")
+    kernels = {key: compare_kernel(
+        bsr_trace, key, *seen[key][-1], plain_repeats=1, phase="7",
+        tag=f"{KERNELS[key][0]} {key}, config 5 {tag}")
+        for key in ("bsr_nearest", "bsr_any")}
+    t0 = time.perf_counter()
+    with wrappers_replaced(bsr_trace, plain_versions(bsr_trace)):
+        plain = r.render(poses[0], block=True)
+    plain_s = time.perf_counter() - t0
+    diff = float((imgs[0] - plain).abs().max())
+    print(f"[phase 7] {tag}: pose 0 render_fast vs the plain versions on the "
+          f"card: max |diff| {diff} (plain frame {plain_s:.1f} s)")
+    check(diff <= 2e-5, f"config 5 {tag}: frame differs from its "
+                        "plain-version frame")
+    split = config_ab.breakdown(r, cam)
+    print(f"[phase 7] {tag}: render() stages (CUDA events, mean of 4): "
+          + "; ".join(f"{k} {v:.3f} ms" for k, v in split.items()))
+    return r, launches, {"sizing_pairs": sizing_pairs, "kernels": kernels,
+                         "peak": peak}
+
+
+def phase_config5(bsr_trace):
+    """Phase 7: config 5 at full size, both tile shapes, timed in turns.
+    Returns (the 16x16 renderer, its poses, launches)."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.runtime import animation
+    from distributed_raytracer_tpu_torch.tools import bake_cache
+    from distributed_raytracer_tpu_torch.utils import profiling
+
+    t0 = time.perf_counter()
+    arrays, tree, cam = bake_cache.load_icosphere(C5_SUB)
+    real = int((abs(arrays.geo_n).sum(axis=1) > 0).sum())
+    print(f"[phase 7] icosphere_scene({C5_SUB}): {real} triangles in "
+          f"{arrays.p0.shape[0]} slots, {tree.num_blocks} blocks of "
+          f"{tree.block_size}; bundle ready in {time.perf_counter() - t0:.1f}"
+          " s")
+    check(real == 20 * 4 ** C5_SUB, f"config 5 has {real} triangles")
+    poses = animation.orbit_camera_path(cam, C5_ORBIT, radius=3.0,
+                                        revolutions=0.01)
+    runs, launches = {}, {}
+    for tag, _, _ in C5_TILES:
+        r, got, res = config5_pass(tag, arrays, tree, cam, poses, bsr_trace)
+        runs[tag] = (r, res)
+        for key, n in got.items():
+            launches[key] = launches.get(key, 0) + n
+    # In turns, each turn C5_FRAMES synchronized frames over the poses in
+    # order; the work is the timed frames' mean scheduled pairs.
+    turns = [tag for _ in range(2) for tag, _, _ in C5_TILES]
+    timed = [poses[k % C5_ORBIT] for k in range(C5_FRAMES)]
+    times = {tag: [] for tag, _, _ in C5_TILES}
+    for tag in turns:
+        r = runs[tag][0]
+        r.render_fast(timed[0])
+        frame = []
+        for p in timed:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r.render_fast(p)
+            torch.cuda.synchronize()
+            frame.append((time.perf_counter() - t0) * 1e3)
+        times[tag].append(statistics.median(frame))
+    pairs = {}
+    for tag, (r, res) in runs.items():
+        ms = statistics.median(times[tag])
+        work = profiling.orbit_work(r, timed, ms / 1e3)
+        pairs[tag] = (work.pairs, res["sizing_pairs"])
+        print(f"[phase 7] {tag}: render_fast {times[tag]} ms (synchronized "
+              f"medians of {C5_FRAMES} over {C5_ORBIT} poses, turns "
+              f"{turns}); {work.report()}; Mrays/s {W * H / ms / 1e3:.1f}; "
+              f"peak device memory {res['peak']:.2f} GiB; cull_levels "
+              f"{r.n_levels}")
+    (a, sa), (b, sb) = (pairs[t] for t, _, _ in C5_TILES)
+    print(f"[phase 7] scheduled pairs per frame, 16x16 / 32x16 tiles: the "
+          f"timed frames' mean {a:.0f} / {b:.0f} = {a / b:.4f}; the sizing "
+          f"pose {sa} / {sb} = {sa / sb:.4f}")
+    for tag, (r, _) in runs.items():
+        if tag != "16x16":
+            r.release_graphs()
+    torch.cuda.synchronize()
+    return runs["16x16"][0], poses, launches
+
+
+def phase_tools(r5, poses5) -> None:
+    """Phase 7b: config_ab's per-variant function on config 1 (base,
+    rt256sq); a profiling.trace of 3 replays of config 5's 16x16 frame read
+    by xprof, whose top list must name K1 and K2 and whose busy share must
+    be within 0.05 of schedule_frames.profile on the same frames (both
+    parse with profiling.anatomy: this shows only that two windows agree);
+    then busy_calibration, in a fresh process, holds anatomy to CUDA
+    events and the host clock."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.tools import config_ab, xprof
+    from distributed_raytracer_tpu_torch.tools import schedule_frames as sf
+    from distributed_raytracer_tpu_torch.utils import profiling
+
+    cfg = config_ab.build_config("1")
+    for v in ("base", "rt256sq"):
+        res = config_ab.run_variant(cfg, v, "cuda:0")
+        print(f"[phase 7b] {res['line']}")
+        check(res["pairs"] > 0 and res["ms"] > 0, f"config_ab 1 {v}")
+        res["renderer"].release_graphs()
+    frame = lambda: r5.render_fast(poses5[1])
+    # As many frames in flight as the window holds, first: each holds a
+    # pinned block for its camera's copy until the card reaches it, and a
+    # new block (cudaHostAlloc, ~17 ms on the card's host) would open the
+    # window with an idle gap that the next window does not have.
+    for _ in range(3):
+        frame()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            for _ in range(3):
+                frame()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            xprof.main([d, "3", "8"])
+    lines = buf.getvalue().splitlines()[1:]
+    for line in lines:
+        print(f"[phase 7b] xprof: {line}")
+    top = lines[lines.index("== kernels by device ms/frame (launches in "
+                            "the window)") + 1:
+                lines.index("== idle gaps of the card, longest first")]
+    check(any("[K1]" in l for l in top) and any("[K2]" in l for l in top),
+          "xprof's top kernels do not name K1 and K2")
+    busy = float(re.search(r"busy ([0-9.]+);", lines[0]).group(1))
+    prof = sf.profile(frame, 3)
+    print(f"[phase 7b] schedule_frames.profile on the same frames: busy "
+          f"{prof['busy']:.4f}, device ms {prof['device_ms']}, launches "
+          f"{prof['launches']}, host launch calls "
+          f"{prof['host_launch_calls']:.1f}; xprof busy {busy:.4f}")
+    check(abs(busy - prof["busy"]) <= 0.05,
+          f"busy shares differ: xprof {busy}, profile {prof['busy']}")
+    # In a fresh process: in this one, which holds CUDA graphs, a later
+    # profiler window can lose kernel records (PERF.md section 7).
+    out = subprocess.run(
+        [sys.executable, "-c",
+         "import chip_smoke; chip_smoke.busy_calibration()"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=300)
+    print(out.stdout, end="")
+    if out.returncode:
+        print(out.stderr[-4000:], file=sys.stderr)
+    check(out.returncode == 0, f"busy_calibration exited {out.returncode}")
+
+
+def busy_calibration(rounds: int = 3, sleep_s: float = 0.01) -> None:
+    """profiling.anatomy against clocks it does not read: `rounds` chains
+    of 8 4096^3 matmuls (~21 ms), each between two CUDA events and
+    followed by a host sleep with nothing queued. The parser's device ms
+    must match the events' within 4%, its busy share the events' device
+    time over the host's wall time of the window within 0.03, and each of
+    its rounds - 1 longest idle gaps must hold a sleep (at least the
+    sleep, less 0.2 ms of clock skew, and at most 1.5 ms more). The
+    events also time the ~0.3 ms from their start to the first matmul's
+    launch on an idle card (1.5% of a chain; the gaps exceed the sleeps
+    by ~0.5 ms; NVIDIA H100 80GB HBM3, 700.00 W)."""
+    import torch
+
+    from distributed_raytracer_tpu_torch.utils import profiling
+
+    a = torch.randn(4096, 4096, device="cuda:0") / 64
+    c = torch.empty_like(a)
+
+    def chain():
+        for _ in range(8):
+            torch.mm(a, a, out=c)
+
+    chain()
+    torch.cuda.synchronize()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(rounds)]
+    sleeps = []
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d) as t:
+            t0 = time.perf_counter()
+            for i, (e0, e1) in enumerate(marks):
+                if i:
+                    s0 = time.perf_counter()
+                    time.sleep(sleep_s)
+                    sleeps.append((time.perf_counter() - s0) * 1e3)
+                e0.record()
+                chain()
+                e1.record()
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        got = profiling.anatomy(profiling.load_events(t.path), rounds)
+    dev = sum(e0.elapsed_time(e1) for e0, e1 in marks)
+    parsed = sum(got["device_ms"].values()) * rounds
+    gaps = [g["ms"] for g in got["gaps"][:rounds - 1]]
+    print(f"[phase 7b] anatomy against CUDA events and the host clock: "
+          f"device {parsed:.4f} ms (events {dev:.4f}), busy "
+          f"{got['busy']:.4f} (events over the host's wall "
+          f"{dev / wall:.4f}), window {got['window_ms'] * rounds:.4f} ms "
+          f"(host {wall:.4f}), longest gaps {gaps} ms (host sleeps "
+          f"{sleeps} ms)")
+    check(abs(parsed - dev) <= 0.04 * dev,
+          f"anatomy's device ms {parsed} against the events' {dev}")
+    check(abs(got["busy"] - dev / wall) <= 0.03,
+          f"anatomy's busy {got['busy']} against the events' {dev / wall}")
+    for g in gaps:
+        check(min(sleeps) - 0.2 <= g <= max(sleeps) + 1.5,
+              f"anatomy's idle gap of {g} ms holds no host sleep {sleeps}")
+
+
+def phase_recovery() -> None:
+    """Phase 7c: tools/loop_recovery_smoke with its children on cuda:0."""
+    from distributed_raytracer_tpu_torch.tools import loop_recovery_smoke
+
+    t0 = time.perf_counter()
+    ok, detail = loop_recovery_smoke.run_smoke(
+        device="cuda:0", log=lambda s: print(f"[phase 7c]{s}"))
+    print(f"[phase 7c] loop_recovery_smoke on cuda:0: {detail} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    check(ok, detail)
+
+
+def timed(tag: str, fn, *args):
+    """fn(*args), printing the phase's seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[phase {tag}] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2473,29 +2760,31 @@ def main() -> int:
                                                renderer.tree),
                          device="cuda", use_mxu=True)
 
-    kernels = phase_kernels(renderer, scene, bsr_trace)
-    phase_edge_cases(bsr_trace)
-    kernels.update(phase_kernels_rays(bounced, grid, bsr_trace))
-    kernels.update(phase_kernels_mxu(mxu, renderer, scene, bsr_trace, grid,
-                                     bounced))
-    launches, plain0 = phase_frame(renderer, scene, bsr_trace)
-    got, sync_k2 = phase_bounced(bounced, grid, bsr_trace)
-    runs = [got, phase_frame_mxu(mxu, renderer, scene, bsr_trace, plain0),
-            phase_bounced_mxu(grid, bounced, bsr_trace, sync_k2),
-            phase_dynamic(grid, bsr_trace)]
-    phase_graphs(renderer, scene, bounced, grid)
-    kernels.update(phase_ring_kernels(grid, ring_trace))
-    runs.append(phase_ring_frames(grid, ring_trace))
-    runs.append(phase_bands(bsr_trace, bounced, grid))
-    runs.append(phase_ring_bvh(bsr_trace, grid))
-    runs.append(phase_halo(bsr_trace, grid))
-    phase_oracle()
-    runs.append(phase_multihost())
-    for got in runs:
-        for key, n in got.items():
-            launches[key] = launches.get(key, 0) + n
+    kernels = timed("1", phase_kernels, renderer, scene, bsr_trace)
+    timed("1 edge cases", phase_edge_cases, bsr_trace)
+    kernels.update(timed("1 bounced", phase_kernels_rays, bounced, grid,
+                         bsr_trace))
+    kernels.update(timed("1c", phase_kernels_mxu, mxu, renderer, scene,
+                         bsr_trace, grid, bounced))
+    launches, plain0 = timed("2", phase_frame, renderer, scene, bsr_trace)
+    got, sync_k2 = timed("2b", phase_bounced, bounced, grid, bsr_trace)
+    runs = [got,
+            timed("2c", phase_frame_mxu, mxu, renderer, scene, bsr_trace,
+                  plain0),
+            timed("2c bounced", phase_bounced_mxu, grid, bounced, bsr_trace,
+                  sync_k2),
+            timed("2d", phase_dynamic, grid, bsr_trace)]
+    timed("2e", phase_graphs, renderer, scene, bounced, grid)
+    kernels.update(timed("4a", phase_ring_kernels, grid, ring_trace))
+    runs.append(timed("4b/4c", phase_ring_frames, grid, ring_trace))
+    runs.append(timed("5a", phase_bands, bsr_trace, bounced, grid))
+    runs.append(timed("5b", phase_ring_bvh, bsr_trace, grid))
+    runs.append(timed("5c", phase_halo, bsr_trace, grid))
+    timed("2f", phase_oracle)
+    runs.append(timed("6", phase_multihost))
     mesh = scenes.icosphere_mesh(SUBDIV)
     grid_mesh = scenes.icosphere_mesh(GRID_SUBDIV)
+    t0 = time.perf_counter()
     run_cli(scene, mesh, (W, H), 30, [])
     run_cli(grid, grid_mesh, (BW, BH), 8,
             ["--bounces", str(DEPTH), "--revolutions", "0.1"])
@@ -2512,9 +2801,21 @@ def main() -> int:
                    str(DEPTH)]):
         run_cli(grid, grid_mesh, (320, 240), 3,
                 flags + ["--revolutions", "0.1"])
+    print(f"[phase 3] {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     for flags in (["--mode", "halo"], ["--mode", "sharded-bvh", "--balance"]):
         mh_cli(grid, grid_mesh, flags)
-    phase_loop(renderer, scene, mesh)
+    print(f"[phase 6b] {time.perf_counter() - t0:.1f} s")
+    timed("3b", phase_loop, renderer, scene, mesh)
+    r5, poses5, got = timed("7", phase_config5, bsr_trace)
+    runs.append(got)
+    timed("7b", phase_tools, r5, poses5)
+    r5.release_graphs()
+    del r5
+    timed("7c", phase_recovery)
+    for got in runs:
+        for key, n in got.items():
+            launches[key] = launches.get(key, 0) + n
 
     print(f"gpu: {gpu_query()}")
     print(json.dumps({"kernels": [

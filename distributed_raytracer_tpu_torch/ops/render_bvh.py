@@ -160,7 +160,14 @@ class CulledRenderer:
                  ray_tile: int = 512, prebaked=None,
                  exit_every: Optional[int] = None, cull_group: int = 16,
                  cull_levels: Optional[int] = None, use_mxu: bool = False,
-                 *, device):
+                 tile_w: Optional[int] = None, *, device):
+        # 2D screen tiles of tile_w x rt/tile_w pixels (tile_w 32 unless
+        # given): squarer tiles have tighter interval hulls, so they can
+        # schedule fewer pairs, at the cost of more tiles.
+        self.tile_w = 32 if tile_w is None else tile_w
+        if self.tile_w <= 0 or ray_tile % self.tile_w:
+            raise ValueError(f"tile_w={self.tile_w} does not divide "
+                             f"ray_tile={ray_tile}")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -241,8 +248,6 @@ class CulledRenderer:
         self.n_levels = len(self.groups) + 1
         self._ht_idx = self.n_levels
 
-        # 2D screen tiles of 32 x rt/32 pixels.
-        self.tile_w = 32
         self.tile_h = ray_tile // self.tile_w
         perm, _, n_slots = cull.tiled_ray_order(width, height, self.tile_w,
                                                 self.tile_h)

@@ -75,35 +75,31 @@ Prints one line per measurement, and writes them to --out FILE if given.
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
 
-# Kernel names per table id, as the profiler reports them (this tree's and
-# earlier trees' instantiations), the per-ray forms first: an earlier tree's
-# bare seed_keys / unpack_keys and chunk kernels without the origin flag
-# are K1's and K2's.
-_CLASSES = (
-    # The ring's step kernels (this tree's and the first design's) come
-    # first: ring_seed_keys and ring_unpack_keys would match K1's pattern.
-    ("K6", r"ring_nearest_chunks|ring_(seed|unpack)_keys|"
-           r"ring_step_kernel<\d+, false>"),
-    ("K7", r"ring_any_chunks|ring_step_kernel<\d+, true>"),
-    # The tensor-core forms, and their key launches (<true, true>).
-    ("K4", r"nearest_mxu|(seed|unpack)_keys<true, true>"),
-    ("K5", r"any_mxu"),
-    ("K3n", r"nearest_chunk_kernel<\d+, false>|(seed|unpack)_keys<false|"
-            r"nearest_rays_kernel|nearest_kernel<\d+, false>"),
-    ("K3a", r"any_chunk_kernel<\d+, false>|any_rays_kernel|"
-            r"any_kernel<\d+, false>"),
-    ("K1", r"nearest_chunk_kernel|seed_keys|unpack_keys|"
-           r"nearest_kernel<\d+, true>"),
-    ("K2", r"any_chunk_kernel|any_kernel<\d+, true>"),
-)
-_TRAVERSAL = re.compile("|".join(p for _, p in _CLASSES))
+
+def _load_profiling():
+    """This tree's utils/profiling.py, loaded by its path: a worker puts
+    another tree's package first on the import path, and that tree may
+    predate the module."""
+    name = "_kernel_ab_profiling"
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "utils", "profiling.py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+profiling = _load_profiling()
+kernel_class = profiling.kernel_class
+
 # --cut: the longest runs of items per tile allowed.
 CUT_CAPS = (64, 42, 32, 21, 16, 8, 4, 2, 1)
 # --chunks: the launches swept.
@@ -111,58 +107,17 @@ CHUNK_SWEEP = ("K1 640x480 primary", "K2 640x480 shadows",
                "K3n bounced 1080p bounce 1", "K3a bounced 1080p bounce 1")
 
 
-def kernel_class(name: str) -> str:
-    for k, pat in _CLASSES:
-        if re.search(pat, name):
-            return k
-    return "other"
-
-
 def _profile(fn, n: int):
     """(busy share of the window, {class: device ms per call}, kernels per
     call, host launch calls per call) over n calls of fn under
-    torch.profiler; the host calls are the CUDA runtime's kernel, graph
-    and copy launches. fn's result must be ready once the current card's
-    work is (the ring frame is gathered on cuda:0)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = [e for e in json.load(f).get("traceEvents", [])
-                      if "ts" in e and "dur" in e]
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
-        a = max(a, end)
-        if b > a:
-            busy += b - a
-            end = b
-    window = (max(e["ts"] + e["dur"] for e in events)
-              - min(e["ts"] for e in events))
-    per = {}
-    for e in dev:
-        k = kernel_class(e["name"])
-        per[k] = per.get(k, 0.0) + e["dur"] / 1e3 / n
-    kernels = sum(e.get("cat") == "kernel" for e in dev) / n
-    launches = sum(e.get("cat") == "cuda_runtime"
-                   and re.search(_HOST_LAUNCH, e.get("name", "")) is not None
-                   for e in events) / n
-    return busy / window, per, kernels, launches
-
-
-# The CUDA runtime calls that put work on a stream.
-_HOST_LAUNCH = r"LaunchKernel|GraphLaunch|Memcpy|Memset"
+    torch.profiler (profiling.anatomy; copies and sets count as "other");
+    the host calls are the CUDA runtime's kernel, graph and copy
+    launches."""
+    a = profiling.anatomy(profiling.profile_events(fn, n), n)
+    per = dict(a["device_ms"])
+    if a["copy_ms"]:
+        per["other"] = per.get("other", 0.0) + a["copy_ms"]
+    return a["busy"], per, a["kernels"], a["host_launch_calls"]
 
 
 def _events_ms(fn, calls: int = 20) -> float:
@@ -194,7 +149,7 @@ def _traversal_ms(fn, n: int = 10) -> float:
             fn()
         torch.cuda.synchronize()
     return sum(e.device_time_total for e in prof.key_averages()
-               if _TRAVERSAL.search(e.key)) / 1e3 / n
+               if profiling.TRAVERSAL.search(e.key)) / 1e3 / n
 
 
 def _bits(x):

@@ -19,7 +19,7 @@ For each frame and for its single-rank reference: the synchronized frame
 time (median of FRAMES), and from one torch.profiler window of
 PROFILE_FRAMES frames the device's busy share (the union of kernel and
 copy time on any card over the window), kernel launches per frame by
-class (tools/kernel_ab.kernel_class: K1, K2, K3n, ...) and the host's CUDA
+class (utils/profiling.kernel_class: K1, K2, K3n, ...) and the host's CUDA
 launch calls per frame; the peak device memory of one frame (summed over
 the cards).
 
@@ -43,7 +43,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import re
 import statistics
 import subprocess
 import tempfile
@@ -94,51 +93,19 @@ def frame_ms(fn, frames: int = FRAMES) -> float:
 
 
 def profile(fn, n: int = PROFILE_FRAMES) -> dict:
-    """One torch.profiler window of n calls of fn: the busy share of the
-    window (kernels and copies on any card), kernel launches and device ms
-    per call by kernel class, and the host's CUDA launch calls per call."""
-    import torch
+    """One torch.profiler window of n calls of fn (profiling.anatomy): the
+    busy share of the window (kernels and copies on any card), kernel
+    launches and device ms per call by kernel class, and the host's CUDA
+    launch calls per call."""
+    from distributed_raytracer_tpu_torch.utils import profiling
 
-    from distributed_raytracer_tpu_torch.tools.kernel_ab import (
-        _HOST_LAUNCH, kernel_class)
-
-    fn()
-    sync_all()
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        sync_all()
-    with tempfile.TemporaryDirectory() as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = [e for e in json.load(f).get("traceEvents", [])
-                      if "ts" in e and "dur" in e]
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
-        a = max(a, end)
-        if b > a:
-            busy += b - a
-            end = b
-    window = (max(e["ts"] + e["dur"] for e in events)
-              - min(e["ts"] for e in events))
-    launches, dev_ms = {}, {}
-    for e in dev:
-        if e.get("cat") == "kernel":
-            k = kernel_class(e["name"])
-            launches[k] = launches.get(k, 0) + 1 / n
-            dev_ms[k] = dev_ms.get(k, 0.0) + e["dur"] / 1e3 / n
-    host = sum(e.get("cat") == "cuda_runtime"
-               and re.search(_HOST_LAUNCH, e.get("name", "")) is not None
-               for e in events) / n
-    return {"busy": busy / window if window > 0 else 0.0,
-            "launches": {k: round(v, 2) for k, v in sorted(launches.items())},
-            "device_ms": {k: round(v, 4) for k, v in sorted(dev_ms.items())},
-            "host_launch_calls": host}
+    a = profiling.anatomy(profiling.profile_events(fn, n), n)
+    return {"busy": a["busy"],
+            "launches": {k: round(v, 2)
+                         for k, v in sorted(a["launches"].items())},
+            "device_ms": {k: round(v, 4)
+                          for k, v in sorted(a["device_ms"].items())},
+            "host_launch_calls": a["host_launch_calls"]}
 
 
 def peak_mb(fn) -> float:

@@ -1,7 +1,8 @@
-"""Procedural and derived benchmark scenes (BASELINE.json configs 3-5).
+"""Procedural and derived benchmark scenes (BASELINE.json configs 1-5).
 
 The reference's benchmark mesh (Stanford bunny, 4,968 faces) is not shipped;
 these functions produce the required scales instead:
+  - example_scene: a procedural icosahedron (config 1)
   - instanced_grid: N x N copies of a base scene's first mesh (config 3:
     64x Suzanne ~= 62K tris, forcing a real acceleration structure)
   - icosphere: subdivided icosahedron at any power-of-4 triangle count
@@ -10,11 +11,51 @@ these functions produce the required scales instead:
 
 from __future__ import annotations
 
+import json
+import os
+import tempfile
+
 import numpy as np
 
 from distributed_raytracer_tpu_torch.models.camera import Camera
 from distributed_raytracer_tpu_torch.models.objparse import Material, MeshData
-from distributed_raytracer_tpu_torch.models.scene import Scene, SceneObject
+from distributed_raytracer_tpu_torch.models.scene import (Scene, SceneObject,
+                                                          load_scene)
+
+_ICO_FACES = [
+    (0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+    (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+    (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+    (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1),
+]
+
+
+def example_scene() -> Scene:
+    """A 20-triangle icosahedron at the origin, one white light, the
+    camera 6 units up the z axis (the procedural scene of the JAX
+    package's entry point, __graft_entry__._example_scene, loaded through
+    this package's load_scene). It reads nothing outside the package: a
+    scene from elsewhere is loaded with models.scene.load_scene(path)."""
+    phi = (1 + 5 ** 0.5) / 2
+    verts = []
+    for a, b in [(1, phi), (-1, phi), (1, -phi), (-1, -phi)]:
+        verts += [(0, a, b), (a, b, 0), (b, 0, a)]
+    scene = {
+        "objs": [{"model": "ico.obj", "pos": {"x": 0.0, "y": 0.0, "z": 0.0}}],
+        "lights": [{"pos": {"x": 5.0, "y": 5.0, "z": 5.0},
+                    "col": {"r": 255, "g": 255, "b": 255}}],
+        "cam": {"pos": {"x": 0.0, "y": 0.0, "z": 6.0},
+                "dir": {"x": 0.0, "y": 0.0, "z": -1.0}, "fov": 1.04719755},
+    }
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "ico.obj"), "w") as f:
+            for v in verts:
+                f.write(f"v {v[0]} {v[1]} {v[2]}\n")
+            for a, b, c in _ICO_FACES:
+                f.write(f"f {a + 1} {b + 1} {c + 1}\n")
+        with open(os.path.join(d, "scene.json"), "w") as f:
+            json.dump(scene, f)
+        return load_scene(os.path.join(d, "scene.json"))
 
 
 def instanced_grid(base: Scene, n: int, spacing: float = 3.0) -> Scene:
@@ -51,12 +92,7 @@ def icosphere_mesh(subdivisions: int, material: Material | None = None) -> MeshD
         (phi, 0, -1), (phi, 0, 1), (-phi, 0, -1), (-phi, 0, 1),
     ], dtype=np.float64)
     verts /= np.linalg.norm(verts, axis=1, keepdims=True)
-    faces = np.array([
-        (0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
-        (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
-        (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
-        (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1),
-    ], dtype=np.int64)
+    faces = np.array(_ICO_FACES, dtype=np.int64)
 
     for _ in range(subdivisions):
         # Vectorized 1->4 subdivision (multi-million-triangle scenes for
