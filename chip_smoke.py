@@ -245,6 +245,27 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      processes in the faulted pass, every later frame equal to the healthy
      pass's bit for bit (each child bounded by a timeout, its stderr
      printed on a failure).
+  8a. Configs 4 and 2 of the port's bench at its table's values
+     (bench.TABLE: the 12x12 grid at 3840x2160 with rt 1024 and tb 64,
+     the example scene at 1920x1080 with depth 2), each run by bench.run
+     in this process, then, on its last orbit pose, a sync frame of the
+     bench's renderer with its launches recorded: each (K1 and K2, or
+     K3n and K2 per bounce) against its plain version on the card, bit
+     for bit at exit_every 0 and 32, and the bench's frozen frame against
+     the plain-version frame (max |diff| <= 2e-5); its launches count.
+  8. The port's bench (python -m distributed_raytracer_tpu_torch.bench,
+     all configs, --device cuda) as a child process leading a process
+     group of its own (killed with its children at its groups' timeouts
+     plus 300 s), after phase 7 so
+     config 5 finds the bundle cache warm: exit code 0, exactly one stdout
+     line, printed with the bench's stderr lines of its groups and the
+     phase's seconds. The line must name the headline metric
+     primary_mrays_per_sec_per_chip with a value > 0, hold every config's
+     frame time (> 0) and the loop's frames and FPS, no `_error` key,
+     every `_pairs_scheduled` > 0, and the card's name and power limit;
+     its launch line (all its processes) must show K1, K2 and K3n, and
+     its counts join the JSON line's. The expected keys are the bench's
+     own (bench.FRAME_KEYS, bench.PAIRS_KEYS).
 
 Prints the versions, the card's name and power limit, the build time and
 each kernel's registers and spills, each phase's numbers and seconds, one
@@ -2710,6 +2731,144 @@ def phase_recovery() -> None:
     check(ok, detail)
 
 
+BENCH_SHAPES = ("4", "2")     # phase 8a: the bench's configs held here
+
+
+def phase_bench_shapes(bsr_trace) -> dict:
+    """Phase 8a: configs 4 and 2 of the port's bench at its table's values
+    (bench.TABLE), run by bench.run in this process. On the last orbit
+    pose, every kernel launch of a sync frame of the bench's renderer
+    against its plain version on the card (bit for bit), and the bench's
+    frozen frame against the plain-version frame. Returns the launches of
+    the bench's runs and those sync frames."""
+    import torch
+
+    from distributed_raytracer_tpu_torch import bench
+    from distributed_raytracer_tpu_torch.runtime import animation
+
+    launches = {}
+    for name in BENCH_SHAPES:
+        cfg = bench.TABLE[name]
+        bounced = cfg.path == "bounced"
+        keys = ("bsr_nearest_rays" if bounced else "bsr_nearest", "bsr_any")
+        reset_launches(bsr_trace)
+        t0 = time.perf_counter()
+        m = bench.run(cfg, "cuda:0")
+        run_s = time.perf_counter() - t0
+        r = m.renderer
+        _, _, cam = bench.load_scene(cfg.scene)
+        n, radius, revolutions = cfg.orbit
+        pose = animation.orbit_camera_path(cam, n, radius=radius,
+                                           revolutions=revolutions)[-1]
+
+        def sync_frame():
+            if bounced:
+                return r.render_bounced(pose, cfg.depth, block=True)
+            return r.render(pose, block=True)
+
+        seen = {}
+        with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
+            sync_frame()
+        got = dict(bsr_trace.LAUNCHES)
+        for key, k in got.items():
+            launches[key] = launches.get(key, 0) + k
+        print(f"[phase 8a] bench config {name}: {cfg.width}x{cfg.height}, "
+              f"{m.n_tris} triangles, rt {r.rt}, tb {r.tb}, exit_every "
+              f"{r.exit_every}, {cfg.path} frame {m.seconds * 1e3:.4f} ms "
+              f"(bench.run, {run_s:.1f} s); launches {got}; the sync "
+              f"frame's calls {({k: len(v) for k, v in seen.items()})}")
+        check(set(seen) == set(keys), f"bench config {name} launched "
+                                      f"{sorted(seen)}, not {keys}")
+        for key in keys:
+            check(got[key] > 0, f"bench config {name}: {key} was not "
+                                "launched")
+            for i, (args, kwargs) in enumerate(seen[key]):
+                compare_kernel(bsr_trace, key, args, kwargs, plain_repeats=1,
+                               phase="8a", tag=f"{KERNELS[key][0]} {key}, "
+                               f"bench config {name}, call {i}")
+        frozen = m.render(pose, verify=True)
+        t0 = time.perf_counter()
+        with wrappers_replaced(bsr_trace, plain_versions(bsr_trace)):
+            plain = sync_frame()
+        plain_s = time.perf_counter() - t0
+        diff = float((frozen - plain).abs().max())
+        print(f"[phase 8a] bench config {name}: frozen frame vs the plain "
+              f"versions on the card: max |diff| {diff} (plain frame "
+              f"{plain_s:.1f} s)")
+        check(tuple(frozen.shape) == (cfg.height, cfg.width, 3)
+              and bool(frozen.isfinite().all()),
+              f"bench config {name}: frame shape / finiteness")
+        check(diff <= 2e-5, f"bench config {name}: frame differs from its "
+                            "plain-version frame")
+        r.release_graphs()
+        del m, r, frozen, plain, seen
+        torch.cuda.empty_cache()
+    return launches
+
+
+def check_bench_line(line: dict, card: str) -> None:
+    """The bench's JSON line on the card: the headline, every config's
+    frame time, the loop, the pairs, no error, the card named."""
+    from distributed_raytracer_tpu_torch import bench
+
+    check(line.get("metric") == "primary_mrays_per_sec_per_chip"
+          and line.get("value", 0) > 0, f"bench headline {line.get('metric')}"
+          f" = {line.get('value')}")
+    for key in bench.FRAME_KEYS:
+        check(line.get(key, 0) > 0, f"bench: {key} = {line.get(key)}")
+    check(line.get("loop_frames", 0) > 0 and line.get("loop_mean_fps", 0) > 0,
+          "bench: the loop drew no frames")
+    errors = {k: v for k, v in line.items() if k.endswith("_error")}
+    check(not errors, f"bench errors: {errors}")
+    pairs = {k: v for k, v in line.items() if k.endswith("_pairs_scheduled")}
+    check(set(pairs) == set(bench.PAIRS_KEYS)
+          and all(v > 0 for v in pairs.values()), f"bench pairs {pairs}")
+    name, limit = (p.strip() for p in card.rsplit(",", 1))
+    check(line.get("device") == name and line.get("power_limit") == limit,
+          f"bench device {line.get('device')}, {line.get('power_limit')}; "
+          f"the card {card}")
+
+
+def phase_bench(card: str) -> dict:
+    """Phase 8: the port's bench, all configs, as a child process; returns
+    its launches (all its processes)."""
+    from distributed_raytracer_tpu_torch import bench
+
+    timeout = sum(bench.GROUP_TIMEOUT_S.values()) + 300
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "distributed_raytracer_tpu_torch.bench",
+         "--device", "cuda"], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        start_new_session=True)
+    try:
+        stdout, stderr = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)         # the bench and its children
+        stdout, stderr = proc.communicate()
+    secs = time.perf_counter() - t0
+    lines = stdout.splitlines()
+    for err in stderr.splitlines():
+        if err.startswith(("group ", "build:", "gpu:", "bench launches:",
+                           "[child 5] native library:")):
+            print(f"[phase 8] {err}")
+    print(f"[phase 8] bench line: {stdout.strip()}")
+    print(f"[phase 8] bench: exit {proc.returncode}, {secs:.1f} s (timeout "
+          f"{timeout} s)")
+    if proc.returncode or len(lines) != 1:
+        print(stderr[-8000:], file=sys.stderr)
+    check(proc.returncode == 0, f"bench exited {proc.returncode}")
+    check(len(lines) == 1, f"bench printed {len(lines)} stdout lines")
+    check_bench_line(json.loads(lines[0]), card)
+    counts = [l for l in stderr.splitlines()
+              if l.startswith("bench launches: ")]
+    check(len(counts) == 1, "bench printed no launch line")
+    launches = json.loads(counts[0].split(": ", 1)[1])
+    for key in ("bsr_nearest", "bsr_any", "bsr_nearest_rays"):
+        check(launches.get(key, 0) > 0, f"bench: {key} was not launched")
+    return launches
+
+
 def timed(tag: str, fn, *args):
     """fn(*args), printing the phase's seconds."""
     t0 = time.perf_counter()
@@ -2720,6 +2879,8 @@ def timed(tag: str, fn, *args):
 
 def main() -> int:
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2813,10 +2974,13 @@ def main() -> int:
     r5.release_graphs()
     del r5
     timed("7c", phase_recovery)
+    runs.append(timed("8a", phase_bench_shapes, bsr_trace))
+    runs.append(timed("8", phase_bench, card))
     for got in runs:
         for key, n in got.items():
             launches[key] = launches.get(key, 0) + n
 
+    print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(f"gpu: {gpu_query()}")
     print(json.dumps({"kernels": [
         {"name": key, "route": "cuda", "source": KERNELS[key][1],

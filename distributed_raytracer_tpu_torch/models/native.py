@@ -49,10 +49,21 @@ def _build(native_dir: str, lib_path: str) -> bool:
             if os.path.exists(lib_path):
                 return True
             tmp = f"{_TMP_PREFIX}{os.getpid()}.so"
+            # TARGET on the command line overrides the Makefile's. A CXX
+            # set in the environment can be a compiler that fails the
+            # build (one without OpenMP's libgomp.spec, say): then the
+            # PATH's g++ gets a second try.
+            make = ["make", "-C", native_dir, f"TARGET={tmp}"]
+            tries = [make] + ([make + ["CXX=g++"]] if os.environ.get("CXX")
+                              else [])
             try:
-                # TARGET on the command line overrides the Makefile's.
-                subprocess.run(["make", "-C", native_dir, f"TARGET={tmp}"],
-                               check=True, capture_output=True, timeout=300)
+                for cmd in tries:
+                    done = subprocess.run(cmd, capture_output=True,
+                                          timeout=300)
+                    if done.returncode == 0:
+                        break
+                else:
+                    return False
                 os.replace(os.path.join(native_dir, tmp), lib_path)
             finally:
                 if os.path.exists(os.path.join(native_dir, tmp)):

@@ -8,7 +8,8 @@ arguments of CulledRenderer (VARIANTS).
     python -m distributed_raytracer_tpu_torch.tools.config_ab CONFIG \\
         [VARIANT ...] [--device cuda]
 
-  CONFIG 1: the example scene (utils/scenes.example_scene) at 640x480;
+  CONFIG (scene and size from the bench's table, bench.TABLE):
+         1: the example scene (utils/scenes.example_scene) at 640x480;
          3: its 8x8 instanced grid at 640x480;
          4: its 12x12 instanced grid at 3840x2160;
          5: the 5.24 M-triangle icosphere (tools/bake_cache, built and
@@ -38,8 +39,6 @@ import statistics
 import sys
 import time
 from typing import Optional
-
-import numpy as np
 
 VARIANTS = {
     "base": {},
@@ -83,38 +82,26 @@ class Config:
     tris: int
 
 
+# This tool's orbit (poses, revolutions) and frames timed per config; the
+# scene, the frame size and the orbit's radius are the bench's (bench.TABLE).
+ORBITS = {"1": (4, 0.02, 10), "3": (4, 0.02, 10), "4": (4, 0.02, 4),
+          "5": (3, 0.01, 6)}
+
+
 def build_config(config: str) -> Config:
+    from distributed_raytracer_tpu_torch import bench
     from distributed_raytracer_tpu_torch.runtime import animation
-    from distributed_raytracer_tpu_torch.utils import scenes
 
-    if config == "5":
-        from distributed_raytracer_tpu_torch.tools import bake_cache
-
-        arrays, tree, cam = bake_cache.load_icosphere(9)
-        poses = animation.orbit_camera_path(cam, 3, radius=3.0,
-                                            revolutions=0.01)
-        # Padding slots have a zero normal.
-        tris = int((np.abs(arrays.geo_n).sum(axis=1) > 0).sum())
-        return Config("5", None, (arrays, tree), cam, 640, 480, poses, 6,
-                      tris)
-    base = scenes.example_scene()
-    shapes = {"1": (base, 640, 480, 6.0),
-              "3": (scenes.instanced_grid(base, 8), 640, 480, 20.0),
-              "4": (scenes.instanced_grid(base, 12), 3840, 2160, 30.0)}
-    if config not in shapes:
+    if config not in ORBITS:
         raise SystemExit(f"unknown config {config}")
-    scene, w, h, radius = shapes[config]
-    poses = animation.orbit_camera_path(scene.camera, 4, radius=radius,
-                                        revolutions=0.02)
-    return Config(config, scene, None, scene.camera, w, h, poses,
-                  4 if config == "4" else 10, scene.num_tris)
-
-
-def _sync(device) -> None:
-    import torch
-
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize(device)
+    entry = bench.TABLE[config]
+    scene, prebaked, cam = bench.load_scene(entry.scene)
+    n, revolutions, frames = ORBITS[config]
+    poses = animation.orbit_camera_path(cam, n, radius=entry.orbit[1],
+                                        revolutions=revolutions)
+    tris = scene.num_tris if scene else bench.real_tris(prebaked[0])
+    return Config(config, scene, prebaked, cam, entry.width, entry.height,
+                  poses, frames, tris)
 
 
 def _mean_ms(fn, device, reps: int = 4) -> float:
@@ -123,8 +110,10 @@ def _mean_ms(fn, device, reps: int = 4) -> float:
     included), the host's clock elsewhere."""
     import torch
 
+    from distributed_raytracer_tpu_torch import bench
+
     fn()
-    _sync(device)
+    bench.sync(device)
     if torch.device(device).type != "cuda":
         t0 = time.perf_counter()
         for _ in range(reps):
@@ -177,6 +166,7 @@ def run_variant(cfg: Config, variant: str, device: str = "cuda") -> dict:
     "gpairs", "sol", "exit_every", "levels", "setup_s", "timed" (the
     cameras timed), "rt", "tb", "renderer"} (and "batched_ms" on config
     1)."""
+    from distributed_raytracer_tpu_torch import bench
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
     from distributed_raytracer_tpu_torch.utils import profiling
 
@@ -187,18 +177,15 @@ def run_variant(cfg: Config, variant: str, device: str = "cuda") -> dict:
     t0 = time.perf_counter()
     r = CulledRenderer(cfg.scene, cfg.width, cfg.height,
                        prebaked=cfg.prebaked, device=device, **kw)
-    r.render(cfg.camera, block=True)
-    r.freeze(cfg.camera)
-    for cam in cfg.poses:            # settle the buckets on every pose
-        r.render_fast(cam, verify=True)
-    _sync(device)
+    bench.settle(r, cfg.poses, cfg.camera)
+    bench.sync(device)
     setup_s = time.perf_counter() - t0
     timed = [cfg.poses[k % len(cfg.poses)] for k in range(cfg.frames)]
     times = []
     for cam in timed:
         t0 = time.perf_counter()
         r.render_fast(cam)
-        _sync(device)
+        bench.sync(device)
         times.append(time.perf_counter() - t0)
     s = statistics.median(times)
     work = profiling.orbit_work(r, timed, s)
@@ -218,11 +205,11 @@ def run_variant(cfg: Config, variant: str, device: str = "cuda") -> dict:
         # copy, inside the timed window.
         cams = [p.to_arrays() for p in cfg.poses]
         r.render_many(cams)
-        _sync(device)
+        bench.sync(device)
         reps, t0 = 3, time.perf_counter()
         for _ in range(reps):
             _, counts = r.render_many(cams)
-            _sync(device)
+            bench.sync(device)
         bs = (time.perf_counter() - t0) / (reps * len(cams))
         c = counts.cpu().numpy()
         bwork = profiling.FrameWork(

@@ -17,7 +17,7 @@ MODULES = ["ops.render", "ops.intersect", "ops.shade", "ops.colour",
            "parallel.halo_bvh", "parallel.ring_bvh", "parallel.multihost",
            "utils.oracle", "tools.multihost_worker", "utils.profiling",
            "tools.bake_cache", "tools.config_ab", "tools.xprof",
-           "tools.loop_recovery_smoke"]
+           "tools.loop_recovery_smoke", "bench"]
 
 CHECK = """
 import importlib, pkgutil, sys
@@ -27,7 +27,7 @@ for name in names:
     importlib.import_module(name)
 want = ["distributed_raytracer_tpu_torch." + m for m in %r]
 assert not set(want) - set(names), sorted(set(want) - set(names))
-assert len(names) >= 54, names
+assert len(names) >= 55, names
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib",
                                             "distributed_raytracer_tpu.")))

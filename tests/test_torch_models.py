@@ -217,3 +217,32 @@ def test_native_library_builds_once_for_two_processes(tmp_path):
     left = sorted(os.listdir(d))
     assert "libdrt_native.so" in left
     assert not [n for n in left if n.startswith(native._TMP_PREFIX)]
+
+
+def test_native_library_builds_past_a_failing_cxx(tmp_path):
+    """With CXX in the environment naming a compiler that fails (as a g++
+    without OpenMP's libgomp.spec does), the port's loader builds the
+    library with the PATH's g++ instead. Runs on a copy of native/."""
+    import shutil
+    import subprocess
+    import sys
+
+    from distributed_raytracer_tpu_torch.models import native
+
+    if shutil.which("make") is None or shutil.which("g++") is None:
+        pytest.skip("needs make and g++ to build the native library")
+    src = os.path.join(os.path.dirname(native._NATIVE_DIR), "native")
+    d = tmp_path / "native"
+    d.mkdir()
+    for name in ("Makefile", "drt_native.cpp"):
+        shutil.copy(os.path.join(src, name), d / name)
+    code = ("import sys; from distributed_raytracer_tpu_torch.models import "
+            "native; lib = native.open_library(sys.argv[1]); "
+            "print('ok' if lib is not None and lib.drt_morton_argsort "
+            "else 'none')")
+    env = dict(os.environ, CXX="false")
+    out = subprocess.run([sys.executable, "-c", code, str(d)],
+                         cwd=os.path.dirname(src), env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.stdout.strip() == "ok", out.stderr
+    assert "libdrt_native.so" in os.listdir(d)
