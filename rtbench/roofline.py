@@ -1,0 +1,20 @@
+"""The H100 roofline of the traversal kernels.
+
+Copied from distributed_raytracer_tpu_torch/utils/profiling.py:35-41
+(`PEAK_FP32`, `OPS_PER_PAIR`) and :58-65 (`bound_ms`'s operation bound),
+the figures unchanged: NVIDIA's published dense FP32 rate of one H100 SXM
+at its 700 W limit, 67 TFLOP/s outside the tensor cores, and the 21 FP32
+operations of the shared-origin pair math (csrc/pair_math.cuh: den 5, the
+division 1, u 7, v 7, u + v 1) that K1 and K2 run for every scheduled
+(ray, triangle) pair. Bytes never bind these kernels (profiling.py's
+docstring), so the bound is the operations'.
+"""
+
+PEAK_FP32 = 67e12
+OPS_PER_PAIR_SHARED = 21
+
+
+def bound_s(pairs: int) -> float:
+    """The least time, in seconds, in which one card runs the pair math
+    of `pairs` shared-origin pairs."""
+    return pairs * OPS_PER_PAIR_SHARED / PEAK_FP32
