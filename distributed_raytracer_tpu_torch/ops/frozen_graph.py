@@ -18,9 +18,15 @@ are captured once per shape and replayed with one launch.
 A capture that fails raises; nothing falls back to the eager frame.
 
 Nothing is captured on the CPU: there the renderers run the eager stages.
-The kernel wrappers' launch counters (ops/bsr_trace.LAUNCHES) count while
-the graph is warmed up and captured, not when it is replayed; `COUNTS`
-counts captures and replays.
+`COUNTS` (the tracer's counters, utils/tracing.py) counts captures and
+replays. The kernel wrappers' launch counters (ops/bsr_trace.LAUNCHES)
+count host issues: they count while a graph is warmed up and captured, and
+not when it is replayed, so an eager launch during a replay still shows
+in them (chip_smoke.py's check that a replay launches nothing eagerly
+reads them). With the tracer on, a capture is the span `frozen.capture` and a
+replay `frozen.replay`; the device stamps a frame marks while it is
+captured (tracing.Stamps) fill a new row at each replay, which `run`
+notes.
 """
 
 from __future__ import annotations
@@ -30,9 +36,11 @@ import time
 
 import torch
 
-# Captures and replays of every FrameGraph; a caller resets them to 0 to
-# count one run's.
-COUNTS = {"captures": 0, "replays": 0}
+from distributed_raytracer_tpu_torch.utils import tracing
+
+# Captures and replays of every FrameGraph: the tracer's counters, which
+# count on or off; a caller reads differences (or resets them to 0).
+COUNTS = tracing.COUNTS
 
 
 def fresh(outputs):
@@ -54,15 +62,18 @@ def write(buf: torch.Tensor, src: torch.Tensor) -> None:
 class FrameGraph:
     """One kind of frozen frame on one CUDA device."""
 
-    def __init__(self, device, inputs: dict):
-        """`inputs` maps each static input's name to its (shape, dtype)."""
+    def __init__(self, device, inputs: dict, kind: str = ""):
+        """`inputs` maps each static input's name to its (shape, dtype);
+        `kind` names the frame in spans."""
         self.device = torch.device(device)
+        self.kind = kind
         self.inputs = {name: torch.empty(shape, dtype=dtype,
                                          device=self.device)
                        for name, (shape, dtype) in inputs.items()}
         self.key = None
         self._graph = None
         self._outputs = None
+        self._stamps = ()           # tracing.Stamps marked in the graph
         # Of the last capture: the bytes the graph's private pool reserved
         # and the capture's wall time (warm-up included).
         self.pool_bytes = 0
@@ -74,9 +85,16 @@ class FrameGraph:
         from the captured one, then replays. Returns the graph's own output
         tensors, valid until the next replay."""
         if key != self.key:
-            self._capture(key, fn)
-        self._graph.replay()
-        COUNTS["replays"] += 1
+            with tracing.span("frozen.capture", kind=self.kind,
+                              card=self.device.index):
+                self._capture(key, fn)
+        with tracing.span("frozen.replay", kind=self.kind,
+                          card=self.device.index):
+            issued = time.perf_counter_ns()
+            self._graph.replay()
+            COUNTS["replays"] += 1
+            for stamps in self._stamps:
+                stamps.replayed(issued)
         return self._outputs
 
     def _capture(self, key, fn) -> None:
@@ -95,8 +113,10 @@ class FrameGraph:
             torch.cuda.empty_cache()
             before = torch.cuda.memory_reserved(self.device)
             graph = torch.cuda.CUDAGraph()
+            tracing.take_captured()
             with torch.cuda.graph(graph, stream=side):
                 outputs = tuple(fn())
+            self._stamps = tracing.take_captured()
             self.pool_bytes = torch.cuda.memory_reserved(self.device) - before
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         self._graph, self._outputs, self.key = graph, outputs, key
@@ -108,3 +128,4 @@ class FrameGraph:
             self._outputs = None
             self._graph.reset()
         self._graph = self._outputs = self.key = None
+        self._stamps = ()

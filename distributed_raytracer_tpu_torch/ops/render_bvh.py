@@ -31,7 +31,11 @@ batch of poses with the frozen buckets.
 On CUDA every frozen frame (render_fast, render_many, freeze_bounced's
 render, the dynamic renderer's render_dynamic) replays a CUDA graph of its
 stages (ops/frozen_graph.py), the counterpart of the JAX package's jitted
-dispatch; on the CPU the stages run eagerly.
+dispatch; on the CPU the stages run eagerly. While the tracer is on
+(utils/tracing.py), a frozen frame of the culled stages (`_full`) marks
+five device stamps, before stage A and after A, B1, B2 and C, captured into
+its graph (a graph key of its own), and the verify check is the span
+`frozen.verify`; with the tracer off the graph holds the stages alone.
 
 `render_bounced(camera, depth)` adds `depth` reflection bounces: stages 2-6
 again per bounce over the previous bounce's reflection rays, whose nearest
@@ -67,12 +71,17 @@ from distributed_raytracer_tpu_torch.ops import (bsr_trace, cull,
                                                 raygen, shade)
 from distributed_raytracer_tpu_torch.ops.intersect import Hits
 from distributed_raytracer_tpu_torch.ops.shade import PackedPrep
+from distributed_raytracer_tpu_torch.utils import tracing
 from distributed_raytracer_tpu_torch.utils.config import (
     DEFAULT_CONFIG, RenderConfig, default_block_size)
 
 _log = logging.getLogger(__name__)
 
 _bucket = bsr_trace.bucket_w_pad
+
+
+def _no_mark(point: int) -> None:
+    pass
 
 
 def _tile_bucket(n: int, n_tiles: int) -> int:
@@ -265,6 +274,10 @@ class CulledRenderer:
         # CUDA graphs of the frozen frames, one per kind ("fast",
         # "bounced", "dynamic"; ops/frozen_graph.py).
         self._graphs = {}
+        # The frames' stage stamps (made when the tracer first marks) and
+        # the band's rank they are named by (parallel/render_sharded_bvh.py).
+        self._stamps = None
+        self.rank = None
 
     def _bake_scene(self, scene: Scene, block_size: int):
         """Bake hook: the dynamic renderer (ops/render_dynamic.py)
@@ -596,16 +609,31 @@ class CulledRenderer:
     # render_fast(verify=True) checks the true counts and refreezes on
     # overflow.
 
+    def _marks(self):
+        """mark(point) of a frame's stage stamps: the renderer's
+        tracing.Stamps while the tracer is on, else nothing."""
+        if not tracing.enabled():
+            return _no_mark
+        if self._stamps is None:
+            self._stamps = tracing.Stamps(self.device, rank=self.rank)
+        return self._stamps.mark
+
     def _full(self, sc: DeviceScene, pads: tuple, cam: CameraArrays):
         """All stages with fixed buckets; pads layout == the counts layout.
         Returns (image, int32 counts on the device)."""
         nl = self.n_levels
         p_pads, h_pad, s_pads = pads[:nl], pads[nl], pads[nl + 1:]
+        mark = self._marks()
+        mark(0)
         rays, ti, mask1, entry1, c1 = self._stage_a(sc, cam)
+        mark(1)
         hits, _, p_counts = self._stage_b1(sc, p_pads, rays, ti, mask1,
                                            entry1, c1)
+        mark(2)
         sh = self._stage_b2(sc, h_pad, rays, hits, cam.pos)
+        mark(3)
         img, s_counts = self._stage_c(sc, s_pads, sh)
+        mark(4)
         counts = torch.stack([c1, *p_counts, sh.ht_count, sh.sc1,
                               *s_counts])
         return img, counts
@@ -632,6 +660,11 @@ class CulledRenderer:
         if self._frozen_pads is not None:
             pads = tuple(max(p, q) for p, q in zip(pads, self._frozen_pads))
         self._frozen_pads = pads
+
+    def buckets(self) -> Optional[tuple]:
+        """The frozen work-list buckets (the counts layout), None before
+        the first freeze."""
+        return self._frozen_pads
 
     def render_fast(self, camera, verify: bool = False) -> torch.Tensor:
         """All stages with the frozen buckets and no host sync; returns the
@@ -680,7 +713,7 @@ class CulledRenderer:
     def _graph_key(self, kind: str, pads) -> tuple:
         """Everything that shapes a frozen frame's graph."""
         return (kind, pads, self.exit_every, self.use_mxu,
-                self._live is not None)
+                self._live is not None, tracing.enabled())
 
     def _frame_graph(self, kind: str, inputs: dict) -> frozen_graph.FrameGraph:
         """The graph of one frozen frame kind, its static inputs shaped
@@ -689,7 +722,7 @@ class CulledRenderer:
         if graph is None:
             graph = self._graphs[kind] = frozen_graph.FrameGraph(
                 self.device, {k: (tuple(v.shape), v.dtype)
-                              for k, v in inputs.items()})
+                              for k, v in inputs.items()}, kind=kind)
         return graph
 
     def _frozen_frame(self, kind: str, inputs: dict, body):
@@ -716,9 +749,13 @@ class CulledRenderer:
         verify loop (`name` labels the warning of a loop that does not
         converge)."""
         img, counts = frame(self._frozen_pads)
-        if verify:
-            fits = lambda got: all(g <= p for g, p in
-                                   zip(got, self._frozen_pads))
+        if not verify:
+            return img
+        fits = lambda got: all(g <= p for g, p in
+                               zip(got, self._frozen_pads))
+        with tracing.span("frozen.verify", kind=name,
+                          card=self.device.index) as span:
+            rounds = 0
             for _ in range(8):   # each round strictly grows some bucket
                 got = tuple(counts.tolist())
                 if fits(got):
@@ -726,6 +763,8 @@ class CulledRenderer:
                 self._last_counts = got
                 self.freeze(camera)   # grow-only
                 img, counts = frame(self._frozen_pads)
+                rounds += 1
+            span.set(rounds=rounds)
             # Warn only when the last frame still overflows.
             if not fits(tuple(counts.tolist())):
                 _log.warning(

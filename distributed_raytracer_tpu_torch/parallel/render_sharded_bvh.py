@@ -34,6 +34,12 @@ verify loop's refreeze is one decision taken alike everywhere, and the
 balanced split is struck on process 0 (rank 0's band probes the costs)
 and broadcast. The collectives stay outside the CUDA graphs: each rank
 replays its graph, then the bands are gathered.
+
+While the tracer is on (utils/tracing.py), each rank's replay is the span
+`bands.replay` (attribute `rank`), the gather `bands.gather` and the
+verify check `frozen.verify`; each band's frame marks its stage stamps
+(named by its rank), and the assembled frame one more stamp on rank 0's
+card (kind "gather") once the gather has run.
 """
 
 from __future__ import annotations
@@ -50,6 +56,7 @@ from distributed_raytracer_tpu_torch.ops import cull, raygen
 from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
 from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
 from distributed_raytracer_tpu_torch.parallel import tile as tile_mod
+from distributed_raytracer_tpu_torch.utils import tracing
 from distributed_raytracer_tpu_torch.utils.config import (DEFAULT_CONFIG,
                                                           RenderConfig)
 
@@ -81,6 +88,7 @@ class BandRenderer:
         self._pads = pads
         self._pads_from = pads_from  # worst counts (nested list) -> pads
         self.last_counts = None
+        self._gathered = None        # tracing.Stamps after the gather
 
     def buckets(self):
         return self._pads
@@ -101,13 +109,14 @@ class BandRenderer:
         imgs, counts = [None] * len(self.bands), [None] * len(self.bands)
         for r in self.ranks.local:
             band = self.bands[r]
-            with self.ranks.on(r):
+            with self.ranks.on(r), tracing.span("bands.replay", rank=r):
                 img, c = band._frozen_frame(self._kind, {"camera": packed},
                                             self._body(band))(self._pads)
                 imgs[r] = img
                 counts[r] = c[None]
-        return (mesh_mod.gather(self.ranks, imgs),
-                mesh_mod.gather(self.ranks, counts, everywhere=True))
+        with tracing.span("bands.gather"):
+            return (mesh_mod.gather(self.ranks, imgs),
+                    mesh_mod.gather(self.ranks, counts, everywhere=True))
 
     def _fits(self, counts: torch.Tensor) -> bool:
         """Every band's counts within the buckets."""
@@ -129,20 +138,33 @@ class BandRenderer:
     def __call__(self, cam, verify: bool = False) -> torch.Tensor:
         out, counts = self.device_fn(cam)
         if verify:
-            # Loop until every band's counts fit: a level-1 overflow makes
-            # the reported level-2 counts undercounts, so one refreeze from
-            # the reported values can still truncate.
-            for _ in range(8):
-                if not self._refreeze(counts):
-                    break
-                out, counts = self.device_fn(cam)
-            # Warn only when the last frame still overflows.
-            if not self._fits(counts):
-                _log.warning("band verify did not converge in 8 rounds "
-                             "(counts %s); image may drop blocks",
-                             counts.tolist())
+            with tracing.span("frozen.verify", kind="bands",
+                              card=self.ranks.device.index) as span:
+                # Loop until every band's counts fit: a level-1 overflow
+                # makes the reported level-2 counts undercounts, so one
+                # refreeze from the reported values can still truncate.
+                rounds = 0
+                for _ in range(8):
+                    if not self._refreeze(counts):
+                        break
+                    out, counts = self.device_fn(cam)
+                    rounds += 1
+                span.set(rounds=rounds)
+                # Warn only when the last frame still overflows.
+                if not self._fits(counts):
+                    _log.warning("band verify did not converge in 8 rounds "
+                                 "(counts %s); image may drop blocks",
+                                 counts.tolist())
         self.last_counts = counts
-        return None if out is None else self._assemble(out)
+        if out is None:
+            return None
+        img = self._assemble(out)
+        if tracing.enabled():
+            if self._gathered is None:
+                self._gathered = tracing.Stamps(self.ranks.device, points=1,
+                                                kind="gather")
+            self._gathered.mark(0)
+        return img
 
     def _assemble(self, out: torch.Tensor) -> torch.Tensor:
         """The gathered band images as the (H, W, 3) frame."""
@@ -199,6 +221,7 @@ def _make_bands(scene: Optional[Scene], width: int, band_h: int,
         b = CulledRenderer(None, width, band_h, cfg=cfg, prebaked=prebaked,
                            device=mesh[r])
         b.raygen_height = height
+        b.rank = r
         return b
 
     return ranks, ranks.per_rank(band)

@@ -39,6 +39,12 @@ ranks; sequential and culled modes render the whole frame in every
 process, as the JAX CLI does. Process 0 alone writes the frames and prints
 the report. The transport (NCCL when every process owns a card, else
 gloo) is printed by every process before the first frame.
+
+`--trace-out PATH` turns the tracer on (utils/tracing.py) before the
+renderer is built and writes its spans, device stage stamps and counters
+as a chrome trace to PATH at exit (PATH.I for process I > 0 of a
+multi-process job); a browser's trace viewer (chrome://tracing, Perfetto)
+opens it.
 """
 
 from __future__ import annotations
@@ -101,6 +107,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "0 = flat out")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (cuda, cuda:N or cpu)")
+    p.add_argument("--trace-out", metavar="PATH", default=None,
+                   help="record the program's spans and device stage "
+                        "stamps and write them as a chrome trace to PATH "
+                        "at exit")
     return p
 
 
@@ -145,6 +155,7 @@ def main(argv=None) -> int:
                              "culled; --multihost is unsupported")
 
     from distributed_raytracer_tpu_torch.parallel import multihost
+    from distributed_raytracer_tpu_torch.utils import tracing
 
     device = args.device
     if multi:
@@ -153,9 +164,17 @@ def main(argv=None) -> int:
         device = multihost.process_device(args.process_id, args.device)
         print(f"multihost: process {tr.process} of {tr.n_procs} on "
               f"{device}, transport {tr.backend}", flush=True)
+    if args.trace_out:
+        tracing.enable()
     try:
         return _run(args, device)
     finally:
+        if args.trace_out:
+            tracing.disable()
+            path = args.trace_out
+            if multi and args.process_id:
+                path = f"{path}.{args.process_id}"
+            tracing.write_chrome_trace(path)
         multihost.shutdown()
 
 
@@ -167,6 +186,7 @@ def _run(args, device) -> int:
     from distributed_raytracer_tpu_torch.parallel import multihost
     from distributed_raytracer_tpu_torch.runtime import animation, framebuffer
     from distributed_raytracer_tpu_torch.runtime.stats import FrameTimer
+    from distributed_raytracer_tpu_torch.utils import tracing
 
     scene = load_scene(args.scene)
     w, h = args.width, args.height
@@ -298,6 +318,7 @@ def _run(args, device) -> int:
     ms_per_frame = 1000.0 / args.fps_target if args.fps_target else 0.0
     for k, cam in enumerate(poses):
         tick = time.monotonic()
+        tracing.set_frame(k)
         timer.frame_issued()
         img = render_k(k, cam)
         if args.out and img is not None:

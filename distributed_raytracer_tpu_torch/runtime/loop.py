@@ -21,6 +21,12 @@ re-registration, worker/distributed/main.go:160-185) and resumes; it aborts
 when recovery is unavailable, fails or is used up (cfg.max_recoveries).
 `make_culled_recoverer` is the stock hook for the block-sparse path.
 
+Spans (utils/tracing.py): `loop.run` (the whole loop, no frame id),
+`loop.tick` (one input tick), `loop.issue` (the render call), `loop.drain`
+(the wait for a frame's host copy) and `loop.display` (the display
+callback). Each tick sets the tracer's frame id to the index of the frame
+it would issue; a drain and its display carry the drained frame's.
+
 A sticky CUDA error (an illegal address, say) poisons the process's CUDA
 context: every later launch fails, and a rebuilt renderer in the same
 process fails with it. The hook cannot heal that; only a new process can.
@@ -40,6 +46,7 @@ from distributed_raytracer_tpu_torch.models.camera import Camera
 from distributed_raytracer_tpu_torch.models.scene import SceneArrays
 from distributed_raytracer_tpu_torch.runtime.controller import CameraController
 from distributed_raytracer_tpu_torch.runtime.stats import FrameTimer
+from distributed_raytracer_tpu_torch.utils import tracing
 from distributed_raytracer_tpu_torch.utils.config import (DEFAULT_CONFIG,
                                                           RenderConfig)
 
@@ -148,7 +155,8 @@ def run_loop(
         nonlocal frames_dropped, consecutive_drops
         idx, pending = in_flight.popleft()
         try:
-            img = np.asarray(pending)  # waits for the frame's host copy
+            with tracing.span("loop.drain", frame=idx):
+                img = np.asarray(pending)  # waits for the frame's host copy
         except Exception:              # device failure -> dropped frame
             frames_dropped += 1
             consecutive_drops += 1
@@ -157,61 +165,71 @@ def run_loop(
         consecutive_drops = 0
         timer.frame_drawn()
         if display is not None:
-            display(idx, img)
+            with tracing.span("loop.display", frame=idx):
+                display(idx, img)
 
-    for tick_events in events:
-        tick_start = time.monotonic()
-        for ev in tick_events:
-            kind = ev[0]
-            if kind == "key_down":
-                controller.key_down(ev[1])
-            elif kind == "key_up":
-                controller.key_up(ev[1])
-            elif kind == "mouse":
-                controller.mouse_motion(ev[1], ev[2])
-        if not controller.running:
-            break
-
-        if controller.dirty:  # frames only on input change (main.go:246)
-            camera = controller.apply(camera)
-            frame_index = timer.frames_total
-            timer.frame_issued()
-            try:
-                # Dispatch-time protection: render_fn may raise before any
-                # device work is enqueued (bad buckets, host-side sizing, a
-                # failed capture) — contain it like a failed tile
-                # (main.go:119-125), do not let it escape the loop.
-                pending = _start_copy(
-                    render_fn(scene_arrays, camera.to_arrays()),
-                    copy_streams)
-            except Exception:
-                frames_dropped += 1
-                consecutive_drops += 1
-                _log.warning("frame %d dropped (dispatch failure)",
-                             frame_index)
-            else:
-                in_flight.append((frame_index, pending))
-                while len(in_flight) > cfg.frames_in_flight:
-                    drain_one()
-            if consecutive_drops >= cfg.max_consecutive_drops:
-                # The render path looks wedged: heal it if we can; abort
-                # only when recovery is unavailable, exhausted, or itself
-                # failing — otherwise the loop would spin at target FPS
-                # with every frame a drop.
-                if not try_recover():
-                    _log.error("aborting after %d consecutive dropped "
-                               "frames", consecutive_drops)
+    tracing.set_frame(None)
+    with tracing.span("loop.run"):
+        for tick_events in events:
+            tracing.set_frame(timer.frames_total)
+            with tracing.span("loop.tick"):
+                tick_start = time.monotonic()
+                for ev in tick_events:
+                    kind = ev[0]
+                    if kind == "key_down":
+                        controller.key_down(ev[1])
+                    elif kind == "key_up":
+                        controller.key_up(ev[1])
+                    elif kind == "mouse":
+                        controller.mouse_motion(ev[1], ev[2])
+                if not controller.running:
                     break
-            if max_frames is not None and timer.frames_total >= max_frames:
-                break
 
-        if realtime:
-            elapsed_ms = (time.monotonic() - tick_start) * 1000.0
-            if elapsed_ms < ms_per_frame:
-                time.sleep((ms_per_frame - elapsed_ms) / 1000.0)
+                # Frames only on input change (main.go:246).
+                if controller.dirty:
+                    camera = controller.apply(camera)
+                    frame_index = timer.frames_total
+                    timer.frame_issued()
+                    try:
+                        # Dispatch-time protection: render_fn may raise
+                        # before any device work is enqueued (bad buckets,
+                        # host-side sizing, a failed capture) — contain it
+                        # like a failed tile (main.go:119-125), do not let
+                        # it escape the loop.
+                        with tracing.span("loop.issue"):
+                            pending = _start_copy(
+                                render_fn(scene_arrays, camera.to_arrays()),
+                                copy_streams)
+                    except Exception:
+                        frames_dropped += 1
+                        consecutive_drops += 1
+                        _log.warning("frame %d dropped (dispatch failure)",
+                                     frame_index)
+                    else:
+                        in_flight.append((frame_index, pending))
+                        while len(in_flight) > cfg.frames_in_flight:
+                            drain_one()
+                    if consecutive_drops >= cfg.max_consecutive_drops:
+                        # The render path looks wedged: heal it if we can;
+                        # abort only when recovery is unavailable,
+                        # exhausted, or itself failing — otherwise the loop
+                        # would spin at target FPS with every frame a drop.
+                        if not try_recover():
+                            _log.error("aborting after %d consecutive "
+                                       "dropped frames", consecutive_drops)
+                            break
+                    if (max_frames is not None
+                            and timer.frames_total >= max_frames):
+                        break
 
-    while in_flight:
-        drain_one()
+                if realtime:
+                    elapsed_ms = (time.monotonic() - tick_start) * 1000.0
+                    if elapsed_ms < ms_per_frame:
+                        time.sleep((ms_per_frame - elapsed_ms) / 1000.0)
+
+        while in_flight:
+            drain_one()
+    tracing.set_frame(None)
     stats = timer.stats()
     if stats is not None:
         stats.recoveries = recoveries

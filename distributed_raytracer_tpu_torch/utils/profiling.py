@@ -9,9 +9,9 @@ figures in place of a TPU's:
     busy share of the window, device ms and launches per kernel class per
     frame, host launch calls per frame, and the card's longest idle gaps,
     each with the host event under it;
-  - `FrameWork` / `measure_culled`: the work of one block-sparse frame
-    (scheduled pairs) against the pair-throughput roofline of the kernel
-    form it ran.
+  - `FrameWork` / `frame_work` / `orbit_work`: the work of block-sparse
+    frames (scheduled pairs) against the pair-throughput roofline of the
+    kernel form they ran.
 
 Roofline (hardware peaks, not the code's own ceiling): NVIDIA's published
 dense rates for one H100 SXM at its 700 W power limit, 67 TFLOP/s FP32
@@ -325,8 +325,8 @@ def orbit_work(renderer, cameras, seconds: float) -> FrameWork:
     each camera with verify=True first."""
     _, counts = renderer.render_many(cameras)
     rows = counts.cpu().tolist()
-    if any(c > p for row in rows for c, p in zip(row,
-                                                renderer._frozen_pads)):
+    pads = renderer.buckets()
+    if any(c > p for row in rows for c, p in zip(row, pads)):
         raise ValueError("a frame overflowed the frozen buckets: its "
                          "counts are not exact")
     nl = renderer.n_levels
@@ -337,22 +337,3 @@ def orbit_work(renderer, cameras, seconds: float) -> FrameWork:
                      seconds=seconds,
                      sol_gpairs=sol_gpairs(use_mxu=renderer.use_mxu))
 
-
-def measure_culled(renderer, camera, frames: int = 10) -> FrameWork:
-    """Time the frozen fast path of a CulledRenderer and account its work
-    (a synchronize on the renderer's device in place of a block)."""
-    import torch
-
-    def sync():
-        if renderer.device.type == "cuda":
-            torch.cuda.synchronize(renderer.device)
-
-    renderer.render(camera, block=True)
-    renderer.freeze(camera)
-    renderer.render_fast(camera)
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(frames):
-        renderer.render_fast(camera)
-    sync()
-    return frame_work(renderer, (time.perf_counter() - t0) / frames)

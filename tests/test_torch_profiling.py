@@ -5,8 +5,7 @@ FrameWork counts the same scheduled pairs and Gpairs/s as the JAX
 package's for the same inputs (more than 2^31 pairs included, and counts
 given as 32-bit numpy scalars, which must not wrap); its roofline is the
 H100's (21 FP32 operations per pair over 67 TFLOP/s, the tensor-core form
-by its larger bound). measure_culled accounts a CPU renderer's finest
-sizing counts. anatomy() reads a trace whose answers are known by hand:
+by its larger bound). anatomy() reads a trace whose answers are known by hand:
 two overlapping kernels, one more kernel, a copy, idle gaps under known
 host events, and launch calls. tools/kernel_ab._profile and
 tools/schedule_frames.profile, which parse their traces through anatomy(),
@@ -189,19 +188,6 @@ def test_h100_rooflines():
     b = profiling.mxu_bounds(10 ** 9)
     assert b["tensor"] == pytest.approx(54e9 / 495e12 * 1e3)
     assert b["issued"] == pytest.approx(144e9 / 495e12 * 1e3)
-
-
-@pytest.mark.parametrize("use_mxu", [False, True])
-def test_measure_culled_counts_the_sizing_cells(use_mxu):
-    scene = scenes.icosphere_scene(2)
-    r = CulledRenderer(scene, 64, 48, device="cpu", use_mxu=use_mxu)
-    work = profiling.measure_culled(r, scene.camera, frames=1)
-    lc = r._last_counts
-    assert (work.primary_cells, work.shadow_cells) == (
-        lc[r.n_levels - 1], lc[-1])
-    assert work.pairs == (lc[r.n_levels - 1] + lc[-1]) * r.rt * r.tb > 0
-    assert work.rays == 64 * 48 and work.seconds > 0
-    assert work.sol_gpairs == profiling.sol_gpairs(use_mxu=use_mxu)
 
 
 def test_orbit_work_averages_exact_frames():
