@@ -27,20 +27,44 @@ reads them). With the tracer on, a capture is the span `frozen.capture` and a
 replay `frozen.replay`; the device stamps a frame marks while it is
 captured (tracing.Stamps) fill a new row at each replay, which `run`
 notes.
+
+The bucket check. A frozen frame runs with fixed work-list buckets and
+returns its true counts; a verify frame holds the counts against the
+buckets and, on overflow, refreezes (grow-only) and renders again, at most
+8 rounds (`Check`). Every verify site (CulledRenderer's render_fast,
+render_dynamic and freeze_bounced's render, the bands, the culled ring and
+halo) hands its check to `verify`, which runs it at once, as a caller of
+`render_fast(verify=True)` expects, unless a deferral is open on this
+thread (`deferred()`): the frame loop (runtime/loop.py) opens one around
+each render call and settles the checks it collects when it drains the
+frame (`settle`), where it waits for the frame's pixels anyway. A deferred
+check starts a non-blocking copy of the counts to pinned host memory and
+records an event after it, so the render call returns without a host
+sync. A multi-process mesh checks at once: every process must take the
+refreeze decision at the same point of its stream. `COUNTS` counts the
+checks settled at a drain (`verify_deferred`); the loop counts the frames
+it issued again after an overflow found there (`verify_reissued`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
+import logging
+import threading
 import time
 
 import torch
 
 from distributed_raytracer_tpu_torch.utils import tracing
 
-# Captures and replays of every FrameGraph: the tracer's counters, which
-# count on or off; a caller reads differences (or resets them to 0).
+# Captures and replays of every FrameGraph and the deferred checks: the
+# tracer's counters, which count on or off; a caller reads differences (or
+# resets them to 0).
 COUNTS = tracing.COUNTS
+
+_log = logging.getLogger(__name__)
+_local = threading.local()
 
 
 def fresh(outputs):
@@ -129,3 +153,102 @@ class FrameGraph:
             self._graph.reset()
         self._graph = self._outputs = self.key = None
         self._stamps = ()
+
+
+class Check:
+    """One verify frame's bucket check. `out` and `counts` are the frame's
+    output and its true counts; `fits(host counts)` holds counts against
+    the current buckets; `grow(host counts)` refreezes from them,
+    grow-only; `again()` renders the frame again with the current buckets,
+    writing its own inputs anew, and returns (out, counts). `name` labels
+    the span `frozen.verify` and the warning of a loop that does not
+    converge, `card` the span."""
+
+    def __init__(self, out, counts: torch.Tensor, fits, grow, again,
+                 name: str, card=None):
+        self.out, self.counts = out, counts
+        self._fits, self._grow, self._again = fits, grow, again
+        self.name, self.card = name, card
+        self._host = self._done = None
+
+    def start_copy(self) -> None:
+        """Copies the counts as they are now, which later frames may
+        overwrite: on CUDA a non-blocking copy into pinned memory on the
+        stream the frame ends on, and an event after it."""
+        c = self.counts
+        if not c.is_cuda:
+            self._host = c.clone()
+            return
+        with torch.cuda.device(c.device):
+            self._host = torch.empty(c.shape, dtype=c.dtype,
+                                     pin_memory=True)
+            self._host.copy_(c, non_blocking=True)
+            self._done = torch.cuda.Event()
+            self._done.record()
+
+    def _read(self) -> torch.Tensor:
+        if self._host is None:
+            return self.counts.cpu()
+        if self._done is not None:
+            self._done.synchronize()
+        return self._host
+
+    def settle(self, frame=None) -> bool:
+        """Reads the counts and, while they overflow, refreezes and renders
+        again (each round strictly grows some bucket), at most 8 rounds;
+        warns when the last frame's counts still overflow. Returns True
+        when the frame's own counts fit (`out` is the frame as issued),
+        False when the buckets grew (`out` and `counts` are the last
+        round's)."""
+        with tracing.span("frozen.verify", frame=frame, kind=self.name,
+                          card=self.card) as span:
+            got = self._read()
+            fit = ok = self._fits(got)
+            rounds = 0
+            while not ok and rounds < 8:
+                self._grow(got)
+                self.out, self.counts = self._again()
+                got = self.counts.cpu()
+                ok = self._fits(got)
+                rounds += 1
+            span.set(rounds=rounds)
+            if not ok:
+                _log.warning("%s verify did not converge in 8 rounds "
+                             "(counts %s); image may drop blocks",
+                             self.name, got.tolist())
+        return fit
+
+
+def verify(check: Check, now: bool = False) -> Check:
+    """Runs `check` at once (`now`, or no deferral open on this thread), or
+    starts its counts' host copy and hands it to the open deferral.
+    Returns the check: its `out` is the frame to return."""
+    pending = getattr(_local, "checks", None)
+    if now or pending is None:
+        check.settle()
+    else:
+        check.start_copy()
+        pending.append(check)
+    return check
+
+
+@contextlib.contextmanager
+def deferred():
+    """While open, the verify checks made on this thread are collected in
+    the list it yields, unsettled, instead of run at once."""
+    prev = getattr(_local, "checks", None)
+    _local.checks = checks = []
+    try:
+        yield checks
+    finally:
+        _local.checks = prev
+
+
+def settle(checks, frame=None) -> bool:
+    """Settles deferred checks in order (`frame`: the drained frame's id,
+    for the spans); True when every frame's own counts fit."""
+    fit = True
+    for check in checks:
+        COUNTS["verify_deferred"] += 1
+        fit = check.settle(frame) and fit
+    return fit

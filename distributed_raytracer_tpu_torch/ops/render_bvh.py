@@ -25,8 +25,10 @@ A frame is seven stages:
 `render()` sizes the work lists exactly, with host syncs between stages;
 `freeze()` fixes the buckets from the last counts and `render_fast()` runs
 all stages with them and no host sync, checking the true counts against
-the buckets only when asked (verify=True). `render_many(cameras)` renders a
-batch of poses with the frozen buckets.
+the buckets only when asked (verify=True): before the call returns, or,
+inside the frame loop (runtime/loop.run_loop), when the loop drains the
+frame (ops/frozen_graph.verify). `render_many(cameras)` renders a batch of
+poses with the frozen buckets.
 
 On CUDA every frozen frame (render_fast, render_many, freeze_bounced's
 render, the dynamic renderer's render_dynamic) replays a CUDA graph of its
@@ -58,7 +60,6 @@ own, or per-frame diffed copies (ops/render_dynamic.py).
 
 from __future__ import annotations
 
-import logging
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -74,8 +75,6 @@ from distributed_raytracer_tpu_torch.ops.shade import PackedPrep
 from distributed_raytracer_tpu_torch.utils import tracing
 from distributed_raytracer_tpu_torch.utils.config import (
     DEFAULT_CONFIG, RenderConfig, default_block_size)
-
-_log = logging.getLogger(__name__)
 
 _bucket = bsr_trace.bucket_w_pad
 
@@ -607,7 +606,7 @@ class CulledRenderer:
     # margin) and render_fast() runs every stage with them and no host
     # sync. Work-list overflow would drop candidate blocks, so
     # render_fast(verify=True) checks the true counts and refreezes on
-    # overflow.
+    # overflow: at once, or at the frame's drain inside the frame loop.
 
     def _marks(self):
         """mark(point) of a frame's stage stamps: the renderer's
@@ -668,9 +667,13 @@ class CulledRenderer:
 
     def render_fast(self, camera, verify: bool = False) -> torch.Tensor:
         """All stages with the frozen buckets and no host sync; returns the
-        (H, W, 3) tensor. With verify=True, reads the true counts and, if a
-        bucket overflowed, refreezes and renders again — in a loop, since
-        an overflowed level truncates the next level's reported count."""
+        (H, W, 3) tensor. With verify=True, checks the true counts and, if
+        a bucket overflowed, refreezes and renders again — in a loop, since
+        an overflowed level truncates the next level's reported count.
+        The check runs before the call returns, except inside the frame
+        loop (runtime/loop.run_loop), which runs it when it drains the
+        frame, before the frame is displayed, and issues the frame and
+        those behind it again if the buckets grew (ops/frozen_graph.py)."""
         if self._frozen_pads is None:
             self.freeze(camera)
         frame = self._frozen_frame(
@@ -728,50 +731,47 @@ class CulledRenderer:
     def _frozen_frame(self, kind: str, inputs: dict, body):
         """frame(pads) -> (image, counts) of one frozen frame: body(bufs,
         pads) runs the stages on the input tensors `bufs` (name -> device
-        tensor, from `inputs`: host or device tensors). On CUDA the inputs
-        are written into the graph's static buffers once (pinned,
-        non-blocking) and each call replays the graph of (kind, pads) and
-        returns fresh copies of its outputs; on the CPU each call runs
+        tensor, from `inputs`: host or device tensors). On CUDA each call
+        writes the inputs into the graph's static buffers (pinned,
+        non-blocking), replays the graph of (kind, pads) and returns fresh
+        copies of its outputs, so a call made after other frames have
+        replayed the graph still renders this frame's inputs (a deferred
+        verify check renders again that way); on the CPU each call runs
         body eagerly."""
         if self.device.type != "cuda":
             bufs = {k: raygen.to_device(v, self.device)
                     for k, v in inputs.items()}
             return lambda pads: body(bufs, pads)
         graph = self._frame_graph(kind, inputs)
-        for k, v in inputs.items():
-            frozen_graph.write(graph.inputs[k], v)
-        return lambda pads: frozen_graph.fresh(graph.run(
-            self._graph_key(kind, pads), lambda: body(graph.inputs, pads)))
+
+        def frame(pads):
+            for k, v in inputs.items():
+                frozen_graph.write(graph.inputs[k], v)
+            return frozen_graph.fresh(graph.run(
+                self._graph_key(kind, pads),
+                lambda: body(graph.inputs, pads)))
+        return frame
 
     def _render_frozen(self, frame, camera, verify: bool,
                        name: str) -> torch.Tensor:
         """One frozen frame, frame(pads) -> (image, counts), with the
-        verify loop (`name` labels the warning of a loop that does not
-        converge)."""
+        bucket check of a verify frame (frozen_graph.verify: at once, or
+        at the frame's drain inside the frame loop; `name` labels its span
+        and its warning)."""
         img, counts = frame(self._frozen_pads)
         if not verify:
             return img
-        fits = lambda got: all(g <= p for g, p in
-                               zip(got, self._frozen_pads))
-        with tracing.span("frozen.verify", kind=name,
-                          card=self.device.index) as span:
-            rounds = 0
-            for _ in range(8):   # each round strictly grows some bucket
-                got = tuple(counts.tolist())
-                if fits(got):
-                    break
-                self._last_counts = got
-                self.freeze(camera)   # grow-only
-                img, counts = frame(self._frozen_pads)
-                rounds += 1
-            span.set(rounds=rounds)
-            # Warn only when the last frame still overflows.
-            if not fits(tuple(counts.tolist())):
-                _log.warning(
-                    "%s verify did not converge in 8 rounds "
-                    "(counts %s vs pads %s); image may drop blocks", name,
-                    tuple(counts.tolist()), self._frozen_pads)
-        return img
+
+        def grow(got):
+            self._last_counts = tuple(got.tolist())
+            self.freeze(camera)   # grow-only
+
+        return frozen_graph.verify(frozen_graph.Check(
+            img, counts,
+            lambda got: all(g <= p for g, p in
+                            zip(got.tolist(), self._frozen_pads)),
+            grow, lambda: frame(self._frozen_pads), name,
+            self.device.index)).out
 
     # -- multi-bounce path -----------------------------------------------
     #
@@ -885,10 +885,11 @@ class CulledRenderer:
         """Fix per-bounce buckets from one sync render_bounced's RAW counts
         x margin. Returns render(cam, verify=False) -> (H, W, 3) tensor,
         which runs the bounced pipeline with no host sync (on CUDA a replay
-        of its graph, keyed by the per-bounce buckets); verify=True reads
-        the true per-bounce counts and refreezes (grow-only) and renders
-        again until they fit, at most 8 rounds. `render.pads()` gives the
-        current buckets."""
+        of its graph, keyed by the per-bounce buckets); verify=True checks
+        the true per-bounce counts, refreezing (grow-only) and rendering
+        again until they fit, at most 8 rounds, as render_fast's check
+        does (at once, or at the frame's drain inside the frame loop).
+        `render.pads()` gives the current buckets."""
         self.render_bounced(camera, depth, block=True)
         state = {}
 
@@ -908,26 +909,20 @@ class CulledRenderer:
                 lambda bufs, pads: self._full_bounced(
                     pads, raygen.camera_views(bufs["camera"])))
             img, counts = frame(state["pads"])
-            if verify:
-                # Loop until every bounce's counts fit: an overflowed
-                # level truncates the next level's list, so its reported
-                # count is an undercount and one refreeze is not enough.
-                fits = lambda got: all(g <= p for gb, pb in
-                                       zip(got, state["pads"])
-                                       for g, p in zip(gb, pb))
-                for _ in range(8):
-                    got = counts.tolist()
-                    if fits(got):
-                        break
-                    freeze_from(got)
-                    img, counts = frame(state["pads"])
-                # Warn only when the last frame still overflows.
-                if not fits(counts.tolist()):
-                    _log.warning(
-                        "bounced verify did not converge in 8 rounds "
-                        "(counts %s vs pads %s); image may drop blocks",
-                        counts.tolist(), state["pads"])
-            return img
+            if not verify:
+                return img
+            # Every bounce's counts must fit, and the check loops: an
+            # overflowed level truncates the next level's list, so its
+            # reported count is an undercount and one refreeze is not
+            # enough.
+            return frozen_graph.verify(frozen_graph.Check(
+                img, counts,
+                lambda got: all(g <= p for gb, pb in
+                                zip(got.tolist(), state["pads"])
+                                for g, p in zip(gb, pb)),
+                lambda got: freeze_from(got.tolist()),
+                lambda: frame(state["pads"]), "bounced",
+                self.device.index)).out
 
         render.pads = lambda: state["pads"]
         return render

@@ -50,7 +50,9 @@ Work-list buckets are sized at build time on one device over the full
 geometry: each rank culls the whole frame against its shard, so the
 per-shard column sums of the full-scene level masks are the ranks' counts
 exactly. render(cam, verify=True) refreezes grow-only until every
-reported count fits, up to 8 rounds.
+reported count fits, up to 8 rounds: before the call returns, or, inside
+the frame loop in one process, when the loop drains the frame
+(ops/frozen_graph.verify).
 
 Over a multi-process mesh (parallel/multihost.py) each process holds and
 runs its own ranks' shards; every per-rank loop runs over `ranks.local`,
@@ -71,7 +73,6 @@ padding that makes the block count divide the rank count
 
 from __future__ import annotations
 
-import logging
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -79,7 +80,8 @@ import torch
 
 from distributed_raytracer_tpu_torch.models.camera import Camera
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneDiff
-from distributed_raytracer_tpu_torch.ops import bsr_trace, cull, raygen, shade
+from distributed_raytracer_tpu_torch.ops import (bsr_trace, cull, frozen_graph,
+                                                raygen, shade)
 from distributed_raytracer_tpu_torch.ops.render_bvh import reflect_rows
 from distributed_raytracer_tpu_torch.ops.render_dynamic import _rowdot3
 from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
@@ -88,8 +90,6 @@ from distributed_raytracer_tpu_torch.utils.config import (DEFAULT_CONFIG,
 
 __all__ = ["DynGeometry", "HaloCulledRenderer", "ShardedCulledRenderer",
            "ShardedGeometry", "apply_diff_sharded", "reflect_rows"]
-
-_log = logging.getLogger(__name__)
 
 AXIS = "geom"
 _bucket = bsr_trace.bucket_w_pad
@@ -302,21 +302,18 @@ class ShardedCulledRenderer:
                    for c, p in zip(row, self.w_pads[b] + self.w_pads_sh[b]))
 
     def _verify_loop(self, dispatch, rows, counts):
-        """Refreezes from the reported counts until they all fit (up to 8
-        rounds): a truncated level makes the finer counts undercounts, and
-        later bounces' rays come from earlier, possibly truncated, hits, so
-        one refreeze is not enough. Warns only if the last frame's counts
-        still overflow."""
-        for _ in range(8):
-            if self._counts_fit(counts):
-                return rows, counts
-            self._freeze(self._worst(counts))
-            rows, counts = dispatch()
-        if not self._counts_fit(counts):
-            _log.warning("%s verify did not converge in 8 rounds (counts "
-                         "%s); image may drop blocks", self.kind,
-                         counts.tolist())
-        return rows, counts
+        """The bucket check (ops/frozen_graph.Check) of the frame (rows,
+        counts): refreezes from the reported counts and dispatches again
+        until they all fit (up to 8 rounds), since a truncated level makes
+        the finer counts undercounts, and later bounces' rays come from
+        earlier, possibly truncated, hits. Runs at once over several
+        processes or outside the frame loop, else at the frame's drain.
+        Returns the (rows, counts) to show."""
+        check = frozen_graph.verify(frozen_graph.Check(
+            rows, counts, self._counts_fit,
+            lambda got: self._freeze(self._worst(got)), dispatch,
+            self.kind, self.ranks.device.index), now=self.ranks.n_procs > 1)
+        return check.out, check.counts
 
     # -- public ----------------------------------------------------------
 

@@ -17,7 +17,9 @@ sync render of every band at build time, maxed over the bands and padded
 by `margin`; every frame also returns its true per-band counts, and
 render(cam, verify=True) refreezes (grow-only, up to 8 rounds) until they
 fit, so a camera outside the sizing margin never drops candidate blocks
-(master/main.go:153-161). On CUDA a rank's frame is one replay of its
+(master/main.go:153-161): before the call returns, or, inside the frame
+loop in one process, when the loop drains the frame
+(ops/frozen_graph.verify). On CUDA a rank's frame is one replay of its
 renderer's frozen graph (ops/frozen_graph.py) on the rank's stream.
 
 Three constructors, as in the JAX package: equal bands
@@ -44,7 +46,6 @@ card (kind "gather") once the gather has run.
 
 from __future__ import annotations
 
-import logging
 from typing import Callable, Optional
 
 import numpy as np
@@ -52,15 +53,13 @@ import torch
 
 from distributed_raytracer_tpu_torch.models.camera import Camera
 from distributed_raytracer_tpu_torch.models.scene import Scene
-from distributed_raytracer_tpu_torch.ops import cull, raygen
+from distributed_raytracer_tpu_torch.ops import cull, frozen_graph, raygen
 from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
 from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
 from distributed_raytracer_tpu_torch.parallel import tile as tile_mod
 from distributed_raytracer_tpu_torch.utils import tracing
 from distributed_raytracer_tpu_torch.utils.config import (DEFAULT_CONFIG,
                                                           RenderConfig)
-
-_log = logging.getLogger(__name__)
 
 AXIS = "bands"
 
@@ -124,37 +123,27 @@ class BandRenderer:
         return bool((worst <= torch.tensor(self._pads,
                                            dtype=worst.dtype)).all())
 
-    def _refreeze(self, counts: torch.Tensor) -> bool:
+    def _grow(self, counts: torch.Tensor) -> None:
         """Grows the buckets (never shrinking one) to fit the worst band's
-        counts; False when they fit already."""
-        if self._fits(counts):
-            return False
+        counts."""
         worst = counts.amax(dim=0)
         pads = torch.tensor(self._pads, dtype=worst.dtype)
         new = torch.tensor(self._pads_from(worst.tolist()), dtype=pads.dtype)
         self._pads = _nested(torch.maximum(new, pads).tolist())
-        return True
 
     def __call__(self, cam, verify: bool = False) -> torch.Tensor:
         out, counts = self.device_fn(cam)
         if verify:
-            with tracing.span("frozen.verify", kind="bands",
-                              card=self.ranks.device.index) as span:
-                # Loop until every band's counts fit: a level-1 overflow
-                # makes the reported level-2 counts undercounts, so one
-                # refreeze from the reported values can still truncate.
-                rounds = 0
-                for _ in range(8):
-                    if not self._refreeze(counts):
-                        break
-                    out, counts = self.device_fn(cam)
-                    rounds += 1
-                span.set(rounds=rounds)
-                # Warn only when the last frame still overflows.
-                if not self._fits(counts):
-                    _log.warning("band verify did not converge in 8 rounds "
-                                 "(counts %s); image may drop blocks",
-                                 counts.tolist())
+            # The check loops until every band's counts fit: a level-1
+            # overflow makes the reported level-2 counts undercounts, so
+            # one refreeze from the reported values can still truncate.
+            # Over several processes it runs at once, so every process
+            # refreezes at the same point of its stream.
+            check = frozen_graph.verify(frozen_graph.Check(
+                out, counts, self._fits, self._grow,
+                lambda: self.device_fn(cam), "bands",
+                self.ranks.device.index), now=self.ranks.n_procs > 1)
+            out, counts = check.out, check.counts
         self.last_counts = counts
         if out is None:
             return None

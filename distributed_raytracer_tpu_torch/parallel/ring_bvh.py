@@ -43,7 +43,8 @@ counts of every (ray shard, geometry shard) pair, maxed over the pairs,
 bound every step (the parent-box test is conservative, so a member that
 passes has a passing parent, and the per-pair member masks count each
 level's expansion exactly). render(cam, verify=True) refreezes grow-only
-until every reported count fits, up to 8 rounds.
+until every reported count fits, up to 8 rounds, through the check it
+shares with the halo (halo_bvh.ShardedCulledRenderer._verify_loop).
 """
 
 from __future__ import annotations

@@ -115,8 +115,10 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def _periodic_verify(render_v, period: int = 8):
-    """Check the frozen work-list buckets (a host sync) every `period`
-    frames only, so a silent overflow lasts at most period - 1 frames."""
+    """Check the frozen work-list buckets every `period` frames only (a
+    host sync in the call, or, inside runtime/loop.run_loop, a read when
+    the loop drains the frame), so a silent overflow lasts at most
+    period - 1 frames."""
     k = [0]
 
     def render(cam):

@@ -21,11 +21,27 @@ re-registration, worker/distributed/main.go:160-185) and resumes; it aborts
 when recovery is unavailable, fails or is used up (cfg.max_recoveries).
 `make_culled_recoverer` is the stock hook for the block-sparse path.
 
+The bucket check of a verify frame (ops/frozen_graph.py) runs at the
+frame's drain, not at its issue: the loop opens a deferral around each
+render call, keeps the checks the call made (and the frame's camera) with
+the frame in flight, and settles them once the frame's host copy has
+landed, before it is displayed; the render call itself waits for nothing.
+A verify frame is never displayed before its counts are known to fit. On
+an overflow the check has grown the buckets; the loop then issues the
+frame again with its own camera, and every frame still in flight behind
+it, in order, abandoning their old copies, so no frame issued after it is
+shown with the outgrown buckets, and drains and displays the new frame
+under the same index (`COUNTS["verify_reissued"]` counts the frames
+issued again). A check that raises is a dropped frame. Outside this loop
+a verify check runs before the render call returns.
+
 Spans (utils/tracing.py): `loop.run` (the whole loop, no frame id),
 `loop.tick` (one input tick), `loop.issue` (the render call), `loop.drain`
-(the wait for a frame's host copy) and `loop.display` (the display
-callback). Each tick sets the tracer's frame id to the index of the frame
-it would issue; a drain and its display carry the drained frame's.
+(the wait for a frame's host copy), `frozen.verify` (a verify frame's
+check, after its drain) and `loop.display` (the display callback). Each
+tick sets the tracer's frame id to the index of the frame it would issue;
+a drain, its check and its display carry the drained frame's, and so does
+the `loop.issue` of a frame issued again.
 
 A sticky CUDA error (an illegal address, say) poisons the process's CUDA
 context: every later launch fails, and a rebuilt renderer in the same
@@ -44,6 +60,7 @@ import torch
 
 from distributed_raytracer_tpu_torch.models.camera import Camera
 from distributed_raytracer_tpu_torch.models.scene import SceneArrays
+from distributed_raytracer_tpu_torch.ops import frozen_graph
 from distributed_raytracer_tpu_torch.runtime.controller import CameraController
 from distributed_raytracer_tpu_torch.runtime.stats import FrameTimer
 from distributed_raytracer_tpu_torch.utils import tracing
@@ -115,7 +132,8 @@ def run_loop(
     """
     controller = CameraController(width=width, height=height, cfg=cfg)
     timer = FrameTimer()
-    in_flight = collections.deque()  # (frame_index, pending image)
+    # (frame_index, pending image, its deferred checks, its camera arrays)
+    in_flight = collections.deque()
     copy_streams = {}
     frames_dropped = 0
     consecutive_drops = 0
@@ -133,7 +151,7 @@ def run_loop(
         # raises) would turn the heal path into a deadlock. Display order
         # is preserved (nothing later has been shown).
         while in_flight:
-            idx, _ = in_flight.popleft()
+            idx = in_flight.popleft()[0]
             frames_dropped += 1
             _log.warning("frame %d abandoned (recovery)", idx)
         attempt = recoveries + 1
@@ -151,22 +169,55 @@ def run_loop(
         consecutive_drops = 0
         return True
 
-    def drain_one():
+    def issue(cam_arrays):
+        """Enqueues one frame: (its pending image, the checks its render
+        call deferred)."""
+        with frozen_graph.deferred() as checks:
+            out = render_fn(scene_arrays, cam_arrays)
+        return _start_copy(out, copy_streams), checks
+
+    def reissue(idx, cam_arrays):
+        """After frame idx's check grew the buckets: issues idx again, then
+        every frame in flight behind it, in order, with its own camera."""
         nonlocal frames_dropped, consecutive_drops
-        idx, pending = in_flight.popleft()
-        try:
-            with tracing.span("loop.drain", frame=idx):
-                img = np.asarray(pending)  # waits for the frame's host copy
-        except Exception:              # device failure -> dropped frame
-            frames_dropped += 1
-            consecutive_drops += 1
-            _log.warning("frame %d dropped (device failure)", idx)
-            return
-        consecutive_drops = 0
-        timer.frame_drawn()
-        if display is not None:
-            with tracing.span("loop.display", frame=idx):
-                display(idx, img)
+        frames = [(idx, cam_arrays)] + [(f[0], f[3]) for f in in_flight]
+        in_flight.clear()
+        for i, cam in frames:
+            try:
+                with tracing.span("loop.issue", frame=i):
+                    pending, checks = issue(cam)
+            except Exception:
+                frames_dropped += 1
+                consecutive_drops += 1
+                _log.warning("frame %d dropped (dispatch failure)", i)
+                continue
+            tracing.COUNTS["verify_reissued"] += 1
+            in_flight.append((i, pending, checks, cam))
+
+    def drain_one():
+        """Drains, checks and displays the oldest frame in flight (issuing
+        it and those behind it again first if its check grew the
+        buckets)."""
+        nonlocal frames_dropped, consecutive_drops
+        while in_flight:
+            idx, pending, checks, cam_arrays = in_flight.popleft()
+            try:
+                with tracing.span("loop.drain", frame=idx):
+                    img = np.asarray(pending)  # waits for the host copy
+                fit = frozen_graph.settle(checks, idx)
+            except Exception:          # device failure -> dropped frame
+                frames_dropped += 1
+                consecutive_drops += 1
+                _log.warning("frame %d dropped (device failure)", idx)
+                return
+            if fit:
+                consecutive_drops = 0
+                timer.frame_drawn()
+                if display is not None:
+                    with tracing.span("loop.display", frame=idx):
+                        display(idx, img)
+                return
+            reissue(idx, cam_arrays)
 
     tracing.set_frame(None)
     with tracing.span("loop.run"):
@@ -190,6 +241,7 @@ def run_loop(
                     camera = controller.apply(camera)
                     frame_index = timer.frames_total
                     timer.frame_issued()
+                    cam_arrays = camera.to_arrays()
                     try:
                         # Dispatch-time protection: render_fn may raise
                         # before any device work is enqueued (bad buckets,
@@ -197,16 +249,15 @@ def run_loop(
                         # like a failed tile (main.go:119-125), do not let
                         # it escape the loop.
                         with tracing.span("loop.issue"):
-                            pending = _start_copy(
-                                render_fn(scene_arrays, camera.to_arrays()),
-                                copy_streams)
+                            pending, checks = issue(cam_arrays)
                     except Exception:
                         frames_dropped += 1
                         consecutive_drops += 1
                         _log.warning("frame %d dropped (dispatch failure)",
                                      frame_index)
                     else:
-                        in_flight.append((frame_index, pending))
+                        in_flight.append((frame_index, pending, checks,
+                                          cam_arrays))
                         while len(in_flight) > cfg.frames_in_flight:
                             drain_one()
                     if consecutive_drops >= cfg.max_consecutive_drops:

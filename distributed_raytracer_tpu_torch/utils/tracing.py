@@ -16,7 +16,10 @@ Frame id. `set_frame(k)` names the frame the loop works on. A span takes
 and so does a stamp row: the spans and stamps of one frame share its id.
 
 Counters. `COUNTS` (ops/frozen_graph.COUNTS is this dict) counts graph
-captures and replays, on or off; a caller reads differences.
+captures and replays, the verify checks settled when the frame loop
+drains their frame (`verify_deferred`) and the frames the loop issued
+again after such a check overflowed (`verify_reissued`), on or off; a
+caller reads differences.
 
 Device stamps. `Stamps` marks points of a renderer's frame (five for the
 culled frame: before stage A and after A, B1, B2 and C; `STAGES`). On
@@ -48,8 +51,11 @@ from typing import Optional
 import torch
 import torch.autograd.profiler as _profiler
 
-# Graph captures and replays of every FrameGraph (ops/frozen_graph.py).
-COUNTS = {"captures": 0, "replays": 0}
+# Graph captures and replays of every FrameGraph (ops/frozen_graph.py);
+# deferred verify checks settled, and frames issued again after one
+# overflowed (runtime/loop.py).
+COUNTS = {"captures": 0, "replays": 0, "verify_deferred": 0,
+          "verify_reissued": 0}
 
 # The culled frame's stages, between its five marks.
 STAGES = ("A", "B1", "B2", "C")

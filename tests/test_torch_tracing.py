@@ -3,11 +3,12 @@ on the card.
 
 Off, the loop and the frozen frame keep no span, open no profiler range
 and mark no stamp. On, a run_loop of ten frames gives, per frame,
-`loop.tick` over `loop.issue` over `frozen.verify` (on verify frames),
-`loop.drain` and `loop.display`, all with the frame's id; each frame's five
+`loop.tick` over `loop.issue`, `loop.drain`, `frozen.verify` (on verify
+frames: the check, settled after the frame's drain and before its
+display) and `loop.display`, all with the frame's id; each frame's five
 stage stamps rise in order; the band schedule adds a `bands.replay` per
 rank, `bands.gather` and a stamp after the gather; the graph counters count
-as before. Under a profiler window the spans are `user_annotation` events,
+as before, and the verify frames' checks count as deferred. Under a profiler window the spans are `user_annotation` events,
 and the trace parser names an idle gap by the span under it. The command
 line writes the recording as a chrome trace. On the card (`cuda` marker):
 the stamps of replayed graphs lie inside each replay's CUDA-event interval
@@ -111,7 +112,10 @@ def test_off_keeps_no_span_and_opens_no_profiler_range(renderer,
     rec = tracing.export()
     assert rec["spans"] == [] and rec["stamps"] == []
     assert r._stamps is None
-    assert frozen_graph.COUNTS == before      # nothing captured on the CPU
+    # Nothing captured on the CPU; the three verify frames' checks settled
+    # at their drains.
+    assert frozen_graph.COUNTS == dict(
+        before, verify_deferred=before["verify_deferred"] + 3)
 
 
 def test_on_spans_nest_per_frame_with_one_frame_id(renderer, tracer):
@@ -141,7 +145,9 @@ def test_on_spans_nest_per_frame_with_one_frame_id(renderer, tracer):
         verifies = mine.get("frozen.verify", [])
         if f % PERIOD == 0:
             (v,) = verifies
-            assert v["parent"] == issue["id"]
+            assert v["parent"] == drain["parent"]
+            assert drain["end_ns"] <= v["start_ns"] <= v["end_ns"] \
+                <= show["start_ns"]
             assert v["attrs"] == {"kind": "render_fast", "card": None,
                                   "rounds": 0}
         else:
@@ -157,7 +163,8 @@ def test_on_spans_nest_per_frame_with_one_frame_id(renderer, tracer):
         (issue,) = [s for s in spans if s["name"] == "loop.issue"
                     and s["frame"] == row["frame"]]
         assert issue["start_ns"] <= ns[0] and ns[-1] <= issue["end_ns"]
-    assert frozen_graph.COUNTS == before
+    assert frozen_graph.COUNTS == dict(
+        before, verify_deferred=before["verify_deferred"] + 3)
     assert rec["counters"] is not frozen_graph.COUNTS
     assert rec["counters"] == frozen_graph.COUNTS
 
@@ -170,7 +177,8 @@ def test_graph_key_and_counters_follow_the_tracer(renderer, tracer):
     tracer.disable()
     assert r._graph_key("fast", r.buckets()) != on
     assert frozen_graph.COUNTS is tracing.COUNTS
-    assert set(tracing.COUNTS) == {"captures", "replays"}
+    assert set(tracing.COUNTS) == {"captures", "replays", "verify_deferred",
+                                   "verify_reissued"}
 
 
 def test_buckets_are_the_frozen_buckets():
