@@ -9,7 +9,8 @@ seed's start (the frames it samples are those a run of that seed
 samples); then, with the program's state freed, each seed's compared
 numbers against the plain reference, and for the first `--control`
 seeds those of the control: the reference computed in TF32 in the
-program's place, at the same poses. One JSON line per reading.
+program's place, at the same poses and scene states. One JSON line per
+reading.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import argparse
 import json
 import time
 
-from rtbench import reference, run, spec
+from rtbench import judge, reference, run, spec
 
 
 def main(argv=None) -> int:
@@ -38,14 +39,14 @@ def main(argv=None) -> int:
         windows.append((seed, start, dropped, len(events.stamps),
                         display.sample))
     device = run.release(b)
-    acc = reference.build(reference.soup(b.scene, device))
+    ref = judge.Reference(b.scene, device)
     for k, (seed, start, dropped, ticks, sample) in enumerate(windows):
-        got = run.numbers(b, acc, start, sample)
+        got = run.numbers(b, ref, start, sample)
         print(json.dumps({"workload": cell.name, "seed": seed,
                           "side": "program", "ticks": ticks,
                           "dropped": dropped, **got}), flush=True)
         if k < args.control:
-            ctl = run.numbers(b, acc, start, sample, reference.Arith("tf32"))
+            ctl = run.numbers(b, ref, start, sample, reference.Arith("tf32"))
             print(json.dumps({"workload": cell.name, "seed": seed,
                               "side": "control", **ctl}), flush=True)
     return 0

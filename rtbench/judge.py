@@ -1,5 +1,8 @@
 """Whether the displayed frames are right: each sampled frame against the
-plain reference's frame at the same pose.
+plain reference's frame at the same pose and the same scene (where the
+traffic moves the scene, the reference's own hierarchy is built anew for
+each distinct state of the sampled frames, from the SceneSpec's float64
+triangles moved by the state: nothing of the program's fold).
 
 The numbers compared, each the worst over the sampled frames:
   - "bad_share": the share of the frame's continuity pixels (whose 3x3
@@ -23,6 +26,39 @@ from rtbench import reference
 TOL = 3
 
 
+def _key(state):
+    return None if state is None else (state.offsets.tobytes(),
+                                       state.lights.tobytes())
+
+
+class Reference:
+    """The plain reference of one SceneSpec on one device: `at(state)` is
+    its hierarchy at a scene state (None: the scene as made), built when
+    asked for; the last one is kept."""
+
+    def __init__(self, scene, device):
+        self.scene, self.device = scene, device
+        self._key, self._acc = (), None
+
+    def at(self, state) -> reference.Accel:
+        key = _key(state)
+        if self._acc is None or key != self._key:
+            self._acc = None
+            self._acc = reference.build(reference.soup(self.scene,
+                                                       self.device, state))
+            self._key = key
+        return self._acc
+
+
+def by_state(frames, states: dict) -> list:
+    """The frame indices, those of one state together (states in the order
+    their first frame comes)."""
+    order = {}
+    for idx in sorted(frames):
+        order.setdefault(_key(states.get(idx)), []).append(idx)
+    return [idx for group in order.values() for idx in group]
+
+
 def reference_frame(acc, pose, width: int, height: int,
                     ar: reference.Arith = reference.Arith()):
     """(rgb uint8 (H, W, 3), decision code (H, W)) on acc's device."""
@@ -44,13 +80,16 @@ def compare(got, want, code) -> dict:
             "mean_abs": float(diff.to(torch.float64).mean())}
 
 
-def judge(acc, frames: dict, poses: dict, width: int, height: int) -> dict:
+def judge(ref: Reference, frames: dict, poses: dict, states: dict,
+          width: int, height: int) -> dict:
     """The worst numbers over the sampled frames (frame index -> uint8
-    (H, W, 3) array or tensor) against the reference at their poses."""
-    dev = acc.soup.p1.device
+    (H, W, 3) array or tensor) against the reference at their poses and
+    states (frame index -> State or None)."""
+    dev = torch.device(ref.device)
     worst = {"bad_share": 0.0, "mean_abs": 0.0}
-    for idx in sorted(frames):
-        want, code = reference_frame(acc, poses[idx], width, height)
+    for idx in by_state(frames, states):
+        want, code = reference_frame(ref.at(states.get(idx)), poses[idx],
+                                     width, height)
         got = frames[idx]
         if not isinstance(got, torch.Tensor):
             got = torch.as_tensor(np.asarray(got))

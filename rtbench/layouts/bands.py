@@ -4,7 +4,8 @@ frame across cards (parallel/render_sharded_bvh.py).
 Rank i renders rows [i * ceil(H / n), (i + 1) * ceil(H / n)) on cuda:i
 (parallel/mesh.make_mesh), every rank from one bake of the whole scene
 with its own frozen graph on its own stream, and the bands are gathered
-to card 0 and assembled there. The cell's chips set n.
+to card 0 and assembled there. The cell's chips set n. The scene does not
+move: a scene state other than None is refused.
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ class Bands:
             scene, config["width"], config["height"], mesh=mesh,
             sizing_camera=scene.camera)
 
-    def render(self, cam, verify: bool):
+    def render(self, cam, verify: bool, state=None):
+        if state is not None:
+            raise ValueError("the bands layout does not move the scene")
         return self.br(cam, verify=verify)
 
     def frame_streams(self):
@@ -36,10 +39,12 @@ class Bands:
         return [(ranks.compute[r], torch.cuda.current_stream(d))
                 for r, d in enumerate(self.cards)]
 
-    def pairs(self, cams) -> list:
+    def pairs(self, cams, states=None) -> list:
         """Scheduled pairs of each camera's frame, summed over the bands
         (each band's finest primary and shadow cells of the frame's
         verified counts, times its ray tile and block)."""
+        if any(s is not None for s in states or ()):
+            raise ValueError("the bands layout does not move the scene")
         out = []
         for cam in cams:
             self.br(cam, verify=True)

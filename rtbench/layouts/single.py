@@ -4,7 +4,8 @@ The configuration's "renderer" object holds CulledRenderer's keyword
 arguments. The renderer is built from the scene (the program bakes it),
 sized by a sync render at the scene's camera and frozen, as the CLI's
 culled mode builds it (run.py); each frame is render_fast, one replay of
-its frozen graph.
+its frozen graph. The scene does not move: a scene state other than None
+is refused.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ class Single:
         self.r.render(scene.camera, block=True)
         self.r.freeze(scene.camera)
 
-    def render(self, cam, verify: bool):
+    def render(self, cam, verify: bool, state=None):
+        if state is not None:
+            raise ValueError("the single layout does not move the scene")
         return self.r.render_fast(cam, verify=verify)
 
     def frame_streams(self):
@@ -33,11 +36,13 @@ class Single:
         s = torch.cuda.current_stream(self.cards[0])
         return [(s, s)]
 
-    def pairs(self, cams) -> list:
+    def pairs(self, cams, states=None) -> list:
         """Scheduled (ray, triangle) pairs of each camera's frame: the
         finest primary and shadow cells of its frozen counts times the ray
         tile and the block. Each camera is rendered with verify=True first,
         so no count is an overflowed one."""
+        if any(s is not None for s in states or ()):
+            raise ValueError("the single layout does not move the scene")
         r = self.r
         for cam in cams:
             r.render_fast(cam, verify=True)

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List
+from typing import List, NamedTuple
 
 import numpy as np
 import torch
@@ -87,6 +87,13 @@ class Pose:
         return self.strafe(move_step, strafe).yaw(yaw * self.fov / 2.0)
 
 
+class State(NamedTuple):
+    """The scene at one frame: each instance's offset from its position in
+    the SceneSpec, and each light's position (float64)."""
+    offsets: np.ndarray     # (O, 3)
+    lights: np.ndarray      # (L, 3)
+
+
 # -- arithmetic ---------------------------------------------------------------
 
 class Arith:
@@ -146,13 +153,16 @@ class Soup:
     light_col: torch.Tensor
 
 
-def soup(scene, device) -> Soup:
-    """World-space float64 triangles of a SceneSpec, on `device`."""
+def soup(scene, device, state: State = None) -> Soup:
+    """World-space float64 triangles of a SceneSpec, on `device`; with a
+    `state`, each instance moved by its offset and the state's lights."""
     dev = torch.device(device)
     f64 = lambda a: torch.as_tensor(np.asarray(a, np.float64), device=dev)
     names = list(scene.meshes)
     parts = {k: [] for k in ("p1", "e1", "e2", "n", "obj", "mat")}
     for i, (name, offset) in enumerate(scene.instances):
+        if state is not None:
+            offset = np.asarray(offset, np.float64) + state.offsets[i]
         m = scene.meshes[name]
         faces = torch.as_tensor(np.asarray(m.faces, np.int64), device=dev)
         tri = (f64(m.vertices) + f64(offset))[faces]
@@ -167,7 +177,9 @@ def soup(scene, device) -> Soup:
     return Soup(**{k: torch.cat(v) for k, v in parts.items()},
                 ka=f64([m[0] for m in mats]), kd=f64([m[1] for m in mats]),
                 ks=f64([m[2] for m in mats]), ns=f64([m[3] for m in mats]),
-                light_pos=f64(scene.light_pos), light_col=f64(scene.light_col))
+                light_pos=f64(scene.light_pos if state is None
+                              else state.lights),
+                light_col=f64(scene.light_col))
 
 
 # -- acceleration -------------------------------------------------------------

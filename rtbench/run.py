@@ -4,9 +4,10 @@
 
 Set-up (timed as setup_s, from process start): the scene's triangles, the
 program's renderer over the configuration's layout (bake, upload, sizing
-render, freeze), every pose of one cycle of the traffic rendered with
-verify=True in the cycle's order (so the grow-only buckets and the CUDA
-graphs are final before the window, alike for every seed), then a warm
+render, freeze), every pose of one cycle of the traffic (with its scene
+state, where the traffic moves the scene) rendered with verify=True in
+the cycle's order (so the grow-only buckets and the CUDA graphs are final
+before the window, alike for every seed), then a warm
 run of the loop. The window: the program's loop for S seconds (window.py).
 With --trace 1, a torch.profiler window of a few more frames follows,
 and the per-layer metrics are reported instead of the end-to-end ones.
@@ -72,9 +73,22 @@ class Bench:
     traffic: object
 
 
+def traced_pairs(layout, traffic, start: int, first: int, frames: int):
+    """The scheduled pairs of frames first .. first + frames - 1 of the run
+    starting at `start`, each at its pose and scene state."""
+    from rtbench import port
+
+    n = len(traffic.cycle)
+    return layout.pairs(
+        [port.camera(traffic.poses[(start + first + k) % n + 1])
+         for k in range(frames)],
+        [traffic.frame_state(start, first + k) for k in range(frames)])
+
+
 def setup(cell: spec.Cell, device: str, t0: float) -> Bench:
-    """The scene, the program's layout over it, and every pose of one
-    traffic cycle rendered with verify=True, in the cycle's order."""
+    """The scene, the program's layout over it, and every (pose, scene
+    state) of one traffic cycle rendered with verify=True, in the cycle's
+    order."""
     from rtbench import port, scenes, window
     from rtbench.traffic import Traffic
 
@@ -86,8 +100,8 @@ def setup(cell: spec.Cell, device: str, t0: float) -> Bench:
             port.scene(sc), cfg, device, cell.chips)
     traffic = Traffic(cell.traffic, sc, cfg["width"])
     t_built = time.perf_counter()
-    for pose in traffic.settle_poses():
-        layout.render(port.camera(pose), verify=True)
+    for pose, state in zip(traffic.settle_poses(), traffic.settle_states()):
+        layout.render(port.camera(pose), True, state)
     window.sync(layout)
     say(f"setup: scene {t_scene - t0:.2f} s, renderer "
         f"{t_built - t_scene:.2f} s, {len(traffic.cycle)} poses settled "
@@ -128,20 +142,22 @@ def release(b: Bench):
     return device
 
 
-def numbers(b: Bench, acc, start: int, sample: dict, ar=None) -> dict:
+def numbers(b: Bench, ref, start: int, sample: dict, ar=None) -> dict:
     """The compared numbers of a run's sampled frames (frame index ->
-    uint8 frame), or, with ar = reference.Arith("tf32"), those of the
-    control: the reference in TF32 in the program's place, at the same
-    frames' poses."""
+    uint8 frame) against `ref` (a judge.Reference), or, with ar =
+    reference.Arith("tf32"), those of the control: the reference in TF32
+    in the program's place, at the same frames' poses and scene states."""
     from rtbench import judge
 
     cfg = b.cell.config
     poses = b.traffic.frame_poses(start, max(sample) + 1)
+    states = {i: b.traffic.frame_state(start, i) for i in sample}
     if ar is not None:
-        sample = {i: judge.reference_frame(acc, poses[i], cfg["width"],
-                                           cfg["height"], ar)[0]
-                  for i in sample}
-    return judge.judge(acc, sample, {i: poses[i] for i in sample},
+        sample = {i: judge.reference_frame(ref.at(states[i]), poses[i],
+                                           cfg["width"], cfg["height"],
+                                           ar)[0]
+                  for i in judge.by_state(sample, states)}
+    return judge.judge(ref, sample, {i: poses[i] for i in sample}, states,
                        cfg["width"], cfg["height"])
 
 
@@ -153,12 +169,11 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     faults)."""
     import torch
 
-    from rtbench import devtrace, port, reference, window
+    from rtbench import devtrace, judge, window
 
     t0 = time.perf_counter() if t0 is None else t0
     b = setup(cell, device, t0)
     layout, traffic = b.layout, b.traffic
-    n = len(traffic.cycle)
     start, events, render, dropped, marks, display, t_end = measure(
         b, seed, seconds, wrap)
     t_begin = events.stamps[0]
@@ -186,9 +201,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
             layout, traffic, start, ticks=frames, first=first))
         rec.profile = devtrace.read(trace_events, layout.cards, frames,
                                     replays=frames * len(layout.cards))
-        rec.pairs = layout.pairs([
-            port.camera(traffic.poses[(start + first + k) % n + 1])
-            for k in range(frames)])
+        rec.pairs = traced_pairs(layout, traffic, start, first, frames)
         busy = [c["busy_s"] for c in rec.profile["cards"].values()]
         dev_info["busy_s"] = sum(busy) / len(busy)
         dev_info["window_s"] = rec.profile["window_s"]
@@ -208,8 +221,8 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     del render, layout
     ref_device = release(b)
     t_ref = time.perf_counter()
-    acc = reference.build(reference.soup(b.scene, ref_device))
-    got = numbers(b, acc, start, display.sample)
+    got = numbers(b, judge.Reference(b.scene, ref_device), start,
+                  display.sample)
     say(f"reference: {got['frames']} frames in "
         f"{time.perf_counter() - t_ref:.1f} s")
     limits = cell.config["check"]["limits"]

@@ -180,7 +180,7 @@ def run(cell, seed: int, seconds: float, device: str = "cuda",
     """The cell's per-layer readings, those of the tracer among them."""
     import torch
 
-    from rtbench import devtrace, port, spec
+    from rtbench import devtrace, spec
     from rtbench import run as rtrun
     from rtbench import window as win
 
@@ -201,7 +201,6 @@ def run(cell, seed: int, seconds: float, device: str = "cuda",
         profile=None, pairs=None)
     rec.recaptures = captures() - caps
     first = len(render.calls)
-    n = len(traffic.cycle)
     line = {"workload": cell.name, "seed": seed, "failed": dropped}
     if render.cuda:
         frames = 2 * traffic.verify_period
@@ -209,9 +208,8 @@ def run(cell, seed: int, seconds: float, device: str = "cuda",
             layout, traffic, start, ticks=frames, first=first))
         rec.profile = devtrace.read(trace_events, layout.cards, frames,
                                     replays=frames * len(layout.cards))
-        rec.pairs = layout.pairs([
-            port.camera(traffic.poses[(start + first + k) % n + 1])
-            for k in range(frames)])
+        rec.pairs = rtrun.traced_pairs(layout, traffic, start, first,
+                                       frames)
         line["idle_gaps"] = rec.profile["idle_gaps"]
         line["device"] = {"kind": torch.cuda.get_device_name(0),
                           "count": len(layout.cards)}

@@ -4,7 +4,9 @@
 configuration and traffic mix; their files are `configs/<config>.json` and
 `traffic/<traffic>.json` beside this module, and each per-layer metric is
 `metrics/<name>.py`. Nothing here lists a cell, a configuration, a mix or
-a metric: a new one is a new file and a new entry.
+a metric: a new one is a new file and a new entry. A cell whose mix moves
+the scene needs a layout that sets MOVES (it takes each frame's scene
+state); any other is refused when the cell is read.
 """
 
 from __future__ import annotations
@@ -73,8 +75,15 @@ def cell(name: str, bench: Optional[dict] = None, here: str = HERE) -> Cell:
     reported = {m["name"] for m in e2e}
     layer = [m for m in bench["per_layer"]
              if m["moves"] in reported and _reports(m, name)]
-    return Cell(name=name, chips=int(w["chips"]),
-                config_name=w["config"],
-                config=_json("configs", w["config"], here),
-                traffic=_json("traffic", w["traffic"], here),
-                end_to_end=e2e, per_layer=layer)
+    config = _json("configs", w["config"], here)
+    traffic = _json("traffic", w["traffic"], here)
+    from rtbench.traffic import moves
+
+    layout = config["layout"].get(str(w["chips"]))
+    if moves(traffic) and not getattr(load_module("layouts", layout),
+                                      "MOVES", False):
+        raise ValueError(f"{name}: traffic {w['traffic']!r} moves the "
+                         f"scene; layout {layout!r} cannot (no MOVES)")
+    return Cell(name=name, chips=int(w["chips"]), config_name=w["config"],
+                config=config, traffic=traffic, end_to_end=e2e,
+                per_layer=layer)

@@ -20,23 +20,28 @@ LIMITS = {1: spec._json("configs", "ico9-640")["check"]["limits"],
           2: spec._json("configs", "grid12-4k-bands4")["check"]["limits"]}
 TRAFFIC = dict(spec._json("traffic", "arc"), share_of_revolution=0.05,
                verify_period=2)
+# The icosphere circles a unit radius once in the 20 ticks of a cycle
+# (~6 pixels a frame at 64x48) and the lights turn 18 degrees a frame.
+MOVING = dict(TRAFFIC, scene_motion={
+    "object_radius": 1.0, "object_revolutions": 1, "light_revolutions": 1})
 
 
-def cell(chips):
+def cell(chips, moving=False):
     scene = ({"generator": "icosphere", "subdivisions": 3} if chips == 1
              else {"generator": "instanced_grid", "n": 2,
                    "base": {"generator": "icosphere", "subdivisions": 1}})
     cfg = {"scene": scene, "width": 64, "height": 48,
-           "layout": {"1": "single", "2": "bands"}, "renderer": {},
-           "check": {"frames": 3, "limits": LIMITS[chips]}}
-    return spec.Cell("tiny", chips, "tiny", cfg, TRAFFIC, [], [])
+           "layout": {"1": "dynamic" if moving else "single", "2": "bands"},
+           "renderer": {}, "check": {"frames": 3, "limits": LIMITS[chips]}}
+    return spec.Cell("tiny", chips, "tiny", cfg,
+                     MOVING if moving else TRAFFIC, [], [])
 
 
 def stale(render):
     first = []
 
-    def f(cam, verify):
-        img = render(cam, verify)
+    def f(cam, verify, state):
+        img = render(cam, verify, state)
         if not first:
             first.append(img)
         return first[0]
@@ -44,8 +49,8 @@ def stale(render):
 
 
 def half(render):
-    def f(cam, verify):
-        img = render(cam, verify).clone()
+    def f(cam, verify, state):
+        img = render(cam, verify, state).clone()
         img[img.shape[0] // 2:] = 0.0
         return img
     return f
@@ -54,19 +59,31 @@ def half(render):
 def exchange(render):
     """Only band 0's rows arrive (the bands of the other cards are not
     gathered)."""
-    def f(cam, verify):
-        img = render(cam, verify).clone()
+    def f(cam, verify, state):
+        img = render(cam, verify, state).clone()
         img[-(-img.shape[0] // 2):] = 0.0
         return img
     return f
 
 
 def altered(render):
-    def f(cam, verify):
-        img = render(cam, verify).clone()
+    def f(cam, verify, state):
+        img = render(cam, verify, state).clone()
         h, w = img.shape[0] // 2, img.shape[1] // 2
         img[h - 4:h + 4, w - 4:w + 4] = (img[h - 4:h + 4, w - 4:w + 4]
                                          + 0.2).clamp(0.0, 1.0)
+        return img
+    return f
+
+
+def off_by_one(render):
+    """A moving layout that renders each frame at the scene of the call
+    before it."""
+    last = []
+
+    def f(cam, verify, state):
+        img = render(cam, verify, last[-1] if last else state)
+        last.append(state)
         return img
     return f
 
@@ -79,19 +96,25 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("chips", [1, 2])
-def test_sound_run_is_correct(chips):
-    line = rtrun.run(cell(chips), 2**31 + 11, 4.0, False, device="cpu")
+@pytest.mark.parametrize("chips,moving", [
+    pytest.param(1, False, id="1"), pytest.param(2, False, id="2"),
+    pytest.param(1, True, id="1-moving")])
+def test_sound_run_is_correct(chips, moving):
+    """Each cell of a fault below, run sound: the moving one is the
+    off_by_one fault's."""
+    line = rtrun.run(cell(chips, moving), 2**31 + 11, 4.0, False,
+                     device="cpu")
     assert line["correct"], line["checks"]
     assert line["failed"] == 0 and line["attempted"] >= 2
     assert list(line)[-1] == "checks"
 
 
 @pytest.mark.parametrize("chips,fault", [
-    (1, stale), (1, half), (1, altered), (2, exchange), (2, stale)])
+    (1, stale), (1, half), (1, altered), (2, exchange), (2, stale),
+    (1, off_by_one)])
 def test_fault_is_not_correct(chips, fault):
-    line = rtrun.run(cell(chips), 2**31 + 12, 4.0, False, device="cpu",
-                     wrap=fault)
+    line = rtrun.run(cell(chips, fault is off_by_one), 2**31 + 12, 4.0,
+                     False, device="cpu", wrap=fault)
     assert not line["correct"], line["checks"]
 
 

@@ -9,7 +9,17 @@ A mix (`traffic/<name>.json`) sets:
     it forward, then back over the same poses, then again;
   - "frames_in_flight", "verify_period" and "paced": the loop's settings
     (closed loop when not paced);
-  - "why": a line on what the mix is for.
+  - "why": a line on what the mix is for;
+  - "scene_motion" (optional): the scene's objects and lights moving on
+    every frame, as the upstream master's per-frame diff moves them
+    (EnvMutables, shared/state/environment.go:65-69). Every object
+    moves; its keys: "object_radius" (world units: object j of k circles
+    in the XZ plane through its position in the scene, offset
+    r (cos a - 1, 0, sin a), the form of
+    runtime/animation.orbit_object_diffs, starting at a = 2 pi j / k),
+    "object_revolutions" (whole turns per traffic cycle) and
+    "light_revolutions" (whole turns per cycle of each light about the
+    world y axis through the origin; 0 keeps the lights still).
 Each tick strafes left (the "a" key) and yaws by a mouse move, the orbit
 input pattern of tools/schedule_frames.py's sector and of
 runtime/animation.orbit_camera_path, driven through the input path. The
@@ -22,20 +32,48 @@ turned, and the cycle returns to its start.
 
 The seed sets where in the cycle a run starts (every seed has the same
 poses, in another order). Every tick moves the camera, so every tick
-makes a frame.
+makes a frame. The scene of the frame at cycle position c is
+`state(c)`, a function of c alone (None for a mix that moves nothing):
+the turns are whole, so `state(len(cycle))` is `state(0)`, bit for bit,
+and a frame's scene lies at the same cycle position as its pose.
 """
 
 from __future__ import annotations
 
 import math
 import time
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
-from rtbench.reference import Pose
+from rtbench.reference import Pose, State
 
 KEYS = {1: "a", -1: "d"}
+MOTION_KEYS = ("object_radius", "object_revolutions", "light_revolutions")
+
+
+def _motion(mix: dict) -> Optional[dict]:
+    """A mix's "scene_motion", its keys checked, or None."""
+    m = mix.get("scene_motion")
+    if m is None:
+        return None
+    if set(m) != set(MOTION_KEYS):
+        raise ValueError(f"scene_motion takes the keys {MOTION_KEYS}; "
+                         f"got {sorted(m)}")
+    for key in ("object_revolutions", "light_revolutions"):
+        if type(m[key]) is not int:
+            raise ValueError(f"scene_motion {key} is a whole number of "
+                             f"turns; got {m[key]!r}")
+    return m
+
+
+def moves(mix: dict) -> bool:
+    """Whether the mix moves any object or light."""
+    m = _motion(mix)
+    if m is None:
+        return False
+    return ((m["object_radius"] != 0 and m["object_revolutions"] != 0)
+            or m["light_revolutions"] != 0)
 
 
 class Traffic:
@@ -61,6 +99,38 @@ class Traffic:
         self.poses = [self.start]
         for strafe, dx in self.cycle:
             self.poses.append(self.next(self.poses[-1], (strafe, dx)))
+        self.moves = moves(mix)
+        self._states = None
+        if self.moves:
+            self._states = self._scene_states(_motion(mix), scene)
+
+    def _scene_states(self, m: dict, scene) -> List[State]:
+        """state(c) for c = 0 .. len(cycle)."""
+        n = len(self.cycle)
+        n_obj = len(scene.instances)
+        r = float(m["object_radius"])
+        phase = 2 * math.pi * np.arange(n_obj) / n_obj
+        lights = np.asarray(scene.light_pos, np.float64)
+        out = []
+        for c in range(n + 1):
+            # Angles from whole turns taken modulo the cycle: c = n is c = 0.
+            a = 2 * math.pi * ((m["object_revolutions"] * c) % n) / n + phase
+            offsets = np.zeros((n_obj, 3))
+            offsets[:, 0] = r * (np.cos(a) - 1.0)
+            offsets[:, 2] = r * np.sin(a)
+            b = 2 * math.pi * ((m["light_revolutions"] * c) % n) / n
+            moved = lights.copy()
+            if b:
+                cb, sb = math.cos(b), math.sin(b)
+                moved[:, 0] = lights[:, 0] * cb + lights[:, 2] * sb
+                moved[:, 2] = -lights[:, 0] * sb + lights[:, 2] * cb
+            out.append(State(offsets, moved))
+        return out
+
+    def state(self, c: int) -> Optional[State]:
+        """The scene at cycle position c (0 .. len(cycle)), or None when
+        the mix moves nothing."""
+        return None if self._states is None else self._states[c]
 
     def next(self, pose: Pose, tick) -> Pose:
         return pose.tick(tick[0], tick[1], self.width, self.move_step)
@@ -75,6 +145,14 @@ class Traffic:
     def settle_poses(self) -> List[Pose]:
         """Every frame pose of one cycle, in the cycle's order."""
         return self.poses[1:]
+
+    def settle_states(self) -> List[Optional[State]]:
+        """The scene of each pose of settle_poses()."""
+        return [self.state(c) for c in range(1, len(self.poses))]
+
+    def frame_state(self, start: int, k: int) -> Optional[State]:
+        """The scene of frame k of the run starting at `start`."""
+        return self.state((start + k) % len(self.cycle) + 1)
 
     def frame_poses(self, start: int, ticks: int) -> List[Pose]:
         """The poses of the first `ticks` frames from `start`, accumulated

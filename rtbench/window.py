@@ -4,15 +4,18 @@
 The render function is the CLI's culled mode's (run.py `_periodic_verify`
 over the renderer, uint8 conversion on the card with
 runtime/framebuffer.to_u8_device): every `verify_period`-th frame checks
-its buckets (a host sync). Around each call the harness reads the host
-clock (the enqueue time) and, on CUDA, records an event on each card's
-frame streams before and after it. The display callback stamps each
-frame's display and keeps a sample of the displayed frames, drawn from
-the seed, for the comparison with the reference.
+its buckets (a host sync). Each call hands the layout the scene state of
+the frame it stands for (None where the traffic moves nothing). Around
+each call the harness reads the host clock (the enqueue time) and, on
+CUDA, records an event on each card's frame streams before and after it.
+The display callback stamps each frame's display and keeps a sample of
+the displayed frames, drawn from the seed, for the comparison with the
+reference.
 """
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Callable, Dict, List, Optional
@@ -32,22 +35,42 @@ class Call:
 
 
 class Renderer:
-    """render_fn(scene_arrays, camera_arrays) for run_loop."""
+    """render_fn(scene_arrays, camera_arrays) for run_loop over the run of
+    `traffic` starting at cycle position `start`.
 
-    def __init__(self, layout, period: int, first: int = 0,
+    Each call hands the layout the scene state of the frame it stands
+    for: a new frame (a camera object not seen yet) is the next frame; a
+    frame issued again is run_loop passing back the very camera object of
+    a frame in flight, found by `is` among the cameras of the last
+    frames_in_flight + 1 new frames (the frames run_loop may issue
+    again)."""
+
+    def __init__(self, layout, traffic: Traffic, start: int, first: int = 0,
                  wrap: Optional[Callable] = None):
         from distributed_raytracer_tpu_torch.runtime import framebuffer
 
-        self.layout, self.period, self.k = layout, period, first
+        self.layout, self.period, self.k = layout, traffic.verify_period, first
         self.to_u8 = framebuffer.to_u8_device
         self.render = layout.render if wrap is None else wrap(layout.render)
         self.cuda = layout.cards[0].type == "cuda"
         self.streams = layout.frame_streams() if self.cuda else None
         self.calls: List[Call] = []
+        self.traffic, self.start, self.frame = traffic, start, first
+        self.held = collections.deque(maxlen=traffic.frames_in_flight + 1)
+
+    def frame_of(self, cam) -> int:
+        """The frame index of a call with camera object `cam`."""
+        for seen, k in self.held:
+            if seen is cam:
+                return k
+        k, self.frame = self.frame, self.frame + 1
+        self.held.append((cam, k))
+        return k
 
     def __call__(self, scene_arrays, cam):
         verify = self.k % self.period == 0
         self.k += 1
+        state = self.traffic.frame_state(self.start, self.frame_of(cam))
         evs = None
         if self.cuda:
             evs = [(torch.cuda.Event(enable_timing=True),
@@ -56,7 +79,7 @@ class Renderer:
             for (a, _), (s, _) in zip(evs, self.streams):
                 a.record(s)
         t0 = time.perf_counter()
-        img = self.to_u8(self.render(cam, verify))
+        img = self.to_u8(self.render(cam, verify, state))
         t1 = time.perf_counter()
         if self.cuda:
             for (_, b), (_, s) in zip(evs, self.streams):
@@ -103,7 +126,7 @@ def loop(layout, traffic: Traffic, start: int, *, seconds: float = None,
 
     cfg = RenderConfig(move_step=traffic.move_step,
                        frames_in_flight=traffic.frames_in_flight)
-    render = Renderer(layout, traffic.verify_period, first, wrap)
+    render = Renderer(layout, traffic, start, first, wrap)
     events = Events(traffic, start, seconds=seconds, ticks=ticks,
                     first=first)
     n = len(traffic.cycle)
