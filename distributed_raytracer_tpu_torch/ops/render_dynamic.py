@@ -24,6 +24,14 @@ The diffed arrays form one per-frame `DeviceScene` bundle that the parent's
 frozen pipeline reads in place of its own; the renderer is never mutated
 per frame. On CUDA the fold and the pipeline are captured together in one
 CUDA graph (ops/frozen_graph.py), so a frame is one replay.
+
+Tracing (utils/tracing.py). Each render_dynamic call counts one frame in
+`COUNTS["scene_diffs"]`, on or off. While the tracer is on, the diff's
+pack and its copy into pinned memory are the span `dynamic.diff`, and the
+fold (`_apply_diff`, light refolds included) lies between two device
+stamps of their own kind, "fold", marked before the culled frame's five
+"stages" stamps and captured into the same graph; with the tracer off the
+graph holds no stamp.
 """
 
 from __future__ import annotations
@@ -34,7 +42,9 @@ import torch
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneDiff
 from distributed_raytracer_tpu_torch.ops import raygen
 from distributed_raytracer_tpu_torch.ops.render_bvh import (CulledRenderer,
-                                                            DeviceScene)
+                                                            DeviceScene,
+                                                            _no_mark)
+from distributed_raytracer_tpu_torch.utils import tracing
 
 
 def _rowdot3(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -51,6 +61,7 @@ class DynamicCulledRenderer(CulledRenderer):
             raise ValueError("DynamicCulledRenderer bakes its scene itself "
                              "(bake_bvh_grouped): pass a Scene, no prebaked")
         super().__init__(scene, width, height, **kwargs)
+        self._fold_stamps = None    # the fold's stamps, made when first marked
 
     def _bake_scene(self, scene: Scene, block_size: int):
         """The grouped bake, keeping the ownership maps on the device."""
@@ -69,6 +80,17 @@ class DynamicCulledRenderer(CulledRenderer):
         host-to-device copy of a frame's diff."""
         return torch.from_numpy(np.concatenate(
             [np.asarray(a, np.float32).reshape(-1, 3) for a in diff]))
+
+    def _fold_marks(self):
+        """mark(point) of a frame's fold stamps (0 before the fold, 1 after
+        it): the renderer's "fold" tracing.Stamps while the tracer is on,
+        else nothing."""
+        if not tracing.enabled():
+            return _no_mark
+        if self._fold_stamps is None:
+            self._fold_stamps = tracing.Stamps(self.device, points=2,
+                                               kind="fold", rank=self.rank)
+        return self._fold_stamps.mark
 
     def _diff_views(self, packed: torch.Tensor) -> SceneDiff:
         """SceneDiff viewing a (n, 3) _diff_packed tensor on the device."""
@@ -115,10 +137,19 @@ class DynamicCulledRenderer(CulledRenderer):
         render_fast does."""
         if self._frozen_pads is None:
             self.freeze(camera)
+        tracing.COUNTS["scene_diffs"] += 1
+        with tracing.span("dynamic.diff"):
+            packed = self._diff_packed(diff)
+            if self.device.type == "cuda":
+                packed = packed.pin_memory()
         frame = self._frozen_frame(
             "dynamic", {"camera": raygen.camera_packed(camera),
-                        "diff": self._diff_packed(diff)},
-            lambda bufs, pads: self._full(
-                self._apply_diff(self._diff_views(bufs["diff"])), pads,
-                raygen.camera_views(bufs["camera"])))
+                        "diff": packed}, self._dynamic_body)
         return self._render_frozen(frame, camera, verify, "render_dynamic")
+
+    def _dynamic_body(self, bufs: dict, pads: tuple):
+        mark = self._fold_marks()
+        mark(0)
+        sc = self._apply_diff(self._diff_views(bufs["diff"]))
+        mark(1)
+        return self._full(sc, pads, raygen.camera_views(bufs["camera"]))

@@ -27,7 +27,9 @@ be written as PNGs, and the exit report reproduces the master's FPS
 statistics (master/main.go:285-325) plus Mrays/s. `--serve HOST:PORT`
 runs the interactive loop (runtime/loop.py) behind the browser viewer
 (runtime/viewer.py) instead, in every ported mode, until a client sends
-Esc.
+Esc; with `--animate-objects` each viewer tick carries the next diff as
+the loop's scene state (`served_dynamic`), so the object moves one diff a
+tick.
 
 `--multihost --coordinator HOST:PORT --num-processes P --process-id I`
 runs one of P processes of one job (parallel/multihost.py), each on its
@@ -50,6 +52,7 @@ opens it.
 from __future__ import annotations
 
 import argparse
+import itertools
 import os
 import sys
 import time
@@ -129,6 +132,22 @@ def _periodic_verify(render_v, period: int = 8):
     return render
 
 
+def served_dynamic(dyn, diffs):
+    """--serve --animate-objects: (the scene states, render_fn(state,
+    camera_arrays)) for runtime/loop.run_loop. The states are (k, diff k
+    of `diffs`, cycled), one for each viewer tick (runtime/viewer.serve's
+    `scenes`): the scene moves one diff a tick, so every tick makes a
+    frame, and a frame issued again is drawn with its own diff. The frame
+    of every 8th diff verifies its buckets."""
+    states = ((k, diffs[k % len(diffs)]) for k in itertools.count())
+
+    def render(state, cam):
+        k, diff = state
+        return dyn.render_dynamic(cam, diff, verify=(k % 8 == 0))
+
+    return states, render
+
+
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     multi = args.multihost or args.coordinator is not None
@@ -192,6 +211,9 @@ def _run(args, device) -> int:
 
     scene = load_scene(args.scene)
     w, h = args.width, args.height
+    # --serve: the scene states its ticks carry (None: the scene as
+    # loaded, never moved).
+    scene_states = None
     diffs = (animation.orbit_object_diffs(scene, args.frames,
                                           radius=args.object_radius,
                                           revolutions=args.revolutions)
@@ -254,17 +276,7 @@ def _run(args, device) -> int:
         dyn.freeze(scene.camera)
         render_k = lambda k, cam: dyn.render_dynamic(
             cam, diffs[k], verify=(k % 8 == 0))
-
-        # For --serve: advance the object orbit one diff per rendered
-        # frame (frames are produced on input change, the reference's
-        # main.go:246 rule, so the object moves as the viewer interacts).
-        served = [0]
-
-        def render_arrays(c):
-            k = served[0]
-            served[0] += 1
-            return dyn.render_dynamic(c, diffs[k % len(diffs)],
-                                      verify=(k % 8 == 0))
+        scene_states, render_state = served_dynamic(dyn, diffs)
     else:
         # block_size="auto": the per-scene leaf policy
         # (utils/config.default_block_size).
@@ -286,10 +298,13 @@ def _run(args, device) -> int:
         from distributed_raytracer_tpu_torch.runtime import viewer
 
         host, _, port = args.serve.rpartition(":")
+        if scene_states is None:
+            render_state = lambda s, c: render_arrays(c)
         cam, stats, dropped = viewer.serve(
-            None, scene.camera, lambda s, c: render_arrays(c), w, h,
+            None, scene.camera, render_state, w, h,
             host=host or "127.0.0.1", port=int(port),
-            on_ready=lambda v: print(f"viewer at {v.url}", flush=True))
+            on_ready=lambda v: print(f"viewer at {v.url}", flush=True),
+            scenes=scene_states)
         if stats is not None:
             print(stats.report())
         print(f"Frames dropped: {dropped}.")

@@ -12,6 +12,15 @@ completion guarantees in-order display. Input events come from a pluggable
 source (scripted animation when headless, or runtime/viewer.py); the
 display sink is a callback.
 
+The scene's mutable state. Every work order of the reference master
+carries the scene's mutable state beside the camera (EnvMutables,
+shared/state/environment.go:65-69; master/main.go:260-266). Here a tick's
+events may hold ("scene", state): the scene from that tick on, which the
+loop keeps as it keeps the camera. A scene event marks the tick dirty, as
+input does (main.go:246). Each frame is issued with the state current at
+its tick, `render_fn(state, camera_arrays)`, and keeps it beside its camera
+while in flight; with no scene event ever sent the state is `scene_arrays`.
+
 Fault handling, as in the JAX package: a failed frame (the render raises
 when it is dispatched, or its copy fails when it is drained) is a dropped
 frame and the stream continues, with drop accounting preserved. After
@@ -23,17 +32,18 @@ when recovery is unavailable, fails or is used up (cfg.max_recoveries).
 
 The bucket check of a verify frame (ops/frozen_graph.py) runs at the
 frame's drain, not at its issue: the loop opens a deferral around each
-render call, keeps the checks the call made (and the frame's camera) with
-the frame in flight, and settles them once the frame's host copy has
-landed, before it is displayed; the render call itself waits for nothing.
-A verify frame is never displayed before its counts are known to fit. On
-an overflow the check has grown the buckets; the loop then issues the
-frame again with its own camera, and every frame still in flight behind
-it, in order, abandoning their old copies, so no frame issued after it is
-shown with the outgrown buckets, and drains and displays the new frame
-under the same index (`COUNTS["verify_reissued"]` counts the frames
-issued again). A check that raises is a dropped frame. Outside this loop
-a verify check runs before the render call returns.
+render call, keeps the checks the call made (and the frame's camera and
+scene state) with the frame in flight, and settles them once the frame's
+host copy has landed, before it is displayed; the render call itself
+waits for nothing. A verify frame is never displayed before its counts
+are known to fit. On an overflow the check has grown the buckets; the
+loop then issues the frame again with its own camera and scene state,
+and every frame still in flight behind it with theirs, in order,
+abandoning their old copies, so no frame issued after it is shown with
+the outgrown buckets, and drains and displays the new frame under the
+same index (`COUNTS["verify_reissued"]` counts the frames issued again).
+A check that raises is a dropped frame. Outside this loop a verify check
+runs before the render call returns.
 
 Spans (utils/tracing.py): `loop.run` (the whole loop, no frame id),
 `loop.tick` (one input tick), `loop.issue` (the render call), `loop.drain`
@@ -106,7 +116,7 @@ def _start_copy(out, streams: dict):
 def run_loop(
     scene_arrays: SceneArrays,
     camera: Camera,
-    render_fn: Callable,            # (scene, cam_arrays) -> image (H, W, 3)
+    render_fn: Callable,            # (state, cam_arrays) -> image (H, W, 3)
     width: int,
     height: int,
     events: Iterable,               # iterable of per-tick event lists
@@ -119,9 +129,11 @@ def run_loop(
     """Drive the interactive loop until events are exhausted or Esc.
 
     Each element of `events` is a list of (kind, *args) tuples with kinds
-    "key_down"/"key_up"/"mouse" — the HandleInputs analog. `render_fn`
-    returns a tensor (on the card or the host) or any object with
-    __array__. Returns (final_camera, FrameStats, frames_dropped).
+    "key_down"/"key_up"/"mouse" — the HandleInputs analog — and "scene"
+    (("scene", state): the scene state from this tick on, passed to
+    `render_fn` in place of `scene_arrays`). `render_fn` returns a tensor
+    (on the card or the host) or any object with __array__. Returns
+    (final_camera, FrameStats, frames_dropped).
 
     `recover`, when given, is called with the 1-based attempt number after
     cfg.max_consecutive_drops consecutive dropped frames; it should tear
@@ -132,8 +144,10 @@ def run_loop(
     """
     controller = CameraController(width=width, height=height, cfg=cfg)
     timer = FrameTimer()
-    # (frame_index, pending image, its deferred checks, its camera arrays)
+    # (frame_index, pending image, its deferred checks, its camera arrays,
+    # its scene state)
     in_flight = collections.deque()
+    scene = scene_arrays
     copy_streams = {}
     frames_dropped = 0
     consecutive_drops = 0
@@ -169,30 +183,32 @@ def run_loop(
         consecutive_drops = 0
         return True
 
-    def issue(cam_arrays):
+    def issue(cam_arrays, state):
         """Enqueues one frame: (its pending image, the checks its render
         call deferred)."""
         with frozen_graph.deferred() as checks:
-            out = render_fn(scene_arrays, cam_arrays)
+            out = render_fn(state, cam_arrays)
         return _start_copy(out, copy_streams), checks
 
-    def reissue(idx, cam_arrays):
+    def reissue(idx, cam_arrays, state):
         """After frame idx's check grew the buckets: issues idx again, then
-        every frame in flight behind it, in order, with its own camera."""
+        every frame in flight behind it, in order, each with its own camera
+        and scene state."""
         nonlocal frames_dropped, consecutive_drops
-        frames = [(idx, cam_arrays)] + [(f[0], f[3]) for f in in_flight]
+        frames = [(idx, cam_arrays, state)] + [(f[0], f[3], f[4])
+                                               for f in in_flight]
         in_flight.clear()
-        for i, cam in frames:
+        for i, cam, st in frames:
             try:
                 with tracing.span("loop.issue", frame=i):
-                    pending, checks = issue(cam)
+                    pending, checks = issue(cam, st)
             except Exception:
                 frames_dropped += 1
                 consecutive_drops += 1
                 _log.warning("frame %d dropped (dispatch failure)", i)
                 continue
             tracing.COUNTS["verify_reissued"] += 1
-            in_flight.append((i, pending, checks, cam))
+            in_flight.append((i, pending, checks, cam, st))
 
     def drain_one():
         """Drains, checks and displays the oldest frame in flight (issuing
@@ -200,7 +216,7 @@ def run_loop(
         buckets)."""
         nonlocal frames_dropped, consecutive_drops
         while in_flight:
-            idx, pending, checks, cam_arrays = in_flight.popleft()
+            idx, pending, checks, cam_arrays, state = in_flight.popleft()
             try:
                 with tracing.span("loop.drain", frame=idx):
                     img = np.asarray(pending)  # waits for the host copy
@@ -217,7 +233,7 @@ def run_loop(
                     with tracing.span("loop.display", frame=idx):
                         display(idx, img)
                 return
-            reissue(idx, cam_arrays)
+            reissue(idx, cam_arrays, state)
 
     tracing.set_frame(None)
     with tracing.span("loop.run"):
@@ -225,6 +241,7 @@ def run_loop(
             tracing.set_frame(timer.frames_total)
             with tracing.span("loop.tick"):
                 tick_start = time.monotonic()
+                moved = False
                 for ev in tick_events:
                     kind = ev[0]
                     if kind == "key_down":
@@ -233,12 +250,16 @@ def run_loop(
                         controller.key_up(ev[1])
                     elif kind == "mouse":
                         controller.mouse_motion(ev[1], ev[2])
+                    elif kind == "scene":
+                        scene, moved = ev[1], True
                 if not controller.running:
                     break
 
-                # Frames only on input change (main.go:246).
-                if controller.dirty:
-                    camera = controller.apply(camera)
+                # Frames only on input change (main.go:246); a new scene
+                # state is input.
+                if controller.dirty or moved:
+                    if controller.dirty:
+                        camera = controller.apply(camera)
                     frame_index = timer.frames_total
                     timer.frame_issued()
                     cam_arrays = camera.to_arrays()
@@ -249,7 +270,7 @@ def run_loop(
                         # like a failed tile (main.go:119-125), do not let
                         # it escape the loop.
                         with tracing.span("loop.issue"):
-                            pending, checks = issue(cam_arrays)
+                            pending, checks = issue(cam_arrays, scene)
                     except Exception:
                         frames_dropped += 1
                         consecutive_drops += 1
@@ -257,7 +278,7 @@ def run_loop(
                                      frame_index)
                     else:
                         in_flight.append((frame_index, pending, checks,
-                                          cam_arrays))
+                                          cam_arrays, scene))
                         while len(in_flight) > cfg.frames_in_flight:
                             drain_one()
                     if consecutive_drops >= cfg.max_consecutive_drops:

@@ -231,14 +231,24 @@ class ViewerServer:
         self._httpd.server_close()
 
 
+def with_scenes(events, states):
+    """Each tick's events with ("scene", the next of `states`) appended:
+    the scene moves one state a tick (runtime/loop.py)."""
+    for tick, state in zip(events, states):
+        yield list(tick) + [("scene", state)]
+
+
 def serve(scene_arrays, camera, render_fn, width: int, height: int,
           host: str = "127.0.0.1", port: int = 8000, cfg=None,
-          on_ready=None):
+          on_ready=None, scenes=None):
     """Serve an interactive render session until Esc (blocking).
 
     The exact analog of the master's main loop: 30 Hz input ticks, frames
     only on input change, pipelined dispatch, FPS statistics at exit
-    (master/main.go:240-325)."""
+    (master/main.go:240-325). `scenes`, when given, is an iterable of
+    scene states, one carried by each tick (`with_scenes`): the scene's
+    mutable state the master sends with every work order
+    (master/main.go:260-266), so every tick makes a frame."""
     from distributed_raytracer_tpu_torch.runtime.loop import run_loop
     from distributed_raytracer_tpu_torch.utils.config import DEFAULT_CONFIG
 
@@ -246,9 +256,12 @@ def serve(scene_arrays, camera, render_fn, width: int, height: int,
     if on_ready is not None:
         on_ready(viewer)
     try:
+        events = viewer.events()
+        if scenes is not None:
+            events = with_scenes(events, scenes)
         cam, stats, dropped = run_loop(
             scene_arrays, camera, render_fn, width, height,
-            events=viewer.events(), display=viewer.display,
+            events=events, display=viewer.display,
             cfg=cfg or DEFAULT_CONFIG, realtime=True)
         viewer.set_stats(dropped=dropped)
         return cam, stats, dropped

@@ -12,6 +12,12 @@ directory) and prints, per frame, through utils/profiling.anatomy:
   - the longest idle gaps of the card, with the host event under each
     (the innermost CPU op, Python function or CUDA runtime call).
 
+A chrome trace of the program's own tracer (the CLI's `--trace-out`,
+utils/tracing.write_chrome_trace) holds device stamps instead of kernels:
+for it, the report is each stamped interval's device ms per frame on each
+card, mean over the frames with a frame id: the scene-diff fold of the
+dynamic frame and the culled frame's stages A, B1, B2 and C.
+
     python -m distributed_raytracer_tpu_torch.tools.xprof TRACE \\
         [n_frames] [top_k]
 """
@@ -21,6 +27,9 @@ from __future__ import annotations
 import sys
 
 from distributed_raytracer_tpu_torch.utils import profiling
+
+# Event categories of the tracer's device stamps.
+_STAMPED = ("fold", "stage")
 
 
 def report(events, frames: int = 1, top_k: int = 25) -> list:
@@ -45,6 +54,19 @@ def report(events, frames: int = 1, top_k: int = 25) -> list:
     return lines
 
 
+def stamps_report(events) -> list:
+    """The report's lines for a chrome trace of the program's tracer."""
+    durs = {}
+    for e in events:
+        if e.get("cat") in _STAMPED and e["args"].get("frame") is not None:
+            durs.setdefault((e["pid"], e["name"]), []).append(e["dur"])
+    lines = ["== device stamps: ms per frame (frames with an id)"]
+    for (card, name), us in sorted(durs.items()):
+        lines.append(f"  {sum(us) / len(us) / 1e3:9.4f} ms  {name:8s} on "
+                     f"{card}, {len(us)} frames")
+    return lines
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
@@ -54,7 +76,12 @@ def main(argv=None) -> int:
     top_k = int(argv[2]) if len(argv) > 2 else 25
     path = profiling.find_trace(argv[0])
     print(f"trace: {path}")
-    for line in report(profiling.load_events(path), frames, top_k):
+    events = profiling.load_events(path)
+    if any(e.get("cat") in _STAMPED for e in events):
+        lines = stamps_report(events)
+    else:
+        lines = report(events, frames, top_k)
+    for line in lines:
         print(line)
     return 0
 

@@ -17,12 +17,15 @@ and so does a stamp row: the spans and stamps of one frame share its id.
 
 Counters. `COUNTS` (ops/frozen_graph.COUNTS is this dict) counts graph
 captures and replays, the verify checks settled when the frame loop
-drains their frame (`verify_deferred`) and the frames the loop issued
-again after such a check overflowed (`verify_reissued`), on or off; a
-caller reads differences.
+drains their frame (`verify_deferred`), the frames the loop issued
+again after such a check overflowed (`verify_reissued`) and the frames
+the dynamic renderer issued with a scene diff (`scene_diffs`,
+ops/render_dynamic.py), on or off; a caller reads differences.
 
 Device stamps. `Stamps` marks points of a renderer's frame (five for the
-culled frame: before stage A and after A, B1, B2 and C; `STAGES`). On
+culled frame, kind "stages": before stage A and after A, B1, B2 and C,
+`STAGES`; two for the dynamic frame's scene-diff fold, kind "fold",
+before and after it; one after the band gather, kind "gather"). On
 CUDA each mark is a one-thread kernel (csrc/stamp.cu, built and loaded
 only when the tracer first marks) that writes the card's %globaltimer
 into a row of the renderer's device ring. Captured into a frozen frame's
@@ -53,9 +56,10 @@ import torch.autograd.profiler as _profiler
 
 # Graph captures and replays of every FrameGraph (ops/frozen_graph.py);
 # deferred verify checks settled, and frames issued again after one
-# overflowed (runtime/loop.py).
+# overflowed (runtime/loop.py); frames issued with a scene diff
+# (ops/render_dynamic.py).
 COUNTS = {"captures": 0, "replays": 0, "verify_deferred": 0,
-          "verify_reissued": 0}
+          "verify_reissued": 0, "scene_diffs": 0}
 
 # The culled frame's stages, between its five marks.
 STAGES = ("A", "B1", "B2", "C")
@@ -236,9 +240,10 @@ def _to_host(card: str, dev_ns: int) -> int:
 
 class Stamps:
     """The marks of one renderer's frames on its device: `points` per row
-    (5 for the culled frame's stages, 1 for a mark after the band gather),
-    `kind` ("stages" or "gather") and `rank` (the band's, or None) name
-    the rows in the export."""
+    (5 for the culled frame's stages, 2 around the dynamic frame's fold, 1
+    for a mark after the band gather), `kind` ("stages", "fold" or
+    "gather") and `rank` (the band's, or None) name the rows in the
+    export."""
 
     def __init__(self, device, points: int = 5, kind: str = "stages",
                  rank: Optional[int] = None):
@@ -333,8 +338,8 @@ def export() -> dict:
 
 def write_chrome_trace(path: str) -> None:
     """The recording (`export()`) as a chrome trace: spans on the host's
-    row, each renderer's stages on its card's row, the counters at the
-    end; times in microseconds on the host's clock."""
+    row, each renderer's stages and folds on its card's row, the counters
+    at the end; times in microseconds on the host's clock."""
     rec = export()
     events = []
     for s in rec["spans"]:
@@ -349,6 +354,12 @@ def write_chrome_trace(path: str) -> None:
             events.append({"name": "gathered", "cat": "stamp", "ph": "i",
                            "s": "t", "pid": r["card"], "tid": tid,
                            "ts": ns[0] / 1e3, "args": {"frame": r["frame"]}})
+            continue
+        if r["kind"] == "fold":
+            events.append({"name": "fold", "cat": "fold", "ph": "X",
+                           "pid": r["card"], "tid": tid, "ts": ns[0] / 1e3,
+                           "dur": (ns[1] - ns[0]) / 1e3,
+                           "args": {"frame": r["frame"]}})
             continue
         for k, stage in enumerate(STAGES):
             events.append({"name": f"stage {stage}", "cat": "stage",

@@ -8,8 +8,13 @@ frames: the check, settled after the frame's drain and before its
 display) and `loop.display`, all with the frame's id; each frame's five
 stage stamps rise in order; the band schedule adds a `bands.replay` per
 rank, `bands.gather` and a stamp after the gather; the graph counters count
-as before, and the verify frames' checks count as deferred. Under a profiler window the spans are `user_annotation` events,
-and the trace parser names an idle gap by the span under it. The command
+as before, and the verify frames' checks count as deferred. A moving scene
+(DynamicCulledRenderer through the loop's scene events) adds per frame a
+`dynamic.diff` span and a "fold" stamp row of two marks, before the five
+"stages" marks; `scene_diffs` counts its frames, on or off; the benchmark's
+`fold_ms` reader and tools/xprof.py read the fold from the recording.
+Under a profiler window the spans are `user_annotation` events, and the
+trace parser names an idle gap by the span under it. The command
 line writes the recording as a chrome trace. On the card (`cuda` marker):
 the stamps of replayed graphs lie inside each replay's CUDA-event interval
 and, on the host's clock, after the replay was issued and before the
@@ -22,6 +27,7 @@ and no JAX the card's test runs with
 
 import json
 import time
+import types
 
 import pytest
 import torch
@@ -29,10 +35,13 @@ import torch
 from distributed_raytracer_tpu_torch import run as cli
 from distributed_raytracer_tpu_torch.ops import frozen_graph
 from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+from distributed_raytracer_tpu_torch.ops.render_dynamic import (
+    DynamicCulledRenderer)
 from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
 from distributed_raytracer_tpu_torch.parallel import render_sharded_bvh
 from distributed_raytracer_tpu_torch.runtime import animation
 from distributed_raytracer_tpu_torch.runtime.loop import run_loop
+from distributed_raytracer_tpu_torch.tools import xprof
 from distributed_raytracer_tpu_torch.utils import profiling, scenes, tracing
 
 W, H = 32, 24
@@ -89,6 +98,31 @@ def loop(scene, r, display=None):
 
 def by_id(spans):
     return {s["id"]: s for s in spans}
+
+
+@pytest.fixture
+def dynamic():
+    """A dynamic renderer of four spheres, frozen with room to spare."""
+    scene = scenes.instanced_grid(scenes.icosphere_scene(1), 2)
+    r = DynamicCulledRenderer(scene, W, H, device="cpu", block_size=32,
+                              ray_tile=128, tile_w=16)
+    r.render(scene.camera, block=True)
+    r.freeze(scene.camera, margin=2.0)
+    return scene, r
+
+
+def moving_loop(scene, r):
+    """run_loop of FRAMES frames of r, each tick a mouse move and the next
+    scene diff (object 0 orbiting), verifying every PERIOD-th frame."""
+    diffs = animation.orbit_object_diffs(scene, FRAMES, radius=0.5)
+    k = [0]
+
+    def render(state, cam):
+        verify = k[0] % PERIOD == 0
+        k[0] += 1
+        return r.render_dynamic(cam, state, verify=verify)
+    run_loop(None, scene.camera, render, W, H,
+             events=[[("mouse", 2.0, 0.0), ("scene", d)] for d in diffs])
 
 
 def test_off_keeps_no_span_and_opens_no_profiler_range(renderer,
@@ -169,6 +203,69 @@ def test_on_spans_nest_per_frame_with_one_frame_id(renderer, tracer):
     assert rec["counters"] == frozen_graph.COUNTS
 
 
+def test_off_a_moving_frame_records_nothing_and_counts_its_diff(
+        dynamic, monkeypatch):
+    tracing.enable()
+    tracing.disable()
+
+    def refuse(*a, **k):
+        raise AssertionError("a span or profiler range was made")
+
+    monkeypatch.setattr(tracing, "_Span", refuse)
+    monkeypatch.setattr(tracing, "_ProfiledSpan", refuse)
+    scene, r = dynamic
+    before = dict(frozen_graph.COUNTS)
+    moving_loop(scene, r)
+    rec = tracing.export()
+    assert rec["spans"] == [] and rec["stamps"] == []
+    assert r._fold_stamps is None and r._stamps is None
+    assert frozen_graph.COUNTS == dict(
+        before, verify_deferred=before["verify_deferred"] + 3,
+        scene_diffs=before["scene_diffs"] + FRAMES)
+
+
+def test_on_a_moving_frame_stamps_its_fold_before_its_stages(
+        dynamic, tracer, tmp_path, capsys):
+    scene, r = dynamic
+    before = dict(frozen_graph.COUNTS)
+    moving_loop(scene, r)
+    tracer.disable()
+    rec = tracer.export()
+    assert frozen_graph.COUNTS["scene_diffs"] - before["scene_diffs"] \
+        == FRAMES
+    folds = [row for row in rec["stamps"] if row["kind"] == "fold"]
+    stages = {row["frame"]: row for row in rec["stamps"]
+              if row["kind"] == "stages"}
+    assert [row["frame"] for row in folds] == list(range(FRAMES))
+    assert sorted(stages) == list(range(FRAMES))
+    diffs = [s for s in rec["spans"] if s["name"] == "dynamic.diff"]
+    assert [s["frame"] for s in diffs] == list(range(FRAMES))
+    for row, span in zip(folds, diffs):
+        ns, after = row["ns"], stages[row["frame"]]["ns"]
+        assert row["card"] == "cpu" and len(ns) == 2 and ns[0] < ns[1]
+        assert len(after) == 5 and after == sorted(after)
+        assert span["end_ns"] <= ns[0] and ns[1] <= after[0]
+    fold_ms = sum(row["ns"][1] - row["ns"][0] for row in folds) / FRAMES / 1e6
+    from rtbench import spec as rtspec
+
+    reader = rtspec.load_module("metrics", "fold_ms")
+    assert reader.read(types.SimpleNamespace(trace=rec)) == fold_ms > 0
+    static = dict(rec, stamps=list(stages.values()))
+    assert reader.read(types.SimpleNamespace(trace=static)) is None
+    assert reader.read(types.SimpleNamespace(trace=None)) is None
+    # The chrome trace holds one fold per frame, and xprof reports it.
+    path = tmp_path / "trace.json"
+    tracer.write_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    assert [e["args"]["frame"] for e in events
+            if e.get("cat") == "fold"] == list(range(FRAMES))
+    assert xprof.main([str(path)]) == 0
+    out = capsys.readouterr().out
+    (line,) = [ln for ln in out.splitlines() if " fold " in ln]
+    assert line.split()[0] == f"{fold_ms:.4f}" and f"{FRAMES} frames" in line
+    assert sum(" stage " in ln for ln in out.splitlines()) == 4
+
+
 def test_graph_key_and_counters_follow_the_tracer(renderer, tracer):
     """The graph key names whether the tracer is on (a graph with stamps is
     a graph of its own); COUNTS is the tracer's counter registry."""
@@ -178,7 +275,7 @@ def test_graph_key_and_counters_follow_the_tracer(renderer, tracer):
     assert r._graph_key("fast", r.buckets()) != on
     assert frozen_graph.COUNTS is tracing.COUNTS
     assert set(tracing.COUNTS) == {"captures", "replays", "verify_deferred",
-                                   "verify_reissued"}
+                                   "verify_reissued", "scene_diffs"}
 
 
 def test_buckets_are_the_frozen_buckets():
@@ -365,3 +462,43 @@ def test_cuda_stamps_lie_in_the_replay_and_on_the_host_clock(cuda_renderer):
     for row in rows:
         assert row["ns"][0] >= row["issued_ns"] - slack
         assert row["ns"][-1] <= drains[row["frame"]]["end_ns"] + slack
+
+
+@pytest.mark.cuda
+def test_cuda_dynamic_replays_stamp_the_fold_before_the_stages():
+    """render_dynamic's graph captured with the tracer on: each replay
+    fills one "fold" row and one "stages" row; the fold's two marks rise
+    and end before stage A starts, and the counter counts the frames."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    scene = scenes.instanced_grid(scenes.icosphere_scene(2), 3)
+    r = DynamicCulledRenderer(scene, 256, 192, device="cuda")
+    try:
+        r.render(scene.camera, block=True)
+        r.freeze(scene.camera)
+        diffs = animation.orbit_object_diffs(scene, 6, radius=0.5)
+        tracing.enable()
+        r.render_dynamic(scene.camera, diffs[0])     # captures with stamps
+        torch.cuda.synchronize()
+        tracing.enable()                             # a new recording
+        before = frozen_graph.COUNTS["scene_diffs"]
+        for k, d in enumerate(diffs):
+            tracing.set_frame(k)
+            r.render_dynamic(scene.camera, d)
+        torch.cuda.synchronize()
+        tracing.disable()
+        rec = tracing.export()
+        assert frozen_graph.COUNTS["scene_diffs"] - before == len(diffs)
+        folds = [row for row in rec["stamps"] if row["kind"] == "fold"]
+        stages = {row["frame"]: row["ns"] for row in rec["stamps"]
+                  if row["kind"] == "stages"}
+        assert [row["frame"] for row in folds] == list(range(len(diffs)))
+        assert sorted(stages) == list(range(len(diffs)))
+        for row in folds:
+            ns = row["ns"]
+            assert row["issued_ns"] is not None and ns[0] < ns[1]
+            assert ns[1] <= stages[row["frame"]][0]
+            assert len(stages[row["frame"]]) == 5
+    finally:
+        r.release_graphs()
+        tracing.disable()
