@@ -74,6 +74,17 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      aside printed and <= 40%); and K5 on the three shadow launches of one
      use_mxu=True depth-2 render_bounced() of the 1080p sphere grid, each
      timed against K2 on the same work.
+  1d. Stage B2's kernel (csrc/shade_prep.cu, shade_prep.prep_tiles)
+     against its plain version (prep_tiles_ref) on the 640x480 frame's B2,
+     on the bounced 1080p frame's bounce 1 (per-ray viewer, compacted rays
+     kept) and on the 3840x2160 frame of instanced_grid(icosphere_scene(3),
+     12) (184,320 triangles) at the bucket the 4K cells' frozen frames
+     hold, every ray tile (ht_pad = n_tiles, C = 8,294,400): every output
+     bit for bit, NaN and inf; device times of both, the byte bound
+     (shade_prep.bytes_moved at 3.35 TB/s) and the kernel's share of it.
+     The 4K case is the `shade_prep` entry of the kernels line. Every
+     main-path phase below counts stage B2's launches beside K1-K5's
+     (`shade_prep` in its launches) and requires some.
   2c. The 640x480 frame with use_mxu=True: render(), freeze(), a 16-pose
      orbit through render_fast(verify=True), one render_fast under
      sync-debug "error"; counters reset first, then bsr_nearest_mxu and
@@ -309,12 +320,14 @@ RING_N = 4
 RING_FRAMES = 8
 SOURCE = "distributed_raytracer_tpu_torch/csrc/bsr_trace.cu"
 RING_SOURCE = "distributed_raytracer_tpu_torch/csrc/ring_trace.cu"
+SHADE_SOURCE = "distributed_raytracer_tpu_torch/csrc/shade_prep.cu"
 _PALLAS = "distributed_raytracer_tpu/ops/pallas/bsr_trace.py"
 _PALLAS_RING = "distributed_raytracer_tpu/ops/pallas/ring_trace.py"
 WRAPPERS = ("bsr_nearest", "bsr_any")
 RING_WRAPPERS = ("ring_nearest", "ring_any")
 # Per kernel (its LAUNCHES key): (its id in PERF.md's kernel table, its
-# source, the TPU kernel it replaces).
+# source, the TPU kernel it replaces: none for stage B2's, whose JAX
+# version is jnp that XLA fuses).
 KERNELS = {
     "bsr_nearest": ("K1", SOURCE, f"{_PALLAS}:356"),
     "bsr_any": ("K2", SOURCE, f"{_PALLAS}:411"),
@@ -324,6 +337,7 @@ KERNELS = {
     "bsr_any_mxu": ("K5", SOURCE, f"{_PALLAS}:324"),
     "ring_nearest": ("K6", RING_SOURCE, f"{_PALLAS_RING}:57"),
     "ring_any": ("K7", RING_SOURCE, f"{_PALLAS_RING}:57"),
+    "shade_prep": ("B2", SHADE_SOURCE, None),
 }
 
 
@@ -428,6 +442,7 @@ def print_ptxas(log: str) -> None:
                           r"(?:Li(\d+)E)?Li(\d+)E", m.group(1))
             g = re.search(r"ring_(nearest|any)_chunksILi(\d+)E", m.group(1))
             rk = re.search(r"ring_(seed|unpack)_keys", m.group(1))
+            sp = re.search(r"shade_prep_tilesILi(\d+)E", m.group(1))
             e = re.search(r"\d(seed_keys|unpack_keys)ILb([01])ELb([01])E",
                           m.group(1))
             name = (f"{k.group(1)}_chunk_kernel<RPT={k.group(2)}, shared="
@@ -438,6 +453,7 @@ def print_ptxas(log: str) -> None:
                          + f", MINB={x.group(5)}>" if x
                     else f"ring_{g.group(1)}_chunks<RPT={g.group(2)}>" if g
                     else rk.group(0) if rk
+                    else f"shade_prep_tiles<{sp.group(1)}>" if sp
                     else f"{e.group(1)}<shared={b(e.group(2))}, "
                          f"mxu={b(e.group(3))}>" if e
                     else m.group(1))
@@ -483,8 +499,20 @@ def plain_versions(bsr_trace):
 
 
 def reset_launches(bsr_trace) -> None:
-    for name in bsr_trace.LAUNCHES:
-        bsr_trace.LAUNCHES[name] = 0
+    """Sets the traversal kernels' and stage B2's launch counts to 0."""
+    from distributed_raytracer_tpu_torch.ops import shade_prep
+
+    for counts in (bsr_trace.LAUNCHES, shade_prep.LAUNCHES):
+        for name in counts:
+            counts[name] = 0
+
+
+def launch_counts(bsr_trace) -> dict:
+    """The launches since reset_launches: the traversal kernels' (K1-K5)
+    and stage B2's (`shade_prep`)."""
+    from distributed_raytracer_tpu_torch.ops import shade_prep
+
+    return {**bsr_trace.LAUNCHES, **shade_prep.LAUNCHES}
 
 
 def visited_rays(args, kwargs):
@@ -652,6 +680,89 @@ def phase_kernels_rays(renderer, scene, bsr_trace):
     return results
 
 
+def b2_args(r, camera, bounce: bool, ht_pad=None):
+    """shade_prep.prep_tiles' arguments at one frame's stage B2, sized by
+    the sync render's host syncs: the primary rays', or with `bounce`
+    bounce 1's (reflection rays, each with its own viewer). `ht_pad`, if
+    given, replaces the hit count's bucket."""
+    from distributed_raytracer_tpu_torch.ops import raygen
+    from distributed_raytracer_tpu_torch.ops.render_bvh import _tile_bucket
+
+    sc = r.dev_scene
+    cam = raygen.camera_arrays(camera, r.device)
+    rays, ti, m, e, c1 = r._stage_a(sc, cam)
+    pads, _ = r._size_pads(sc, ti, m, e, c1)
+    hits, hcount, _ = r._stage_b1(sc, pads, rays, ti, m, e, c1)
+    view = cam.pos
+    if bounce:
+        sh = r._stage_b2(sc, _tile_bucket(int(hcount), r.n_tiles), rays,
+                         hits, view, keep_rays=True)
+        rays, ti, m, e, c1, excl, view, _ = r._bounce(
+            sc, sh, hits, rays.new_ones((3, r.n_pad)))
+        pads, _ = r._size_pads(sc, ti, m, e, c1)
+        hits, hcount, _ = r._nearest(sc, pads, sc.tris_packed, rays, excl,
+                                     ti, m, e, c1)
+    ht_pad = ht_pad or _tile_bucket(int(hcount), r.n_tiles)
+    _, tidx, ht_count, _ = r._tile_order(ht_pad, hits)
+    return ((rays, hits, tidx, ht_count, sc.arrays, sc.shade_tbl, view,
+             r.cfg), dict(rt=r.rt, keep_rays=bounce))
+
+
+def tree_bits_equal(got, want) -> bool:
+    """Nested NamedTuples of tensors (or None) bits_equal field by field."""
+    if isinstance(want, tuple):
+        return all(tree_bits_equal(g, w) for g, w in zip(got, want))
+    if want is None:
+        return got is None
+    return (got.shape == want.shape and got.dtype == want.dtype
+            and bits_equal(got.contiguous(), want.contiguous()))
+
+
+def phase_shade_prep(renderer, scene, bounced, grid):
+    """Phase 1d: stage B2's kernel (csrc/shade_prep.cu) against its plain
+    version on the 640x480 frame's B2, the bounced 1080p frame's bounce 1
+    (a per-ray viewer) and the 4K sphere grid's B2 at every ray tile,
+    every output bit for bit; device times of both, the kernel's byte
+    bound at 3.35 TB/s and its share of it. Returns the kernels line's
+    entry: the 4K case's numbers, every case's under "cases"."""
+    from distributed_raytracer_tpu_torch.ops import shade_prep
+    from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+    from distributed_raytracer_tpu_torch.utils import scenes
+
+    # The 4K sphere grid of the bench's config 4 (184,320 triangles).
+    grid4k = scenes.instanced_grid(scenes.icosphere_scene(GRID_SUBDIV), 12)
+    r4k = CulledRenderer(grid4k, 3840, 2160, device="cuda")
+    big = "3840x2160 12x12 sphere grid, every ray tile"
+    out = {}
+    for tag, r, camera, bounce, ht_pad in (
+            ("640x480 frame", renderer, scene.camera, False, None),
+            (f"bounced {BW}x{BH} frame, bounce 1", bounced, grid.camera,
+             True, None),
+            (big, r4k, grid4k.camera, False, r4k.n_tiles)):
+        args, kw = b2_args(r, camera, bounce, ht_pad)
+        got = shade_prep.prep_tiles(*args, **kw)
+        want = shade_prep.prep_tiles_ref(*args, **kw)
+        check(tree_bits_equal(got, want),
+              f"shade_prep_tiles on the {tag} differs from the plain version")
+        ms = device_ms(lambda: shade_prep.prep_tiles(*args, **kw))
+        plain_ms = device_ms(lambda: shade_prep.prep_tiles_ref(*args, **kw),
+                             calls=5)
+        ht_pad, n_lights = args[2].shape[0], args[4].light_pos.shape[0]
+        nbytes = shade_prep.bytes_moved(n_lights, ht_pad, r.rt, bounce,
+                                        bounce)
+        bound_ms = nbytes / 3.35e12 * 1e3
+        print(f"[phase 1d] B2 shade_prep_tiles, {tag}: ht_pad={ht_pad} "
+              f"(hit tiles {int(args[3])}) C={ht_pad * r.rt} L={n_lights} "
+              f"rt={r.rt}, bit-equal to the plain version; {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms; bound "
+              f"{nbytes / (ht_pad * r.rt):.0f} B a ray, {bound_ms:.4f} ms, "
+              f"share {bound_ms / ms:.2%}")
+        out[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "share_of_bound": bound_ms / ms}
+    return {"max_abs_err": 0.0, **out[big], "bound_by": "bytes",
+            "library_ms": None, "cases": out}
+
+
 def phase_frame(renderer, scene, bsr_trace):
     """Phase 2: the frame end to end on the card, against the plain
     versions on the CPU."""
@@ -683,13 +794,13 @@ def phase_frame(renderer, scene, bsr_trace):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = dict(bsr_trace.LAUNCHES)
+    launches = launch_counts(bsr_trace)
     print(f"[phase 2] render() {render_ms:.3f} ms; render_fast(verify=True) "
           f"median {statistics.median(fast_ms):.3f} ms over {ORBIT} poses; "
           f"render_fast() {nosync_ms:.3f} ms; counts {counts}; pads "
           f"{renderer._frozen_pads}; exit_every {renderer.exit_every}; "
           f"launches {launches}")
-    for name in ("bsr_nearest", "bsr_any"):
+    for name in ("bsr_nearest", "bsr_any", "shade_prep"):
         check(launches[name] > 0, f"{name} was not launched on the path")
     for img in imgs:
         check(tuple(img.shape) == (H, W, 3) and bool(img.isfinite().all()),
@@ -761,7 +872,7 @@ def phase_bounced(renderer, scene, bsr_trace):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = dict(bsr_trace.LAUNCHES)
+    launches = launch_counts(bsr_trace)
     print(f"[phase 2b] render_bounced(depth={DEPTH}) {bounced_ms:.3f} ms "
           f"(median of 3); per-bounce counts {counts}; freeze_bounced "
           f"{freeze_s:.2f} s; frozen(verify=True) per frame "
@@ -769,7 +880,7 @@ def phase_bounced(renderer, scene, bsr_trace):
           f"{statistics.median(verify_ms):.3f}; frozen() "
           f"{nosync_ms:.3f} ms (median of 10); pads {fast.pads()}; "
           f"exit_every {renderer.exit_every}; launches {launches}")
-    for name in ("bsr_nearest_rays", "bsr_any"):
+    for name in ("bsr_nearest_rays", "bsr_any", "shade_prep"):
         check(launches[name] > 0, f"{name} was not launched on the bounced "
                                   "path")
     for img in imgs:
@@ -1062,13 +1173,13 @@ def phase_frame_mxu(mxu, renderer, scene, bsr_trace, plain0):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = dict(bsr_trace.LAUNCHES)
+    launches = launch_counts(bsr_trace)
     print(f"[phase 2c] use_mxu=True: render() {render_ms:.3f} ms; "
           f"render_fast(verify=True) median {statistics.median(fast_ms):.3f} "
           f"ms over {ORBIT} poses; counts {mxu._last_counts}; pads "
           f"{mxu._frozen_pads}; exit_every {mxu.exit_every}; launches "
           f"{launches}")
-    for name in ("bsr_nearest_mxu", "bsr_any_mxu"):
+    for name in ("bsr_nearest_mxu", "bsr_any_mxu", "shade_prep"):
         check(launches[name] > 0, f"{name} was not launched on the path")
     for name in ("bsr_nearest", "bsr_any"):
         check(launches[name] == 0, f"{name} launched under use_mxu=True")
@@ -1103,7 +1214,7 @@ def phase_bounced_mxu(grid, bounced, bsr_trace, sync_k2):
     t0 = time.perf_counter()
     img = mxu.render_bounced(grid.camera, DEPTH, block=True)
     secs = time.perf_counter() - t0
-    launches = dict(bsr_trace.LAUNCHES)
+    launches = launch_counts(bsr_trace)
     print(f"[phase 2c] bounced 1080p depth {DEPTH}, use_mxu=True: "
           f"render_bounced {secs * 1e3:.3f} ms; per-bounce counts "
           f"{mxu._last_bounce_counts}; launches {launches}")
@@ -1171,7 +1282,7 @@ def phase_dynamic(grid, bsr_trace):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        got = dict(bsr_trace.LAUNCHES)
+        got = launch_counts(bsr_trace)
         worst = (0.0, 0.0)
         for k, img in enumerate(imgs):
             diff = np.abs(img.cpu().numpy() - refs[k])
@@ -1191,7 +1302,7 @@ def phase_dynamic(grid, bsr_trace):
               "zero diff differs from render_fast")
         want, other = (("bsr_nearest_mxu", "bsr_any_mxu"),
                        ("bsr_nearest", "bsr_any"))[::1 if use_mxu else -1]
-        for name in want:
+        for name in want + ("shade_prep",):
             check(got[name] > 0, f"{name} not launched (use_mxu={use_mxu})")
         for name in other:
             check(got[name] == 0, f"{name} launched (use_mxu={use_mxu})")
@@ -1307,7 +1418,7 @@ def graph_case(tag, r, kind, use_mxu, items, replay, eager, sync):
     want = GRAPH_KERNELS[(kind, use_mxu)]
     check(all(k in seen for k in want),
           f"{tag}: kernels {want} not in the replay's trace {sorted(seen)}")
-    check(sum(bsr_trace.LAUNCHES.values()) == 0
+    check(sum(launch_counts(bsr_trace).values()) == 0
           and counts["replays"] == replays + 1
           and counts["captures"] == caps,
           f"{tag}: the profiled frame was not one replay")
@@ -1798,7 +1909,7 @@ def phase_bands(bsr_trace, bounced, grid):
     equal, balanced = sf.build_bands(scene, bake, mesh, poses)
     worst = sf.check_bands(equal, balanced, refs, poses)
     torch.cuda.synchronize()
-    launches = dict(bsr_trace.LAUNCHES)
+    launches = launch_counts(bsr_trace)
     print(f"[phase 5a] equal and balanced bands, {RING_N} ranks on cuda:0: "
           f"built, sized and {sf.BAND_POSES} poses in "
           f"{time.perf_counter() - t0:.1f} s; every frame within {worst} of "
@@ -1806,7 +1917,7 @@ def phase_bands(bsr_trace, bounced, grid):
           f"bit; buckets {equal.buckets()}; balanced layout "
           f"{balanced.layout()}; launches while building and capturing "
           f"{launches}")
-    for name in ("bsr_nearest", "bsr_any"):
+    for name in ("bsr_nearest", "bsr_any", "shade_prep"):
         check(launches[name] > 0, f"{name} was not launched on the bands")
     for what, fn in (("single rank", lambda: single.render_fast(poses[1])),
                      ("equal bands", lambda: equal(poses[1])),
@@ -1825,7 +1936,7 @@ def phase_bands(bsr_trace, bounced, grid):
         got = bands(cam, verify=True)
         diff = max(diff, float((got - one(cam, verify=True)).abs().max()))
     torch.cuda.synchronize()
-    got = dict(bsr_trace.LAUNCHES)
+    got = launch_counts(bsr_trace)
     print(f"[phase 5a] bounced bands, {BW}x{BH} depth {DEPTH}, {RING_N} "
           f"ranks: 2 poses within {diff} of the single-rank freeze_bounced "
           f"frame (atol 2e-5); buckets {bands.buckets()}; launches {got}; "
@@ -2494,9 +2605,9 @@ def config5_pass(tag, arrays, tree, cam, poses, bsr_trace):
     r.freeze(cam)
     imgs = [r.render_fast(p, verify=True) for p in poses]
     torch.cuda.synchronize()
-    launches = dict(bsr_trace.LAUNCHES)
+    launches = launch_counts(bsr_trace)
     peak = (torch.cuda.max_memory_allocated() - before) / 2**30
-    for name in ("bsr_nearest", "bsr_any"):
+    for name in ("bsr_nearest", "bsr_any", "shade_prep"):
         check(launches[name] > 0, f"config 5 {tag}: {name} was not launched")
     for img in imgs:
         check(tuple(img.shape) == (H, W, 3) and bool(img.isfinite().all()),
@@ -2769,7 +2880,7 @@ def phase_bench_shapes(bsr_trace) -> dict:
         seen = {}
         with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
             sync_frame()
-        got = dict(bsr_trace.LAUNCHES)
+        got = launch_counts(bsr_trace)
         for key, k in got.items():
             launches[key] = launches.get(key, 0) + k
         print(f"[phase 8a] bench config {name}: {cfg.width}x{cfg.height}, "
@@ -2864,7 +2975,7 @@ def phase_bench(card: str) -> dict:
               if l.startswith("bench launches: ")]
     check(len(counts) == 1, "bench printed no launch line")
     launches = json.loads(counts[0].split(": ", 1)[1])
-    for key in ("bsr_nearest", "bsr_any", "bsr_nearest_rays"):
+    for key in ("bsr_nearest", "bsr_any", "bsr_nearest_rays", "shade_prep"):
         check(launches.get(key, 0) > 0, f"bench: {key} was not launched")
     return launches
 
@@ -2898,7 +3009,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()          # one nvcc per source, side by side
     print(f"build: {time.perf_counter() - t0:.1f} s")
-    for name in ("bsr_trace", "ring_trace"):
+    for name in ("bsr_trace", "ring_trace", "shade_prep"):
         print_ptxas(_build.build_logs.get(name, ""))
 
     scene = scenes.icosphere_scene(SUBDIV)
@@ -2927,6 +3038,8 @@ def main() -> int:
                          bsr_trace))
     kernels.update(timed("1c", phase_kernels_mxu, mxu, renderer, scene,
                          bsr_trace, grid, bounced))
+    kernels["shade_prep"] = timed("1d", phase_shade_prep, renderer, scene,
+                                  bounced, grid)
     launches, plain0 = timed("2", phase_frame, renderer, scene, bsr_trace)
     got, sync_k2 = timed("2b", phase_bounced, bounced, grid, bsr_trace)
     runs = [got,

@@ -48,9 +48,10 @@ hands over what it measured; a config that fails or does not finish gets a
 has so far.
 
 Each process also prints `bench launches: {...}` on stderr: the kernel
-wrappers' launch counts (ops/bsr_trace.LAUNCHES); this process's line sums
-its children's. A frozen frame is a CUDA graph, whose kernels count when
-it is captured, not when it is replayed.
+wrappers' launch counts (ops/bsr_trace.LAUNCHES, and stage B2's,
+ops/shade_prep.LAUNCHES); this process's line sums its children's. A
+frozen frame is a CUDA graph, whose kernels count when it is captured,
+not when it is replayed.
 
 With --device cuda (the default) and no card, the line is the error line
 and the exit code 1: nothing falls back to the CPU. --device cpu runs the
@@ -410,9 +411,9 @@ GROUP_TIMEOUT_S = {("loop", "3"): 45, ("2", "4"): 50, ("5",): 210}
 
 
 def launches() -> dict:
-    from distributed_raytracer_tpu_torch.ops import bsr_trace
+    from distributed_raytracer_tpu_torch.ops import bsr_trace, shade_prep
 
-    return dict(bsr_trace.LAUNCHES)
+    return {**bsr_trace.LAUNCHES, **shade_prep.LAUNCHES}
 
 
 def _print_launches(counts: dict) -> None:

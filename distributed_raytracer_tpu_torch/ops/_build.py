@@ -3,7 +3,8 @@
 Each source is compiled by `nvcc` into a shared library with a plain C
 interface and loaded with ctypes: csrc/bsr_trace.cu (K1-K5) and
 csrc/ring_trace.cu (K6, K7), both including csrc/pair_math.cuh and
-csrc/chunk_grid.cuh, and csrc/stamp.cu (the tracer's device stamps, loaded
+csrc/chunk_grid.cuh, csrc/shade_prep.cu (the culled frame's stage B2,
+ops/shade_prep.py) and csrc/stamp.cu (the tracer's device stamps, loaded
 only while the tracer is on, utils/tracing.py). The
 library lands in distributed_raytracer_tpu_torch/_build/ (listed in
 .gitignore) under a name keyed by a hash of the source, the shared headers
@@ -49,6 +50,7 @@ _libs: dict = {}
 build_logs: dict = {}
 
 _p, _i32, _i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_f32 = ctypes.c_float
 _SIGNATURES = {
     "bsr_trace": {
         "drt_bsr_nearest": (_i32, [_p, _i64, _p, _p, _p, _p, _p, _p, _i32, _p,
@@ -74,6 +76,13 @@ _SIGNATURES = {
     },
     "stamp": {
         "drt_stamp": (_i32, [_p, _p, _i32, _i32, _i32, _i32, _p]),
+        "drt_cuda_error_string": (ctypes.c_char_p, [_i32]),
+    },
+    "shade_prep": {
+        "drt_shade_prep": (_i32, [_p, _i64, _p, _p, _p, _p, _i32, _p, _p,
+                                  _i32, _p, _i64, _p, _p, _i32, _f32, _f32,
+                                  _i32, _p, _p, _p, _p, _p, _p, _p, _p, _p,
+                                  _p, _p, _p]),
         "drt_cuda_error_string": (ctypes.c_char_p, [_i32]),
     },
 }

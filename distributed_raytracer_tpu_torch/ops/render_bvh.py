@@ -17,8 +17,8 @@ A frame is seven stages:
   1. ray generation (raygen.ray_rows_flat, bsr_trace.pack_rays_rows);
   2. the multi-level interval cull (cull.multilevel_mask / _worklist);
   3. the nearest-hit kernel (bsr_trace.bsr_nearest, shared camera origin);
-  4. hit-tile compaction, then shading prep (shade.prepare_packed,
-     light_gates);
+  4. hit-tile compaction, shading prep, light gates and the shadow tile
+     hulls (ops/shade_prep.py: one CUDA kernel, or its plain version);
   5. the per-light shadow cull;
   6. one any-hit kernel launch covering all lights (bsr_trace.bsr_any);
   7. Phong shading (shade.shade_core_packed) and tile-major assembly.
@@ -69,7 +69,7 @@ from distributed_raytracer_tpu_torch.models.camera import CameraArrays
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneArrays
 from distributed_raytracer_tpu_torch.ops import (bsr_trace, cull,
                                                 frozen_graph, intersect,
-                                                raygen, shade)
+                                                raygen, shade, shade_prep)
 from distributed_raytracer_tpu_torch.ops.intersect import Hits
 from distributed_raytracer_tpu_torch.ops.shade import PackedPrep
 from distributed_raytracer_tpu_torch.utils import tracing
@@ -128,10 +128,10 @@ class _Shading(NamedTuple):
     tpos: torch.Tensor         # (nt,) compact position of each hit tile
     hit_tile: torch.Tensor     # (nt,) bool: the tile has a hit
     ht_count: torch.Tensor     # () int32 hit tiles
-    rays_h: torch.Tensor       # (8, C) compacted rays
+    rays_h: Optional[torch.Tensor]  # (8, C) compacted rays (keep_rays)
     hits_h: Hits               # compacted hits
     view_h: torch.Tensor       # (3,) camera or (3, C) compacted viewers
-    prep: PackedPrep
+    prep: PackedPrep           # q_rev a (L, 8, C) view of (8, L, C)
     live_l: torch.Tensor       # (L, C) bool light gates
     sti: cull.TileIntervals    # stacked (L * C / rt) shadow tile hulls
     smasks: torch.Tensor       # (L, C / rt, n_top) coarse shadow masks
@@ -420,7 +420,7 @@ class CulledRenderer:
                              mask1, entry1, c1, shared_origin=True)
 
     def _stage_b2(self, sc: DeviceScene, ht_pad: int, rays, hits,
-                  view) -> _Shading:
+                  view, keep_rays: bool = False) -> _Shading:
         """Hit-TILE compaction + shading prep + per-light shadow masks.
 
         Everything downstream of the nearest kernel is proportional to the
@@ -429,42 +429,36 @@ class CulledRenderer:
         n_tiles, so overflow is impossible when every tile hits). `view` is
         the viewer of the light gates and the shading: the (3,) camera for
         primary rays, the (3, n_pad) previous hit points for a bounce's
-        reflection rays (compacted alongside)."""
-        (tpos, hit_tile, tidx, ht_count, rays_h,
-         hits_h) = self._compact_tiles(ht_pad, rays, hits)
-        if view.dim() == 1:
-            view_h = view
-        else:
-            view_h = view.reshape(3, self.n_tiles,
-                                  self.rt)[:, tidx, :].reshape(3, -1)
-        prep = shade.prepare_packed(sc.arrays, rays_h, hits_h, self.cfg,
-                                    table=sc.shade_tbl)
-        live_l = shade.light_gates(sc.arrays, view_h, prep, hits_h.valid)
-        sti, smasks, sentries = self._light_masks(sc, prep, live_l)
-        return _Shading(tpos, hit_tile, ht_count, rays_h, hits_h, view_h,
-                        prep, live_l, sti, smasks, sentries,
-                        smasks.sum(dtype=torch.int32))
+        reflection rays (compacted alongside). The compacted rays are kept
+        only with `keep_rays` (a bounce's reflection rays read them).
 
-    def _compact_tiles(self, ht_pad: int, rays, hits):
-        """Order-preserving hit-TILE compaction: returns (tpos, hit_tile,
-        tidx, ht_count, rays_h, hits_h) with compacted shapes ht_pad * rt."""
-        nt, rt = self.n_tiles, self.rt
-        hit_t = hits.valid.reshape(nt, rt)
-        hit_tile = hit_t.any(dim=1)                             # (nt,)
+        The tile order is sorted here; the per-ray work is
+        shade_prep.prep_tiles: on CUDA one kernel (counted in
+        tracing.COUNTS["b2_fused"]), on the CPU its plain version
+        (COUNTS["b2_plain"])."""
+        hit_tile, tidx, ht_count, tpos = self._tile_order(ht_pad, hits)
+        n_lights = sc.arrays.light_pos.shape[0]
+        tracing.COUNTS["b2_fused" if rays.device.type == "cuda"
+                       else "b2_plain"] += 1
+        tp = shade_prep.prep_tiles(rays, hits, tidx, ht_count, sc.arrays,
+                                   sc.shade_tbl, view, self.cfg, rt=self.rt,
+                                   keep_rays=keep_rays)
+        smasks, sentries, sc1 = self._light_masks(sc, tp.sti, n_lights,
+                                                  ht_pad)
+        return _Shading(tpos, hit_tile, ht_count, tp.rays_h, tp.hits_h,
+                        tp.view_h, tp.prep, tp.live_l, tp.sti, smasks,
+                        sentries, sc1)
+
+    def _tile_order(self, ht_pad: int, hits):
+        """The order-preserving hit-TILE compaction's order: (hit_tile
+        (nt,) bool, tidx (ht_pad,) the source tile of each compacted tile,
+        hit tiles first, ht_count () int32, tpos (nt,) the compact position
+        of each hit tile)."""
+        hit_tile = hits.valid.reshape(self.n_tiles, self.rt).any(dim=1)
         tidx = torch.argsort((~hit_tile).to(torch.uint8),
                              stable=True)[:ht_pad]
-        ht_count = hit_tile.sum(dtype=torch.int32)
-        tile_ok = torch.arange(ht_pad, device=self.device) < ht_count
-        tpos = torch.cumsum(hit_tile, 0) - 1                    # (nt,)
-        h = ht_pad * rt
-        rays_h = rays.reshape(8, nt, rt)[:, tidx, :].reshape(8, h)
-        valid_h = (hit_t[tidx] & tile_ok[:, None]).reshape(h)
-        t_h = torch.where(valid_h,
-                          hits.t.reshape(nt, rt)[tidx].reshape(h), 0.0)
-        tri_h = torch.where(valid_h,
-                            hits.tri.reshape(nt, rt)[tidx].reshape(h), 0)
-        return (tpos, hit_tile, tidx, ht_count, rays_h,
-                Hits(t=t_h, tri=tri_h, valid=valid_h))
+        return (hit_tile, tidx, hit_tile.sum(dtype=torch.int32),
+                torch.cumsum(hit_tile, 0) - 1)
 
     def _gather_tiles(self, rows_h, tpos, hit_tile, fill=0.0):
         """Tile-granular write-back: compacted (..., ht_pad * rt) rows ->
@@ -481,35 +475,26 @@ class CulledRenderer:
         return torch.where(hit_tile[None, :, None], out,
                            fill).reshape(rows_h.shape[0], self.n_pad)
 
-    def _light_masks(self, sc: DeviceScene, prep, live_l):
-        """Per-light coarse cull masks for the shadow queries, plus the
-        stacked (L*nTiles) tile hulls the finer levels test against. Dead
-        rays (misses, and rays this light provably cannot colour) are
-        masked out of the tile hulls so they never widen the work lists."""
-        n_lights = prep.q.shape[0]
-        nt = prep.q_rev.shape[2] // self.rt
-        tis, smasks, sentries = [], [], []
-        for li in range(n_lights):
-            ti = cull.tile_intervals_packed(prep.q_rev[li], self.rt,
-                                            live=live_l[li], use_tmax=True)
-            m, e, _ = cull.multilevel_mask(ti, sc.block_lo, sc.block_hi,
-                                           self.groups)
-            tis.append(ti)
-            smasks.append(m)
-            sentries.append(e)
+    def _light_masks(self, sc: DeviceScene, sti: cull.TileIntervals,
+                     n_lights: int, nt: int):
+        """Per-light coarse cull masks (L, nt, n_top), entries and their
+        count for the shadow queries, from the stacked (L*nt) tile hulls
+        (light-major), which the finer levels test against. Dead rays
+        (misses, and rays this light provably cannot colour) are out of the
+        hulls, so they never widen the work lists. One cull over all
+        lights' tiles: its rows are independent."""
         if not n_lights:
             ntop = sc.block_lo.shape[0]
             for g in self.groups:
                 ntop = -(-ntop // g)
-            z3 = sc.block_lo.new_zeros((0, 3))
-            return (cull.TileIntervals(z3, z3, z3, z3,
-                                       t_hi=sc.block_lo.new_zeros((0,))),
-                    torch.zeros((0, nt, ntop), dtype=torch.bool,
+            return (torch.zeros((0, nt, ntop), dtype=torch.bool,
                                 device=self.device),
-                    sc.block_lo.new_zeros((0, nt, ntop)))
-        sti = cull.TileIntervals(*(torch.cat([getattr(t, f) for t in tis])
-                                   for f in cull.TileIntervals._fields))
-        return sti, torch.stack(smasks), torch.stack(sentries)
+                    sc.block_lo.new_zeros((0, nt, ntop)),
+                    torch.zeros((), dtype=torch.int32, device=self.device))
+        m, e, count = cull.multilevel_mask(sti, sc.block_lo, sc.block_hi,
+                                           self.groups)
+        return (m.reshape(n_lights, nt, -1), e.reshape(n_lights, nt, -1),
+                count)
 
     # -- stage C: shadow queries + shading -------------------------------
 
@@ -534,6 +519,7 @@ class CulledRenderer:
         wl, s_counts = cull.multilevel_worklist(sh.sti, mask, entry, sh.sc1,
                                                 sc.block_lo, sc.block_hi,
                                                 self.groups, s_pads)
+        # q_rev's storage is (8, L, r): a view, not a copy.
         q = prep.q_rev.permute(1, 0, 2).reshape(8, n_lights * r)
         # Light l's origin-folded rows sit at block offset l * nb; the
         # tensor-core form's direction matrix is shared by all lights
@@ -832,7 +818,8 @@ class CulledRenderer:
             hits, hcount, _ = self._nearest(sc, p_pads, sc.tris_packed, rays,
                                             exclude, ti, mask1, entry1, c1)
             ht_pad = _tile_bucket(int(hcount), self.n_tiles)
-            sh = self._stage_b2(sc, ht_pad, rays, hits, view)
+            sh = self._stage_b2(sc, ht_pad, rays, hits, view,
+                                keep_rays=b < depth)
             s_pads, s_counts = self._size_pads(sc, sh.sti, sh.smasks,
                                                sh.sentries, sh.sc1)
             pads_used.append(p_pads + (ht_pad,) + s_pads)
@@ -869,7 +856,8 @@ class CulledRenderer:
             hits, _, p_counts = self._nearest(sc, p_pads, sc.tris_packed,
                                               rays, exclude, ti, mask1,
                                               entry1, c1)
-            sh = self._stage_b2(sc, ht_pad, rays, hits, view)
+            sh = self._stage_b2(sc, ht_pad, rays, hits, view,
+                                keep_rays=b + 1 < len(pads))
             local_h, s_counts = self._stage_shade(sc, s_pads, sh)
             colour = colour + throughput * self._gather_tiles(
                 local_h, sh.tpos, sh.hit_tile)

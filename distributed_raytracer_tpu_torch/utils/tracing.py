@@ -18,9 +18,12 @@ and so does a stamp row: the spans and stamps of one frame share its id.
 Counters. `COUNTS` (ops/frozen_graph.COUNTS is this dict) counts graph
 captures and replays, the verify checks settled when the frame loop
 drains their frame (`verify_deferred`), the frames the loop issued
-again after such a check overflowed (`verify_reissued`) and the frames
+again after such a check overflowed (`verify_reissued`), the frames
 the dynamic renderer issued with a scene diff (`scene_diffs`,
-ops/render_dynamic.py), on or off; a caller reads differences.
+ops/render_dynamic.py) and which path each stage B2 of a culled renderer
+took when it was issued or captured (`b2_fused`: the shade_prep kernel;
+`b2_plain`: its plain version, on the CPU;
+ops/render_bvh.py), on or off; a caller reads differences.
 
 Device stamps. `Stamps` marks points of a renderer's frame (five for the
 culled frame, kind "stages": before stage A and after A, B1, B2 and C,
@@ -57,9 +60,12 @@ import torch.autograd.profiler as _profiler
 # Graph captures and replays of every FrameGraph (ops/frozen_graph.py);
 # deferred verify checks settled, and frames issued again after one
 # overflowed (runtime/loop.py); frames issued with a scene diff
-# (ops/render_dynamic.py).
+# (ops/render_dynamic.py); stage B2 calls of the culled renderers issued
+# or captured through the shade_prep kernel or its plain version
+# (ops/render_bvh.py).
 COUNTS = {"captures": 0, "replays": 0, "verify_deferred": 0,
-          "verify_reissued": 0, "scene_diffs": 0}
+          "verify_reissued": 0, "scene_diffs": 0, "b2_fused": 0,
+          "b2_plain": 0}
 
 # The culled frame's stages, between its five marks.
 STAGES = ("A", "B1", "B2", "C")

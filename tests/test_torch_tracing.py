@@ -147,9 +147,10 @@ def test_off_keeps_no_span_and_opens_no_profiler_range(renderer,
     assert rec["spans"] == [] and rec["stamps"] == []
     assert r._stamps is None
     # Nothing captured on the CPU; the three verify frames' checks settled
-    # at their drains.
+    # at their drains; each frame's stage B2 took the plain path.
     assert frozen_graph.COUNTS == dict(
-        before, verify_deferred=before["verify_deferred"] + 3)
+        before, verify_deferred=before["verify_deferred"] + 3,
+        b2_plain=before["b2_plain"] + FRAMES)
 
 
 def test_on_spans_nest_per_frame_with_one_frame_id(renderer, tracer):
@@ -198,7 +199,8 @@ def test_on_spans_nest_per_frame_with_one_frame_id(renderer, tracer):
                     and s["frame"] == row["frame"]]
         assert issue["start_ns"] <= ns[0] and ns[-1] <= issue["end_ns"]
     assert frozen_graph.COUNTS == dict(
-        before, verify_deferred=before["verify_deferred"] + 3)
+        before, verify_deferred=before["verify_deferred"] + 3,
+        b2_plain=before["b2_plain"] + FRAMES)
     assert rec["counters"] is not frozen_graph.COUNTS
     assert rec["counters"] == frozen_graph.COUNTS
 
@@ -221,7 +223,8 @@ def test_off_a_moving_frame_records_nothing_and_counts_its_diff(
     assert r._fold_stamps is None and r._stamps is None
     assert frozen_graph.COUNTS == dict(
         before, verify_deferred=before["verify_deferred"] + 3,
-        scene_diffs=before["scene_diffs"] + FRAMES)
+        scene_diffs=before["scene_diffs"] + FRAMES,
+        b2_plain=before["b2_plain"] + FRAMES)
 
 
 def test_on_a_moving_frame_stamps_its_fold_before_its_stages(
@@ -275,7 +278,8 @@ def test_graph_key_and_counters_follow_the_tracer(renderer, tracer):
     assert r._graph_key("fast", r.buckets()) != on
     assert frozen_graph.COUNTS is tracing.COUNTS
     assert set(tracing.COUNTS) == {"captures", "replays", "verify_deferred",
-                                   "verify_reissued", "scene_diffs"}
+                                   "verify_reissued", "scene_diffs",
+                                   "b2_fused", "b2_plain"}
 
 
 def test_buckets_are_the_frozen_buckets():
