@@ -113,10 +113,10 @@ Builds the traversal kernels from csrc/ and runs on cuda:0:
      atol 2e-5 and the line says so); a frame held by the caller is
      unchanged after later replays; replays run under sync-debug "error";
      a torch.profiler trace of one replay (no capture, no eager launch:
-     LAUNCHES stays 0) shows K1/K2 (K3n/K2 bounced; K4/K5, K3n/K5 with
-     use_mxu) by kernel name. Each line gives the graph and eager frame
-     times (synchronized medians), the host's enqueue time of each, the
-     graph's memory pool and its capture time. render_many at K = 32
+     the launch counts stay 0) shows K1/K2 (K3n/K2 bounced; K4/K5,
+     K3n/K5 with use_mxu) by kernel name. Each line gives the graph and
+     eager frame times (synchronized medians), the host's enqueue time of
+     each, the graph's memory pool and its capture time. render_many at K = 32
      equals render_fast per pose bit for bit, timed per frame.
   4. The dense, ray-sharded and ring renderers on the sphere grid
      (instanced_grid(icosphere_scene(3), 4): 20,480 triangles, 3 lights) at
@@ -325,9 +325,9 @@ _PALLAS = "distributed_raytracer_tpu/ops/pallas/bsr_trace.py"
 _PALLAS_RING = "distributed_raytracer_tpu/ops/pallas/ring_trace.py"
 WRAPPERS = ("bsr_nearest", "bsr_any")
 RING_WRAPPERS = ("ring_nearest", "ring_any")
-# Per kernel (its LAUNCHES key): (its id in PERF.md's kernel table, its
-# source, the TPU kernel it replaces: none for stage B2's, whose JAX
-# version is jnp that XLA fuses).
+# Per kernel (its launch key in utils/tracing.COUNTS): (its id in
+# PERF.md's kernel table, its source, the TPU kernel it replaces: none for
+# stage B2's, whose JAX version is jnp that XLA fuses).
 KERNELS = {
     "bsr_nearest": ("K1", SOURCE, f"{_PALLAS}:356"),
     "bsr_any": ("K2", SOURCE, f"{_PALLAS}:411"),
@@ -339,6 +339,9 @@ KERNELS = {
     "ring_any": ("K7", RING_SOURCE, f"{_PALLAS_RING}:57"),
     "shade_prep": ("B2", SHADE_SOURCE, None),
 }
+# The traversal kernels' launch keys (K1-K5), and with stage B2's.
+BSR_KEYS = tuple(k for k in KERNELS if k.startswith("bsr_"))
+LAUNCH_KEYS = (*BSR_KEYS, "shade_prep")
 
 
 def tensor_bytes(x) -> int:
@@ -482,7 +485,7 @@ def wrappers_replaced(module, make, names=WRAPPERS):
 
 def recording(bsr_trace, seen: dict):
     """A make() for wrappers_replaced that appends every call's arguments
-    to seen[LAUNCHES key] and then calls the wrapper."""
+    to seen[its launch key] and then calls the wrapper."""
     def make(name, fn):
         def call(*args, **kwargs):
             key = bsr_trace.launch_key(name, kwargs["shared_origin"],
@@ -498,21 +501,21 @@ def plain_versions(bsr_trace):
     return lambda name, fn: getattr(bsr_trace, name + "_ref")
 
 
-def reset_launches(bsr_trace) -> None:
-    """Sets the traversal kernels' and stage B2's launch counts to 0."""
-    from distributed_raytracer_tpu_torch.ops import shade_prep
+def reset_launches(keys=LAUNCH_KEYS) -> None:
+    """Sets the launch counts of `keys` (utils/tracing.COUNTS; default the
+    traversal kernels' and stage B2's) to 0."""
+    from distributed_raytracer_tpu_torch.utils.tracing import COUNTS
 
-    for counts in (bsr_trace.LAUNCHES, shade_prep.LAUNCHES):
-        for name in counts:
-            counts[name] = 0
+    for key in keys:
+        COUNTS[key] = 0
 
 
-def launch_counts(bsr_trace) -> dict:
-    """The launches since reset_launches: the traversal kernels' (K1-K5)
-    and stage B2's (`shade_prep`)."""
-    from distributed_raytracer_tpu_torch.ops import shade_prep
+def launch_counts(keys=LAUNCH_KEYS) -> dict:
+    """The launches of `keys` since reset_launches (default the traversal
+    kernels' (K1-K5) and stage B2's (`shade_prep`))."""
+    from distributed_raytracer_tpu_torch.utils.tracing import COUNTS
 
-    return {**bsr_trace.LAUNCHES, **shade_prep.LAUNCHES}
+    return {key: COUNTS[key] for key in keys}
 
 
 def visited_rays(args, kwargs):
@@ -686,7 +689,7 @@ def b2_args(r, camera, bounce: bool, ht_pad=None):
     bounce 1's (reflection rays, each with its own viewer). `ht_pad`, if
     given, replaces the hit count's bucket."""
     from distributed_raytracer_tpu_torch.ops import raygen
-    from distributed_raytracer_tpu_torch.ops.render_bvh import _tile_bucket
+    from distributed_raytracer_tpu_torch.ops.frozen_graph import tile_bucket
 
     sc = r.dev_scene
     cam = raygen.camera_arrays(camera, r.device)
@@ -695,14 +698,14 @@ def b2_args(r, camera, bounce: bool, ht_pad=None):
     hits, hcount, _ = r._stage_b1(sc, pads, rays, ti, m, e, c1)
     view = cam.pos
     if bounce:
-        sh = r._stage_b2(sc, _tile_bucket(int(hcount), r.n_tiles), rays,
+        sh = r._stage_b2(sc, tile_bucket(int(hcount), r.n_tiles), rays,
                          hits, view, keep_rays=True)
         rays, ti, m, e, c1, excl, view, _ = r._bounce(
             sc, sh, hits, rays.new_ones((3, r.n_pad)))
         pads, _ = r._size_pads(sc, ti, m, e, c1)
         hits, hcount, _ = r._nearest(sc, pads, sc.tris_packed, rays, excl,
                                      ti, m, e, c1)
-    ht_pad = ht_pad or _tile_bucket(int(hcount), r.n_tiles)
+    ht_pad = ht_pad or tile_bucket(int(hcount), r.n_tiles)
     _, tidx, ht_count, _ = r._tile_order(ht_pad, hits)
     return ((rays, hits, tidx, ht_count, sc.arrays, sc.shade_tbl, view,
              r.cfg), dict(rt=r.rt, keep_rays=bounce))
@@ -772,7 +775,7 @@ def phase_frame(renderer, scene, bsr_trace):
     from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
     from distributed_raytracer_tpu_torch.runtime import animation
 
-    reset_launches(bsr_trace)
+    reset_launches()
     render_ms = time_ms(lambda: renderer.render(scene.camera, block=True),
                         repeats=5)
     sync_img = renderer.render(scene.camera, block=True).cpu().numpy()
@@ -794,11 +797,11 @@ def phase_frame(renderer, scene, bsr_trace):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = launch_counts(bsr_trace)
+    launches = launch_counts()
     print(f"[phase 2] render() {render_ms:.3f} ms; render_fast(verify=True) "
           f"median {statistics.median(fast_ms):.3f} ms over {ORBIT} poses; "
           f"render_fast() {nosync_ms:.3f} ms; counts {counts}; pads "
-          f"{renderer._frozen_pads}; exit_every {renderer.exit_every}; "
+          f"{renderer.buckets()}; exit_every {renderer.exit_every}; "
           f"launches {launches}")
     for name in ("bsr_nearest", "bsr_any", "shade_prep"):
         check(launches[name] > 0, f"{name} was not launched on the path")
@@ -846,7 +849,7 @@ def phase_bounced(renderer, scene, bsr_trace):
     import numpy as np
     import torch
 
-    reset_launches(bsr_trace)
+    reset_launches()
     bounced_ms = time_ms(
         lambda: renderer.render_bounced(scene.camera, DEPTH, block=True),
         repeats=3, warmup=1)
@@ -872,7 +875,7 @@ def phase_bounced(renderer, scene, bsr_trace):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = launch_counts(bsr_trace)
+    launches = launch_counts()
     print(f"[phase 2b] render_bounced(depth={DEPTH}) {bounced_ms:.3f} ms "
           f"(median of 3); per-bounce counts {counts}; freeze_bounced "
           f"{freeze_s:.2f} s; frozen(verify=True) per frame "
@@ -1154,7 +1157,7 @@ def phase_frame_mxu(mxu, renderer, scene, bsr_trace, plain0):
 
     from distributed_raytracer_tpu_torch.runtime import animation
 
-    reset_launches(bsr_trace)
+    reset_launches()
     render_ms = time_ms(lambda: mxu.render(scene.camera, block=True),
                         repeats=5)
     mxu.freeze(scene.camera)
@@ -1173,11 +1176,11 @@ def phase_frame_mxu(mxu, renderer, scene, bsr_trace, plain0):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    launches = launch_counts(bsr_trace)
+    launches = launch_counts()
     print(f"[phase 2c] use_mxu=True: render() {render_ms:.3f} ms; "
           f"render_fast(verify=True) median {statistics.median(fast_ms):.3f} "
           f"ms over {ORBIT} poses; counts {mxu._last_counts}; pads "
-          f"{mxu._frozen_pads}; exit_every {mxu.exit_every}; launches "
+          f"{mxu.buckets()}; exit_every {mxu.exit_every}; launches "
           f"{launches}")
     for name in ("bsr_nearest_mxu", "bsr_any_mxu", "shade_prep"):
         check(launches[name] > 0, f"{name} was not launched on the path")
@@ -1210,11 +1213,11 @@ def phase_bounced_mxu(grid, bounced, bsr_trace, sync_k2):
                                                  bounced.tree),
                          device="cuda", use_mxu=True)
     mxu.render_bounced(grid.camera, DEPTH, block=True)   # warm-up
-    reset_launches(bsr_trace)
+    reset_launches()
     t0 = time.perf_counter()
     img = mxu.render_bounced(grid.camera, DEPTH, block=True)
     secs = time.perf_counter() - t0
-    launches = launch_counts(bsr_trace)
+    launches = launch_counts()
     print(f"[phase 2c] bounced 1080p depth {DEPTH}, use_mxu=True: "
           f"render_bounced {secs * 1e3:.3f} ms; per-bounce counts "
           f"{mxu._last_bounce_counts}; launches {launches}")
@@ -1264,7 +1267,7 @@ def phase_dynamic(grid, bsr_trace):
                                     use_mxu=use_mxu)
         dyn.render(grid.camera, block=True)
         dyn.freeze(grid.camera)
-        reset_launches(bsr_trace)
+        reset_launches()
         imgs, ms = [], []
         for k, d in enumerate(diffs):
             torch.cuda.synchronize()
@@ -1282,7 +1285,7 @@ def phase_dynamic(grid, bsr_trace):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         torch.cuda.synchronize()
-        got = launch_counts(bsr_trace)
+        got = launch_counts()
         worst = (0.0, 0.0)
         for k, img in enumerate(imgs):
             diff = np.abs(img.cpu().numpy() - refs[k])
@@ -1296,7 +1299,7 @@ def phase_dynamic(grid, bsr_trace):
               f"{[round(t, 3) for t in ms]} ms, median "
               f"{statistics.median(ms):.3f} ms (verify on frames 0, 8); "
               f"worst frame vs fresh bake: {worst[0]:.6%} of pixels > "
-              f"2/255, mean {worst[1]:.3e}; pads {dyn._frozen_pads}; "
+              f"2/255, mean {worst[1]:.3e}; pads {dyn.buckets()}; "
               f"launches {got}")
         check(bool(torch.equal(zero, static)),
               "zero diff differs from render_fast")
@@ -1366,10 +1369,10 @@ def graph_case(tag, r, kind, use_mxu, items, replay, eager, sync):
     counts = frozen_graph.COUNTS
     # Forced small buckets: the verify loop overflows, recaptures and
     # comes back equal to the sizing render.
-    pads0 = str(r._frozen_pads if kind != "bounced" else replay.pads())
+    pads0 = str(r.buckets() if kind != "bounced" else replay.pads())
     caps = counts["captures"]
     first = replay(items[0], True)
-    pads1 = str(r._frozen_pads if kind != "bounced" else replay.pads())
+    pads1 = str(r.buckets() if kind != "bounced" else replay.pads())
     recaptures = counts["captures"] - caps - 1
     check(pads1 != pads0 and recaptures >= 1,
           f"{tag}: small buckets did not overflow and recapture")
@@ -1411,14 +1414,14 @@ def graph_case(tag, r, kind, use_mxu, items, replay, eager, sync):
             replay(it, False)
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    reset_launches(bsr_trace)
+    reset_launches()
     replays = counts["replays"]
     traced = traced_kernels(lambda: replay(items[1], False))
     seen = {kernel_class(k) for k in traced}
     want = GRAPH_KERNELS[(kind, use_mxu)]
     check(all(k in seen for k in want),
           f"{tag}: kernels {want} not in the replay's trace {sorted(seen)}")
-    check(sum(launch_counts(bsr_trace).values()) == 0
+    check(sum(launch_counts().values()) == 0
           and counts["replays"] == replays + 1
           and counts["captures"] == caps,
           f"{tag}: the profiled frame was not one replay")
@@ -1476,7 +1479,7 @@ def phase_graphs(renderer, scene, bounced, grid):
         out[("fast", use_mxu)] = graph_case(
             f"render_fast 640x480 use_mxu={use_mxu}", r, "fast", use_mxu,
             [scene.camera] + poses, fast,
-            lambda cam: r._full(r.dev_scene, r._frozen_pads,
+            lambda cam: r._full(r.dev_scene, r.buckets(),
                                 raygen.camera_arrays(cam, dev))[0],
             lambda cam: r.render(cam, block=True))
         many = animation.orbit_camera_path(scene.camera, GRAPH_MANY,
@@ -1484,7 +1487,7 @@ def phase_graphs(renderer, scene, bounced, grid):
         for cam in many:                 # buckets that hold every pose
             r.render_fast(cam, verify=True)
         imgs, counts = r.render_many(many)
-        fits = bool((counts <= torch.tensor(r._frozen_pads,
+        fits = bool((counts <= torch.tensor(r.buckets(),
                                             device=dev)).all())
         check(fits, f"render_many counts overflow the buckets (use_mxu="
                     f"{use_mxu})")
@@ -1520,7 +1523,7 @@ def phase_graphs(renderer, scene, bounced, grid):
             lambda diff, v: d.render_dynamic(grid.camera, diff, verify=v),
             lambda diff: d._full(d._apply_diff(d._diff_views(
                 raygen.to_device(d._diff_packed(diff), dev))),
-                d._frozen_pads, cam_d)[0],
+                d.buckets(), cam_d)[0],
             lambda diff: d.render(grid.camera, block=True))
         for x in (r, b, d):
             x.release_graphs()
@@ -1829,8 +1832,7 @@ def phase_ring_frames(grid, ring_trace):
     rdma = ring_renderer(arrays, RING_N, use_rdma=True)
     rdma(grid.camera)                                      # warm-up
     torch.cuda.synchronize()
-    for name in ring_trace.LAUNCHES:
-        ring_trace.LAUNCHES[name] = 0
+    reset_launches(RING_WRAPPERS)
     frames, ms = [], []
     for _ in range(RING_FRAMES):
         torch.cuda.synchronize()
@@ -1838,7 +1840,7 @@ def phase_ring_frames(grid, ring_trace):
         frames.append(rdma(grid.camera))
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-    launches = dict(ring_trace.LAUNCHES)
+    launches = launch_counts(RING_WRAPPERS)
     print(f"[phase 4b] ring use_rdma=True, {RING_N} ranks on cuda:0: "
           f"{[round(t, 3) for t in ms]} ms per frame, median "
           f"{statistics.median(ms):.3f}; launches {launches} (mesh "
@@ -1904,12 +1906,12 @@ def phase_bands(bsr_trace, bounced, grid):
           f"blocks at {sf.BAND_W}x{sf.BAND_H}: bake, upload and "
           f"{sf.BAND_POSES} single-rank frames {time.perf_counter() - t0:.1f} "
           "s")
-    reset_launches(bsr_trace)
+    reset_launches()
     t0 = time.perf_counter()
     equal, balanced = sf.build_bands(scene, bake, mesh, poses)
     worst = sf.check_bands(equal, balanced, refs, poses)
     torch.cuda.synchronize()
-    launches = launch_counts(bsr_trace)
+    launches = launch_counts()
     print(f"[phase 5a] equal and balanced bands, {RING_N} ranks on cuda:0: "
           f"built, sized and {sf.BAND_POSES} poses in "
           f"{time.perf_counter() - t0:.1f} s; every frame within {worst} of "
@@ -1925,7 +1927,7 @@ def phase_bands(bsr_trace, bounced, grid):
         print(f"[phase 5a] {what}: {sf.stats_line(sf.stats(fn))}")
 
     prebaked = (bounced.arrays_host, bounced.tree)
-    reset_launches(bsr_trace)
+    reset_launches()
     bands = render_sharded_bvh.make_sharded_bounced_renderer(
         None, BW, BH, DEPTH, mesh=mesh, prebaked=prebaked,
         sizing_camera=grid.camera)
@@ -1936,7 +1938,7 @@ def phase_bands(bsr_trace, bounced, grid):
         got = bands(cam, verify=True)
         diff = max(diff, float((got - one(cam, verify=True)).abs().max()))
     torch.cuda.synchronize()
-    got = launch_counts(bsr_trace)
+    got = launch_counts()
     print(f"[phase 5a] bounced bands, {BW}x{BH} depth {DEPTH}, {RING_N} "
           f"ranks: 2 poses within {diff} of the single-rank freeze_bounced "
           f"frame (atol 2e-5); buckets {bands.buckets()}; launches {got}; "
@@ -1984,7 +1986,7 @@ def phase_ring_bvh(bsr_trace, grid):
 
     mesh = ["cuda:0"] * RING_N
     scene = sf.ring_scene()
-    reset_launches(bsr_trace)
+    reset_launches()
     t0 = time.perf_counter()
     ring = ring_bvh.RingCulledRenderer(scene, sf.RING_W, sf.RING_H,
                                        mesh=mesh)
@@ -1995,11 +1997,11 @@ def phase_ring_bvh(bsr_trace, grid):
     single.freeze(scene.camera)
     diff = sf.check_ring(ring, ref, scene.camera)
     torch.cuda.synchronize()
-    launches = dict(bsr_trace.LAUNCHES)
-    reset_launches(bsr_trace)
+    launches = launch_counts(BSR_KEYS)
+    reset_launches()
     ring.render(scene.camera)
     torch.cuda.synchronize()
-    per_frame = dict(bsr_trace.LAUNCHES)
+    per_frame = launch_counts(BSR_KEYS)
     print(f"[phase 5b] ring, {scene.num_tris} triangles, {ring.nb_ext} "
           f"blocks ({ring.nb_loc} per rank, local levels {ring.n_levels}), "
           f"{RING_N} ranks on cuda:0, {sf.RING_W}x{sf.RING_H}: bake, upload "
@@ -2015,7 +2017,7 @@ def phase_ring_bvh(bsr_trace, grid):
         print(f"[phase 5b] {what}: {sf.stats_line(sf.stats(fn))}")
     del ring, single
 
-    reset_launches(bsr_trace)
+    reset_launches()
     rb = ring_bvh.RingCulledRenderer(grid, W, H, mesh=mesh, bounces=DEPTH)
     seen = {}
     with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
@@ -2024,11 +2026,11 @@ def phase_ring_bvh(bsr_trace, grid):
     diff = float((img - one.render_bounced(grid.camera, DEPTH,
                                            block=True)).abs().max())
     torch.cuda.synchronize()
-    got = dict(bsr_trace.LAUNCHES)
-    reset_launches(bsr_trace)
+    got = launch_counts(BSR_KEYS)
+    reset_launches()
     rb.render(grid.camera)
     torch.cuda.synchronize()
-    per_frame = dict(bsr_trace.LAUNCHES)
+    per_frame = launch_counts(BSR_KEYS)
     print(f"[phase 5b] ring, sphere grid {W}x{H}, bounces {DEPTH}: within "
           f"{diff} of the single-rank render_bounced (atol 2e-5); launches "
           f"per frame {per_frame}; "
@@ -2044,7 +2046,7 @@ def phase_ring_bvh(bsr_trace, grid):
         launches[key] += n
     del rb, seen
 
-    reset_launches(bsr_trace)
+    reset_launches()
     rd = ring_bvh.RingCulledRenderer(grid, W, H, mesh=mesh, dynamic=True)
     diffs = animation.orbit_object_diffs(grid, 4)[1:1 + RING_DYN_DIFFS]
     worst = (0.0, 0.0)
@@ -2057,7 +2059,7 @@ def phase_ring_bvh(bsr_trace, grid):
             "ring render_dynamic vs a fresh bake", img, want,
             mean_bound=1e-3)))
     torch.cuda.synchronize()
-    for key, n in bsr_trace.LAUNCHES.items():
+    for key, n in launch_counts(BSR_KEYS).items():
         launches[key] += n
     print(f"[phase 5b] ring dynamic, sphere grid {W}x{H}: "
           f"{RING_DYN_DIFFS} orbit diffs, worst {worst[0]:.6%} of pixels > "
@@ -2098,7 +2100,7 @@ def phase_halo(bsr_trace, grid):
 
     mesh = ["cuda:0"] * RING_N
     scene = sf.ring_scene()
-    reset_launches(bsr_trace)
+    reset_launches()
     t0 = time.perf_counter()
     hb = halo_bvh.HaloCulledRenderer(scene, sf.RING_W, sf.RING_H, mesh=mesh)
     build_s = time.perf_counter() - t0
@@ -2110,11 +2112,11 @@ def phase_halo(bsr_trace, grid):
     frames = [hb.render(scene.camera) for _ in range(HALO_FRAMES)]
     torch.cuda.synchronize()
     same = sum(bool(torch.equal(f, frames[0])) for f in frames)
-    launches = dict(bsr_trace.LAUNCHES)
-    reset_launches(bsr_trace)
+    launches = launch_counts(BSR_KEYS)
+    reset_launches()
     hb.render(scene.camera)
     torch.cuda.synchronize()
-    per_frame = dict(bsr_trace.LAUNCHES)
+    per_frame = launch_counts(BSR_KEYS)
     print(f"[phase 5c] halo, {scene.num_tris} triangles, {hb.nb_ext} "
           f"blocks ({hb.nb_loc} per rank, local levels {hb.n_levels}), "
           f"{RING_N} ranks on cuda:0, {sf.RING_W}x{sf.RING_H}: bake, upload "
@@ -2131,7 +2133,7 @@ def phase_halo(bsr_trace, grid):
     print(f"[phase 5c] halo: {sf.stats_line(st)}")
     del hb, single, frames
 
-    reset_launches(bsr_trace)
+    reset_launches()
     rb = halo_bvh.HaloCulledRenderer(grid, W, H, mesh=mesh, bounces=DEPTH)
     seen = {}
     with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
@@ -2140,12 +2142,12 @@ def phase_halo(bsr_trace, grid):
     diff = float((img - one.render_bounced(grid.camera, DEPTH,
                                            block=True)).abs().max())
     torch.cuda.synchronize()
-    for key, n in bsr_trace.LAUNCHES.items():
+    for key, n in launch_counts(BSR_KEYS).items():
         launches[key] += n
-    reset_launches(bsr_trace)
+    reset_launches()
     rb.render(grid.camera)
     torch.cuda.synchronize()
-    per_frame = dict(bsr_trace.LAUNCHES)
+    per_frame = launch_counts(BSR_KEYS)
     print(f"[phase 5c] halo, sphere grid {W}x{H}, bounces {DEPTH}: within "
           f"{diff} of the single-rank render_bounced (atol 2e-5); launches "
           f"per frame {per_frame}; "
@@ -2161,7 +2163,7 @@ def phase_halo(bsr_trace, grid):
         launches[key] += n
     del rb, seen
 
-    reset_launches(bsr_trace)
+    reset_launches()
     rd = halo_bvh.HaloCulledRenderer(grid, W, H, mesh=mesh, dynamic=True)
     diffs = animation.orbit_object_diffs(grid, 4)[1:1 + RING_DYN_DIFFS]
     worst = (0.0, 0.0)
@@ -2174,7 +2176,7 @@ def phase_halo(bsr_trace, grid):
             "halo render_dynamic vs a fresh bake", img, want,
             mean_bound=1e-3)))
     torch.cuda.synchronize()
-    for key, n in bsr_trace.LAUNCHES.items():
+    for key, n in launch_counts(BSR_KEYS).items():
         launches[key] += n
     st = sf.stats(lambda: rd.render_dynamic(grid.camera, diffs[0]))
     print(f"[phase 5c] halo dynamic, sphere grid {W}x{H}: "
@@ -2587,7 +2589,7 @@ def config5_pass(tag, arrays, tree, cam, poses, bsr_trace):
     from distributed_raytracer_tpu_torch.utils import profiling
 
     rt, tw = dict((t, (r, w)) for t, r, w in C5_TILES)[tag]
-    reset_launches(bsr_trace)
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -2605,7 +2607,7 @@ def config5_pass(tag, arrays, tree, cam, poses, bsr_trace):
     r.freeze(cam)
     imgs = [r.render_fast(p, verify=True) for p in poses]
     torch.cuda.synchronize()
-    launches = launch_counts(bsr_trace)
+    launches = launch_counts()
     peak = (torch.cuda.max_memory_allocated() - before) / 2**30
     for name in ("bsr_nearest", "bsr_any", "shade_prep"):
         check(launches[name] > 0, f"config 5 {tag}: {name} was not launched")
@@ -2622,7 +2624,7 @@ def config5_pass(tag, arrays, tree, cam, poses, bsr_trace):
           f"{r.exit_every}; renderer built in {build_s:.1f} s, render() "
           f"{render_s:.2f} s; the sizing pose's counts per level {counts}, "
           f"scheduled pairs {sizing_pairs} ({sizing_pairs / 1e9:.3f} G); "
-          f"pads after the orbit {r._frozen_pads}; launches {launches}; peak "
+          f"pads after the orbit {r.buckets()}; launches {launches}; peak "
           f"device memory above the run's earlier allocations {peak:.2f} "
           "GiB")
     kernels = {key: compare_kernel(
@@ -2862,7 +2864,7 @@ def phase_bench_shapes(bsr_trace) -> dict:
         cfg = bench.TABLE[name]
         bounced = cfg.path == "bounced"
         keys = ("bsr_nearest_rays" if bounced else "bsr_nearest", "bsr_any")
-        reset_launches(bsr_trace)
+        reset_launches()
         t0 = time.perf_counter()
         m = bench.run(cfg, "cuda:0")
         run_s = time.perf_counter() - t0
@@ -2880,7 +2882,7 @@ def phase_bench_shapes(bsr_trace) -> dict:
         seen = {}
         with wrappers_replaced(bsr_trace, recording(bsr_trace, seen)):
             sync_frame()
-        got = launch_counts(bsr_trace)
+        got = launch_counts()
         for key, k in got.items():
             launches[key] = launches.get(key, 0) + k
         print(f"[phase 8a] bench config {name}: {cfg.width}x{cfg.height}, "

@@ -47,9 +47,9 @@ hands over what it measured; a config that fails or does not finish gets a
 `configN_error` key. On SIGTERM or SIGINT this process prints the line it
 has so far.
 
-Each process also prints `bench launches: {...}` on stderr: the kernel
-wrappers' launch counts (ops/bsr_trace.LAUNCHES, and stage B2's,
-ops/shade_prep.LAUNCHES); this process's line sums its children's. A
+Each process also prints `bench launches: {...}` on stderr: the
+traversal kernels' and stage B2's launch counts (their utils/tracing.COUNTS
+keys); this process's line sums its children's. A
 frozen frame is a CUDA graph, whose kernels count when it is captured,
 not when it is replayed.
 
@@ -411,9 +411,10 @@ GROUP_TIMEOUT_S = {("loop", "3"): 45, ("2", "4"): 50, ("5",): 210}
 
 
 def launches() -> dict:
-    from distributed_raytracer_tpu_torch.ops import bsr_trace, shade_prep
+    from distributed_raytracer_tpu_torch.utils.tracing import COUNTS
 
-    return {**bsr_trace.LAUNCHES, **shade_prep.LAUNCHES}
+    return {k: n for k, n in COUNTS.items()
+            if k.startswith(("bsr_", "shade_prep"))}
 
 
 def _print_launches(counts: dict) -> None:

@@ -40,15 +40,13 @@ import torch
 
 from distributed_raytracer_tpu_torch.ops import _build
 from distributed_raytracer_tpu_torch.ops.intersect import BARY_EPS
+from distributed_raytracer_tpu_torch.utils import tracing
 
 BIG_IDX = 2 ** 30
 # "Unbounded" packed t_max: finite, as in the JAX package (its MXU kernels
 # multiply whole ray blocks, and 0 * inf = NaN). All t <= t_max comparisons
 # behave identically.
 BIG_TMAX = 3.4e38
-# The JAX package's work-list bucket granule (its SMEM segment length); kept
-# so both packages size identical buckets from identical counts.
-_BUCKET_SEGMENT = 16384
 # Threads per block of the CUDA-core kernels (K1-K3); rt / THREADS rays
 # per thread.
 THREADS = 128
@@ -61,36 +59,17 @@ CHUNK = 2
 # unchunked (W, tb, rt) pair tensor is gigabytes at frame sizes).
 _REF_CHUNK_PAIRS = 1 << 22
 
-# Kernel launches per wrapper and triangle form ("_rays": per-ray origins;
-# "_mxu": the (A, scal) tuple on the tensor cores). Incremented only where
-# the CUDA kernel is launched, never by the plain versions; a caller resets
-# them to 0 to count the launches of one run. One count per call: a nearest
-# call of any triangle form (K1, K3n, K4) is three device launches (seed the
-# keys, the chunks, unpack), an any-hit call (K2, K3a, K5) a copy of init
-# and the chunks. A frozen frame on CUDA is a CUDA graph
-# (ops/frozen_graph.py): its calls count when the graph is warmed up and
-# captured, never when it is replayed.
-LAUNCHES = {"bsr_nearest": 0, "bsr_any": 0, "bsr_nearest_rays": 0,
-            "bsr_any_rays": 0, "bsr_nearest_mxu": 0, "bsr_any_mxu": 0}
-
 
 def launch_key(name: str, shared_origin: bool, mxu: bool = False) -> str:
-    """The LAUNCHES key of wrapper `name` in one triangle form."""
+    """The tracing.COUNTS key of wrapper `name`'s kernel launches in one
+    triangle form ("_rays": per-ray origins; "_mxu": the (A, scal) tuple
+    on the tensor cores). One count per call, only where the CUDA kernel
+    is launched: a nearest call of any form (K1, K3n, K4) is three device
+    launches (seed the keys, the chunks, unpack), an any-hit call (K2,
+    K3a, K5) a copy of init and the chunks."""
     if mxu:
         return name + "_mxu"
     return name if shared_origin else name + "_rays"
-
-
-def bucket_w_pad(n: int, margin: float = 1.0) -> int:
-    """Static work-list capacity for a measured count: small counts round to
-    a power of two, larger ones to a 2048-multiple per 16384-item segment
-    (the JAX package's policy, unchanged)."""
-    n = max(256, int(n * margin))
-    if n <= 2048:
-        return 1 << (n - 1).bit_length()
-    n_seg = -(-n // _BUCKET_SEGMENT)
-    g = 2048 * n_seg
-    return -(-n // g) * g
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +349,7 @@ def bsr_nearest(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
                 _build.launch("bsr_trace", lib.drt_bsr_nearest, *head,
                               _ptr(keys, 8), *tail, CHUNK, int(shared_origin),
                               stream)
-        LAUNCHES[launch_key("bsr_nearest", shared_origin, mxu)] += 1
+        tracing.COUNTS[launch_key("bsr_nearest", shared_origin, mxu)] += 1
     return out_t, out_i
 
 
@@ -413,7 +392,7 @@ def bsr_any(rays_packed, exclude, tris_packed, tile_ids, block_ids, entry,
             else:
                 _build.launch("bsr_trace", lib.drt_bsr_any, *head, CHUNK,
                               int(shared_origin), stream)
-        LAUNCHES[launch_key("bsr_any", shared_origin, mxu)] += 1
+        tracing.COUNTS[launch_key("bsr_any", shared_origin, mxu)] += 1
     return out
 
 

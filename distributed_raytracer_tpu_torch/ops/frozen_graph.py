@@ -19,8 +19,8 @@ A capture that fails raises; nothing falls back to the eager frame.
 
 Nothing is captured on the CPU: there the renderers run the eager stages.
 `COUNTS` (the tracer's counters, utils/tracing.py) counts captures and
-replays. The kernel wrappers' launch counters (ops/bsr_trace.LAUNCHES)
-count host issues: they count while a graph is warmed up and captured, and
+replays. It also counts the kernel wrappers' host launches (`bsr_nearest`
+... `shade_prep`): they count while a graph is warmed up and captured, and
 not when it is replayed, so an eager launch during a replay still shows
 in them (chip_smoke.py's check that a replay launches nothing eagerly
 reads them). With the tracer on, a capture is the span `frozen.capture` and a
@@ -28,16 +28,17 @@ replay `frozen.replay`; the device stamps a frame marks while it is
 captured (tracing.Stamps) fill a new row at each replay, which `run`
 notes.
 
-The bucket check. A frozen frame runs with fixed work-list buckets and
-returns its true counts; a verify frame holds the counts against the
-buckets and, on overflow, refreezes (grow-only) and renders again, at most
-8 rounds (`Check`). Every verify site (CulledRenderer's render_fast,
-render_dynamic and freeze_bounced's render, the bands, the culled ring and
-halo) hands its check to `verify`, which runs it at once, as a caller of
-`render_fast(verify=True)` expects, unless a deferral is open on this
-thread (`deferred()`): the frame loop (runtime/loop.py) opens one around
-each render call and settles the checks it collects when it drains the
-frame (`settle`), where it waits for the frame's pixels anyway. A deferred
+The bucket check. A frozen frame runs with fixed work-list buckets
+(`Buckets`: one renderer's rule, grow-only state and fit test) and returns
+its true counts; a verify frame holds the counts against the buckets and,
+on overflow, refreezes (grow-only) and renders again, at most 8 rounds
+(`Check`). Every verify site (CulledRenderer's render_fast, render_dynamic
+and freeze_bounced's render, the bands, the culled ring and halo) hands
+its check (`Buckets.check`) to `verify`, which runs it at once, as a
+caller of `render_fast(verify=True)` expects, unless a deferral is open on
+this thread (`deferred()`): the frame loop (runtime/loop.py) opens one
+around each render call and settles the checks it collects when it drains
+the frame (`settle`), where it waits for the frame's pixels anyway. A deferred
 check starts a non-blocking copy of the counts to pinned host memory and
 records an event after it, so the render call returns without a host
 sync. A multi-process mesh checks at once: every process must take the
@@ -58,13 +59,34 @@ import torch
 
 from distributed_raytracer_tpu_torch.utils import tracing
 
-# Captures and replays of every FrameGraph and the deferred checks: the
-# tracer's counters, which count on or off; a caller reads differences (or
-# resets them to 0).
+# The tracer's counters (captures, replays, deferred checks, kernel
+# launches), which count on or off; a caller reads differences (or resets
+# them to 0).
 COUNTS = tracing.COUNTS
+# The JAX package's work-list bucket granule (its SMEM segment length); kept
+# so both packages size identical buckets from identical counts.
+BUCKET_SEGMENT = 16384
 
 _log = logging.getLogger(__name__)
 _local = threading.local()
+
+
+def bucket_w_pad(n: int, margin: float = 1.0) -> int:
+    """Static work-list capacity for a measured count: small counts round to
+    a power of two, larger ones to a 2048-multiple per 16384-item segment
+    (the JAX package's policy, unchanged)."""
+    n = max(256, int(n * margin))
+    if n <= 2048:
+        return 1 << (n - 1).bit_length()
+    n_seg = -(-n // BUCKET_SEGMENT)
+    g = 2048 * n_seg
+    return -(-n // g) * g
+
+
+def tile_bucket(n: int, n_tiles: int) -> int:
+    """Capacity for the compacted hit-TILE set: pow2, floor 8, capped at
+    the full tile count (cap = no compaction, overflow impossible)."""
+    return min(n_tiles, max(8, 1 << max(0, int(n - 1).bit_length())))
 
 
 def fresh(outputs):
@@ -252,3 +274,65 @@ def settle(checks, frame=None) -> bool:
         COUNTS["verify_deferred"] += 1
         fit = check.settle(frame) and fit
     return fit
+
+
+def _grown(new, old):
+    return (tuple(map(_grown, new, old)) if isinstance(new, tuple)
+            else max(new, old))
+
+
+def _within(counts, pads) -> bool:
+    return (all(map(_within, counts, pads)) if isinstance(pads, tuple)
+            else counts <= pads)
+
+
+class Buckets:
+    """One renderer's work-list buckets, `pads`: nested tuples of ints
+    (graph keys hash them) in its counts' layout, one vector (the culled
+    frame's levels, the hit-TILE count at index `hit`) or one per bounce
+    (`hit` None: the halo's and ring's primary then shadow levels).
+
+    The rule: each count x margin through bucket_w_pad, the hit-TILE slot
+    through tile_bucket, capped at `n_tiles`. Buckets only grow, or the
+    verify loop could not rely on each round growing one. `margin` is the
+    refreeze margin: the bands', halo's and ring's build margin;
+    CulledRenderer's is freeze()'s default whatever its first freeze took
+    (render_fast's refreeze calls freeze() with no margin in the JAX
+    package). `worst(host counts)` gives the nested counts held against
+    the buckets (the max over bands or ranks, the columns they bound);
+    `on_grow(counts)` hears each refreeze of a check."""
+
+    def __init__(self, margin: float, hit=None, n_tiles: int = 0,
+                 worst=None, on_grow=None):
+        self.margin, self.hit, self.n_tiles = margin, hit, n_tiles
+        self.worst = worst or (lambda c: c.tolist())
+        self.on_grow, self.pads = on_grow, None
+
+    def rule(self, counts, margin: float) -> tuple:
+        if isinstance(counts[0], (list, tuple)):
+            return tuple(self.rule(c, margin) for c in counts)
+        return tuple(tile_bucket(int(c * margin), self.n_tiles)
+                     if k == self.hit else bucket_w_pad(c, margin)
+                     for k, c in enumerate(counts))
+
+    def grow(self, counts, margin=None) -> None:
+        """The rule's buckets of `counts` (default margin: the refreeze
+        margin), never below the current ones: the first is the freeze."""
+        pads = self.rule(counts, self.margin if margin is None else margin)
+        self.pads = pads if self.pads is None else _grown(pads, self.pads)
+
+    def fits(self, counts) -> bool:
+        return _within(counts, self.pads)
+
+    def check(self, out, counts, again, name: str, card=None,
+              now: bool = False) -> Check:
+        """`verify`(Check) of one frame: its output, its true counts and
+        again() -> (out, counts) with the current buckets."""
+        def grow(got):
+            worst = self.worst(got)
+            if self.on_grow is not None:
+                self.on_grow(worst)
+            self.grow(worst)
+
+        fits = lambda got: self.fits(self.worst(got))
+        return verify(Check(out, counts, fits, grow, again, name, card), now)

@@ -70,23 +70,21 @@ from distributed_raytracer_tpu_torch.models.scene import Scene, SceneArrays
 from distributed_raytracer_tpu_torch.ops import (bsr_trace, cull,
                                                 frozen_graph, intersect,
                                                 raygen, shade, shade_prep)
+from distributed_raytracer_tpu_torch.ops.frozen_graph import (bucket_w_pad,
+                                                              tile_bucket)
 from distributed_raytracer_tpu_torch.ops.intersect import Hits
 from distributed_raytracer_tpu_torch.ops.shade import PackedPrep
 from distributed_raytracer_tpu_torch.utils import tracing
 from distributed_raytracer_tpu_torch.utils.config import (
     DEFAULT_CONFIG, RenderConfig, default_block_size)
 
-_bucket = bsr_trace.bucket_w_pad
+# freeze()'s default margin, and the margin render_fast's and
+# render_dynamic's checks refreeze at (frozen_graph.Buckets).
+FREEZE_MARGIN = 1.4
 
 
 def _no_mark(point: int) -> None:
     pass
-
-
-def _tile_bucket(n: int, n_tiles: int) -> int:
-    """Capacity for the compacted hit-TILE set: pow2, floor 8, capped at
-    the full tile count (cap = no compaction, overflow impossible)."""
-    return min(n_tiles, max(8, 1 << max(0, int(n - 1).bit_length())))
 
 
 def reflect_rows(cfg: RenderConfig, prep: PackedPrep, rays: torch.Tensor,
@@ -254,7 +252,6 @@ class CulledRenderer:
         # one per expansion), the hit-tile count, then the shadow counts in
         # the same level layout.
         self.n_levels = len(self.groups) + 1
-        self._ht_idx = self.n_levels
 
         self.tile_h = ray_tile // self.tile_w
         perm, _, n_slots = cull.tiled_ray_order(width, height, self.tile_w,
@@ -267,7 +264,10 @@ class CulledRenderer:
         self.n_tiles = self.n_pad // ray_tile
         self._no_excl = torch.full((self.n_pad,), -1, dtype=torch.int32,
                                    device=dev)
-        self._frozen_pads = None
+        # The frozen buckets (the hit-TILE count after the primary levels).
+        self._buckets = frozen_graph.Buckets(
+            FREEZE_MARGIN, hit=self.n_levels, n_tiles=self.n_tiles,
+            on_grow=self._regrown)
         # Raw counts of the last sync render, in the count-vector layout.
         self._last_counts = None
         # CUDA graphs of the frozen frames, one per kind ("fast",
@@ -348,17 +348,18 @@ class CulledRenderer:
         (pads tuple len n_levels, counts tuple len n_levels). `mask` and
         `entry` may carry a leading light axis."""
         if mask.numel() == 0:   # no lights: no shadow work at any level
-            return ((_bucket(0),) * self.n_levels, (0,) * self.n_levels)
+            return ((bucket_w_pad(0),) * self.n_levels,
+                    (0,) * self.n_levels)
         m = mask.reshape(-1, mask.shape[-1])
         e = entry.reshape(-1, entry.shape[-1])
         counts = [int(c_top)]
-        pads = [_bucket(counts[0])]
+        pads = [bucket_w_pad(counts[0])]
         for _ in range(len(self.groups)):
             _, c = cull.multilevel_worklist(ti, m, e, c_top, sc.block_lo,
                                             sc.block_hi, self.groups,
                                             tuple(pads))
             counts.append(int(c[-1]))
-            pads.append(_bucket(counts[-1]))
+            pads.append(bucket_w_pad(counts[-1]))
         return tuple(pads), tuple(counts)
 
     def per_tile_cells(self, camera) -> torch.Tensor:
@@ -433,13 +434,10 @@ class CulledRenderer:
         only with `keep_rays` (a bounce's reflection rays read them).
 
         The tile order is sorted here; the per-ray work is
-        shade_prep.prep_tiles: on CUDA one kernel (counted in
-        tracing.COUNTS["b2_fused"]), on the CPU its plain version
-        (COUNTS["b2_plain"])."""
+        shade_prep.prep_tiles: on CUDA one kernel (its launches counted in
+        tracing.COUNTS["shade_prep"]), on the CPU its plain version."""
         hit_tile, tidx, ht_count, tpos = self._tile_order(ht_pad, hits)
         n_lights = sc.arrays.light_pos.shape[0]
-        tracing.COUNTS["b2_fused" if rays.device.type == "cuda"
-                       else "b2_plain"] += 1
         tp = shade_prep.prep_tiles(rays, hits, tidx, ht_count, sc.arrays,
                                    sc.shade_tbl, view, self.cfg, rt=self.rt,
                                    keep_rays=keep_rays)
@@ -575,7 +573,7 @@ class CulledRenderer:
         self._resolve_exit(p_counts[-1])
         hits, hcount, _ = self._stage_b1(sc, p_pads, rays, ti, mask1, entry1,
                                          c1)
-        ht_pad = _tile_bucket(int(hcount), self.n_tiles)
+        ht_pad = tile_bucket(int(hcount), self.n_tiles)
         sh = self._stage_b2(sc, ht_pad, rays, hits, cam.pos)
         s_pads, s_counts = self._size_pads(sc, sh.sti, sh.smasks,
                                            sh.sentries, sh.sc1)
@@ -623,15 +621,7 @@ class CulledRenderer:
                               *s_counts])
         return img, counts
 
-    def _pads_from(self, counts, margin: float) -> tuple:
-        """Buckets for one count vector (the counts layout): each count x
-        margin, the hit-TILE slot with its own small granularity, capped at
-        n_tiles so overflow is structurally impossible at the cap."""
-        hi = self._ht_idx
-        return tuple(_tile_bucket(int(c * margin), self.n_tiles) if k == hi
-                     else _bucket(c, margin) for k, c in enumerate(counts))
-
-    def freeze(self, camera=None, margin: float = 1.4) -> None:
+    def freeze(self, camera=None, margin: float = FREEZE_MARGIN) -> None:
         """Fix work-list buckets from the last sync render (running one if
         needed). Buckets only grow."""
         if self._last_counts is None:
@@ -639,17 +629,17 @@ class CulledRenderer:
                 raise ValueError("freeze() needs a camera for the sizing "
                                  "render")
             self.render(camera, block=True)
-        pads = self._pads_from(self._last_counts, margin)
-        # Grow-only: a refreeze must never SHRINK a bucket, or the verify
-        # loop's "each round strictly grows some bucket" argument fails.
-        if self._frozen_pads is not None:
-            pads = tuple(max(p, q) for p, q in zip(pads, self._frozen_pads))
-        self._frozen_pads = pads
+        self._buckets.grow(self._last_counts, margin)
+
+    def _regrown(self, counts) -> None:
+        """A check's refreeze counts become the counts the next freeze()
+        sizes from, as in the JAX package."""
+        self._last_counts = tuple(counts)
 
     def buckets(self) -> Optional[tuple]:
         """The frozen work-list buckets (the counts layout), None before
         the first freeze."""
-        return self._frozen_pads
+        return self._buckets.pads
 
     def render_fast(self, camera, verify: bool = False) -> torch.Tensor:
         """All stages with the frozen buckets and no host sync; returns the
@@ -660,7 +650,7 @@ class CulledRenderer:
         loop (runtime/loop.run_loop), which runs it when it drains the
         frame, before the frame is displayed, and issues the frame and
         those behind it again if the buckets grew (ops/frozen_graph.py)."""
-        if self._frozen_pads is None:
+        if self.buckets() is None:
             self.freeze(camera)
         frame = self._frozen_frame(
             "fast", {"camera": raygen.camera_packed(camera)}, self._fast_body)
@@ -683,12 +673,12 @@ class CulledRenderer:
         pose by a device-to-device copy from the stack: one graph launch
         per frame (the JAX package unrolls the batch into one dispatch to
         the same end). On the CPU, K eager frames."""
-        if self._frozen_pads is None:
+        if self.buckets() is None:
             self.freeze(cameras[0])
         stack = raygen.to_device(torch.stack(
             [raygen.camera_packed(c) for c in cameras]), self.device)
         frames = [self._frozen_frame("fast", {"camera": cam},
-                                     self._fast_body)(self._frozen_pads)
+                                     self._fast_body)(self.buckets())
                   for cam in stack]
         return (torch.stack([f[0] for f in frames]),
                 torch.stack([f[1] for f in frames]))
@@ -744,20 +734,12 @@ class CulledRenderer:
         bucket check of a verify frame (frozen_graph.verify: at once, or
         at the frame's drain inside the frame loop; `name` labels its span
         and its warning)."""
-        img, counts = frame(self._frozen_pads)
+        img, counts = frame(self.buckets())
         if not verify:
             return img
-
-        def grow(got):
-            self._last_counts = tuple(got.tolist())
-            self.freeze(camera)   # grow-only
-
-        return frozen_graph.verify(frozen_graph.Check(
-            img, counts,
-            lambda got: all(g <= p for g, p in
-                            zip(got.tolist(), self._frozen_pads)),
-            grow, lambda: frame(self._frozen_pads), name,
-            self.device.index)).out
+        return self._buckets.check(img, counts,
+                                   lambda: frame(self.buckets()), name,
+                                   self.device.index).out
 
     # -- multi-bounce path -----------------------------------------------
     #
@@ -817,7 +799,7 @@ class CulledRenderer:
                 self._resolve_exit(p_counts[-1])
             hits, hcount, _ = self._nearest(sc, p_pads, sc.tris_packed, rays,
                                             exclude, ti, mask1, entry1, c1)
-            ht_pad = _tile_bucket(int(hcount), self.n_tiles)
+            ht_pad = tile_bucket(int(hcount), self.n_tiles)
             sh = self._stage_b2(sc, ht_pad, rays, hits, view,
                                 keep_rays=b < depth)
             s_pads, s_counts = self._size_pads(sc, sh.sti, sh.smasks,
@@ -879,38 +861,24 @@ class CulledRenderer:
         does (at once, or at the frame's drain inside the frame loop).
         `render.pads()` gives the current buckets."""
         self.render_bounced(camera, depth, block=True)
-        state = {}
-
-        def freeze_from(counts):
-            pads = tuple(self._pads_from(c, margin) for c in counts)
-            prev = state.get("pads")
-            if prev is not None:   # grow-only, as freeze()
-                pads = tuple(tuple(max(p, q) for p, q in zip(b, pb))
-                             for b, pb in zip(pads, prev))
-            state["pads"] = pads
-
-        freeze_from(self._last_bounce_counts)
+        buckets = frozen_graph.Buckets(margin, hit=self.n_levels,
+                                       n_tiles=self.n_tiles)
+        buckets.grow(self._last_bounce_counts)
 
         def render(cam, verify: bool = False) -> torch.Tensor:
             frame = self._frozen_frame(
                 "bounced", {"camera": raygen.camera_packed(cam)},
                 lambda bufs, pads: self._full_bounced(
                     pads, raygen.camera_views(bufs["camera"])))
-            img, counts = frame(state["pads"])
+            img, counts = frame(buckets.pads)
             if not verify:
                 return img
             # Every bounce's counts must fit, and the check loops: an
             # overflowed level truncates the next level's list, so its
             # reported count is an undercount and one refreeze is not
             # enough.
-            return frozen_graph.verify(frozen_graph.Check(
-                img, counts,
-                lambda got: all(g <= p for gb, pb in
-                                zip(got.tolist(), state["pads"])
-                                for g, p in zip(gb, pb)),
-                lambda got: freeze_from(got.tolist()),
-                lambda: frame(state["pads"]), "bounced",
-                self.device.index)).out
+            return buckets.check(img, counts, lambda: frame(buckets.pads),
+                                 "bounced", self.device.index).out
 
-        render.pads = lambda: state["pads"]
+        render.pads = lambda: buckets.pads
         return render

@@ -135,7 +135,7 @@ class DynamicCulledRenderer(CulledRenderer):
         representative camera first, or let the first call run the static
         sizing render); verify=True re-sizes on overflow, grow-only, as
         render_fast does."""
-        if self._frozen_pads is None:
+        if self.buckets() is None:
             self.freeze(camera)
         tracing.COUNTS["scene_diffs"] += 1
         with tracing.span("dynamic.diff"):

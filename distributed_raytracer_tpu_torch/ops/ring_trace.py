@@ -45,6 +45,7 @@ import torch
 
 from distributed_raytracer_tpu_torch.ops import _build, bsr_trace
 from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
+from distributed_raytracer_tpu_torch.utils import tracing
 
 BIG_IDX = bsr_trace.BIG_IDX
 # Triangle rows per block of the plain step's dense work list (the JAX
@@ -53,12 +54,6 @@ TB = 128
 # (ray tile, TB-row block) items per block of the step kernels' grid
 # (csrc/ring_trace.cu); chosen on the H100 (PERF.md).
 CHUNK = 2
-
-# Kernel launches per wrapper (one chunk launch per rank and ring step; K6's
-# seed and unpack launches, one each per rank and query, are not counted).
-# Incremented only where the CUDA kernel is launched, never by the plain
-# versions; a caller resets them to 0 to count the launches of one run.
-LAUNCHES = {"ring_nearest": 0, "ring_any": 0}
 
 
 def _prepare(ranks: mesh_mod.Ranks, rays, tris, exclude, rt: int):
@@ -164,7 +159,7 @@ def _nearest(ranks, rays, tris, exclude, rt, kernel: bool):
             _build.launch("ring_trace", lib.drt_ring_nearest_step,
                           *_step_args(rays[r], excl[r], slot, gid_base),
                           _ptr(keys[r], 8), rt, CHUNK, *_stream(rays[r]))
-            LAUNCHES["ring_nearest"] += 1
+            tracing.COUNTS["ring_nearest"] += 1
             return
         t_ids, b_ids, count, base = _dense_worklist(rays[r], slot, gid_base,
                                                     rt)
@@ -199,7 +194,7 @@ def _any(ranks, rays, tris, exclude, rt, kernel: bool):
             _build.launch("ring_trace", lib.drt_ring_any_step,
                           *_step_args(rays[r], excl[r], slot, gid_base),
                           _ptr(acc[r]), rt, CHUNK, *_stream(rays[r]))
-            LAUNCHES["ring_any"] += 1
+            tracing.COUNTS["ring_any"] += 1
             return
         t_ids, b_ids, count, base = _dense_worklist(rays[r], slot, gid_base,
                                                     rt)

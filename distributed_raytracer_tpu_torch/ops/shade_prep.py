@@ -38,16 +38,13 @@ from distributed_raytracer_tpu_torch.ops import _build, cull, shade
 from distributed_raytracer_tpu_torch.ops.bsr_trace import _check, _ptr
 from distributed_raytracer_tpu_torch.ops.intersect import Hits
 from distributed_raytracer_tpu_torch.ops.shade import PackedPrep
+from distributed_raytracer_tpu_torch.utils import tracing
 from distributed_raytracer_tpu_torch.utils.config import (DEFAULT_CONFIG,
                                                           RenderConfig)
 
 # The kernel's name in a profile (utils/profiling.py and rtbench class it
 # with the glue, not with K1-K7).
 KERNEL = "shade_prep_tiles"
-# Kernel launches of prep_tiles, never counted by the plain version; a
-# caller resets it to 0 to count one run's. A frozen frame on CUDA is a
-# CUDA graph: its launch counts when the graph is captured, not replayed.
-LAUNCHES = {"shade_prep": 0}
 # Ray tiles the kernel takes: one thread per ray.
 RAY_TILES = (128, 256, 512, 1024)
 # Rows of the kernel's shading buffer: x, normal, geo_n, ka, kd, ks (3
@@ -213,5 +210,5 @@ def prep_tiles(rays, hits: Hits, tidx, ht_count, arrays, table, view,
             _ptr(out.prep.x), _ptr(out.prep.q), _ptr(out.prep.q_rev),
             _ptr(out.live_l, 1), _ptr(out.sti.o_lo), _ptr(out.sti.t_hi),
             stream)
-    LAUNCHES["shade_prep"] += 1
+    tracing.COUNTS["shade_prep"] += 1
     return out

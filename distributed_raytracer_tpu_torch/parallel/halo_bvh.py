@@ -82,6 +82,7 @@ from distributed_raytracer_tpu_torch.models.camera import Camera
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneDiff
 from distributed_raytracer_tpu_torch.ops import (bsr_trace, cull, frozen_graph,
                                                 raygen, shade)
+from distributed_raytracer_tpu_torch.ops.frozen_graph import bucket_w_pad
 from distributed_raytracer_tpu_torch.ops.render_bvh import reflect_rows
 from distributed_raytracer_tpu_torch.ops.render_dynamic import _rowdot3
 from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
@@ -92,7 +93,6 @@ __all__ = ["DynGeometry", "HaloCulledRenderer", "ShardedCulledRenderer",
            "ShardedGeometry", "apply_diff_sharded", "reflect_rows"]
 
 AXIS = "geom"
-_bucket = bsr_trace.bucket_w_pad
 
 
 class ShardedGeometry(NamedTuple):
@@ -172,9 +172,10 @@ def _put(a, device) -> torch.Tensor:
 
 class ShardedCulledRenderer:
     """What the culled geometry-sharded renderers share (this module's
-    halo, parallel/ring_bvh.py's ring): per-bounce per-level buckets, the
-    verify loop and the frame's assembly. A subclass sets `kind` (its name
-    in the verify loop's warning) and provides device_fn(camera, diff=None)
+    halo, parallel/ring_bvh.py's ring): per-bounce per-level buckets
+    (frozen_graph.Buckets; `w_pads` / `w_pads_sh` the primary and shadow
+    halves), their check and the frame's assembly. A subclass sets `kind`
+    (its name in the check's warning) and provides device_fn(camera, diff=None)
     -> (colour rows (3, n_pad_ext), per-rank counts (n, [B+1,] >= 2 *
     n_levels)); the counts' first 2 * n_levels columns are the per-level
     primary, then shadow, cells the buckets are checked against."""
@@ -200,7 +201,11 @@ class ShardedCulledRenderer:
         self.bounces = int(bounces)
         self.width, self.height, self.cfg = width, height, cfg
         self.rt, self.tb = ray_tile, block_size
-        self.margin = margin
+        # Per bounce, the primary then the shadow levels' buckets, checked
+        # against the max over ranks of those columns of the counts.
+        self._buckets = frozen_graph.Buckets(
+            margin, worst=lambda c: c.amax(dim=0).reshape(
+                self.bounces + 1, -1)[:, :2 * self.n_levels].tolist())
         if dynamic:
             (arrays, tree, obj_id, block_obj,
              obj_pos0) = scene.bake_bvh_grouped(block_size=block_size)
@@ -257,25 +262,17 @@ class ShardedCulledRenderer:
         perm = np.concatenate([perm, np.full(
             (self.n_pad_ext - self.n_pad,), width * height - 1, np.int32)])
         self.r_loc = self.n_pad_ext // n
-        self.w_pads = self.w_pads_sh = None
         return perm, (tris16, table32, lo, hi)
 
-    def _freeze(self, worst) -> None:
-        """Per-bounce per-level buckets from (B+1, 2 * n_levels) counts (the
-        max over ranks) x margin, grow-only (a verify loop that could
-        shrink a bucket would lose its convergence argument)."""
-        worst = np.asarray(worst).reshape(self.bounces + 1, -1)
-        nl = self.n_levels
-        w_pads = tuple(tuple(_bucket(int(c), self.margin) for c in row[:nl])
-                       for row in worst)
-        w_pads_sh = tuple(tuple(_bucket(int(c), self.margin)
-                                for c in row[nl:2 * nl]) for row in worst)
-        if self.w_pads is not None:
-            grow = lambda new, old: tuple(tuple(map(max, a, b))
-                                          for a, b in zip(new, old))
-            w_pads = grow(w_pads, self.w_pads)
-            w_pads_sh = grow(w_pads_sh, self.w_pads_sh)
-        self.w_pads, self.w_pads_sh = w_pads, w_pads_sh
+    @property
+    def w_pads(self) -> tuple:
+        """Per bounce, the primary levels' buckets."""
+        return tuple(p[:self.n_levels] for p in self._buckets.pads)
+
+    @property
+    def w_pads_sh(self) -> tuple:
+        """Per bounce, the shadow levels' buckets."""
+        return tuple(p[self.n_levels:] for p in self._buckets.pads)
 
     def _sizing_device(self):
         """(device, light positions, light colours) of the build-time
@@ -291,29 +288,21 @@ class ShardedCulledRenderer:
         img = img.permute(1, 3, 2, 4, 0).reshape(ty * th, tx * tw, 3)
         return img[:self.height, :self.width]
 
-    def _worst(self, counts: torch.Tensor) -> np.ndarray:
-        """(B+1, 2 * n_levels): per bounce, the max over ranks of a
-        frame's level counts."""
-        worst = counts.amax(dim=0).cpu().numpy()
-        return worst.reshape(self.bounces + 1, -1)[:, :2 * self.n_levels]
-
-    def _counts_fit(self, counts: torch.Tensor) -> bool:
-        return all(int(c) <= p for b, row in enumerate(self._worst(counts))
-                   for c, p in zip(row, self.w_pads[b] + self.w_pads_sh[b]))
-
-    def _verify_loop(self, dispatch, rows, counts):
-        """The bucket check (ops/frozen_graph.Check) of the frame (rows,
-        counts): refreezes from the reported counts and dispatches again
-        until they all fit (up to 8 rounds), since a truncated level makes
-        the finer counts undercounts, and later bounces' rays come from
-        earlier, possibly truncated, hits. Runs at once over several
-        processes or outside the frame loop, else at the frame's drain.
-        Returns the (rows, counts) to show."""
-        check = frozen_graph.verify(frozen_graph.Check(
-            rows, counts, self._counts_fit,
-            lambda got: self._freeze(self._worst(got)), dispatch,
-            self.kind, self.ranks.device.index), now=self.ranks.n_procs > 1)
-        return check.out, check.counts
+    def _frame(self, dispatch, verify: bool) -> torch.Tensor:
+        """The frame dispatch() renders, as (rows, counts). verify=True
+        checks the counts: it refreezes and dispatches again until they
+        all fit (up to 8 rounds), since a truncated level makes the finer
+        counts undercounts, and later bounces' rays come from earlier,
+        possibly truncated, hits; at once over several processes or
+        outside the frame loop, else at the frame's drain."""
+        rows, counts = dispatch()
+        if verify:
+            check = self._buckets.check(rows, counts, dispatch, self.kind,
+                                        self.ranks.device.index,
+                                        now=self.ranks.n_procs > 1)
+            rows, counts = check.out, check.counts
+        self.last_counts = counts
+        return None if rows is None else self._assemble(rows)
 
     # -- public ----------------------------------------------------------
 
@@ -321,12 +310,7 @@ class ShardedCulledRenderer:
         """The (H, W, 3) frame on rank 0's device (None in the other
         processes of a multi-process mesh); verify=True refreezes until
         the counts fit."""
-        rows, counts = self.device_fn(camera)
-        if verify:
-            rows, counts = self._verify_loop(lambda: self.device_fn(camera),
-                                             rows, counts)
-        self.last_counts = counts
-        return None if rows is None else self._assemble(rows)
+        return self._frame(lambda: self.device_fn(camera), verify)
 
     def render_dynamic(self, camera, diff: SceneDiff,
                        verify: bool = False) -> torch.Tensor:
@@ -336,12 +320,7 @@ class ShardedCulledRenderer:
             raise ValueError("build with dynamic=True for render_dynamic")
         diff = SceneDiff(*(torch.as_tensor(np.asarray(a, np.float32))
                            for a in diff))
-        rows, counts = self.device_fn(camera, diff)
-        if verify:
-            rows, counts = self._verify_loop(
-                lambda: self.device_fn(camera, diff), rows, counts)
-        self.last_counts = counts
-        return None if rows is None else self._assemble(rows)
+        return self._frame(lambda: self.device_fn(camera, diff), verify)
 
 
 class HaloCulledRenderer(ShardedCulledRenderer):
@@ -379,7 +358,7 @@ class HaloCulledRenderer(ShardedCulledRenderer):
         camera = sizing_camera if sizing_camera is not None else scene.camera
         counts = self.ranks.max_over_processes(
             self._sizing_counts(camera, perm, *host))
-        self._freeze(counts.max(axis=1))
+        self._buckets.grow(counts.max(axis=1).tolist())
         # As in the JAX package, the sizing counts stand in for the last
         # frame's until one has run (in the frame's layout).
         counts = torch.from_numpy(counts.transpose(1, 0, 2).copy())
@@ -412,7 +391,7 @@ class HaloCulledRenderer(ShardedCulledRenderer):
         ti = cull.tile_intervals_packed(rays, rt, live=live)
         p_levels = self._per_shard_levels(ti, blo, bhi)
         mask, entry = cull.block_mask_with_entry(ti, blo, bhi)
-        wl = cull.compact_worklist(mask, _bucket(int(mask.sum())),
+        wl = cull.compact_worklist(mask, bucket_w_pad(int(mask.sum())),
                                    entry=entry)
         tris = (bsr_trace.pack_tris_origin(tris16, rays[0:3, 0]) if shared
                 else tris16)

@@ -64,11 +64,6 @@ from distributed_raytracer_tpu_torch.utils.config import (DEFAULT_CONFIG,
 AXIS = "bands"
 
 
-def _nested(x):
-    """A nested list of ints as nested tuples (graph keys hash them)."""
-    return tuple(_nested(v) for v in x) if isinstance(x, list) else int(x)
-
-
 class BandRenderer:
     """render(cam, verify=False) -> the (H, W, 3) frame on rank 0's device,
     from one band per rank (None in the other processes of a
@@ -79,18 +74,23 @@ class BandRenderer:
     process 0), `bands` every rank's (None at other processes' ranks)."""
 
     def __init__(self, ranks: mesh_mod.Ranks, bands: list, height: int,
-                 kind: str, pads, pads_from: Callable):
+                 kind: str, worst, margin: float):
+        """`worst`: the sizing counts, maxed over the bands; `margin` the
+        buckets' margin, at build and at each refreeze."""
         self.ranks, self.mesh = ranks, ranks.mesh
         self.bands, self.band = bands, bands[ranks.local[0]]
         self.height = height
         self._kind = kind            # "fast" or "bounced"
-        self._pads = pads
-        self._pads_from = pads_from  # worst counts (nested list) -> pads
+        # Checked against the worst band's counts.
+        self._buckets = frozen_graph.Buckets(
+            margin, hit=self.band.n_levels, n_tiles=self.band.n_tiles,
+            worst=lambda c: c.amax(dim=0).tolist())
+        self._buckets.grow(worst)
         self.last_counts = None
         self._gathered = None        # tracing.Stamps after the gather
 
     def buckets(self):
-        return self._pads
+        return self._buckets.pads
 
     def _body(self, band: CulledRenderer):
         if self._kind == "fast":
@@ -109,27 +109,14 @@ class BandRenderer:
         for r in self.ranks.local:
             band = self.bands[r]
             with self.ranks.on(r), tracing.span("bands.replay", rank=r):
-                img, c = band._frozen_frame(self._kind, {"camera": packed},
-                                            self._body(band))(self._pads)
+                frame = band._frozen_frame(self._kind, {"camera": packed},
+                                           self._body(band))
+                img, c = frame(self.buckets())
                 imgs[r] = img
                 counts[r] = c[None]
         with tracing.span("bands.gather"):
             return (mesh_mod.gather(self.ranks, imgs),
                     mesh_mod.gather(self.ranks, counts, everywhere=True))
-
-    def _fits(self, counts: torch.Tensor) -> bool:
-        """Every band's counts within the buckets."""
-        worst = counts.amax(dim=0).cpu()
-        return bool((worst <= torch.tensor(self._pads,
-                                           dtype=worst.dtype)).all())
-
-    def _grow(self, counts: torch.Tensor) -> None:
-        """Grows the buckets (never shrinking one) to fit the worst band's
-        counts."""
-        worst = counts.amax(dim=0)
-        pads = torch.tensor(self._pads, dtype=worst.dtype)
-        new = torch.tensor(self._pads_from(worst.tolist()), dtype=pads.dtype)
-        self._pads = _nested(torch.maximum(new, pads).tolist())
 
     def __call__(self, cam, verify: bool = False) -> torch.Tensor:
         out, counts = self.device_fn(cam)
@@ -139,10 +126,9 @@ class BandRenderer:
             # one refreeze from the reported values can still truncate.
             # Over several processes it runs at once, so every process
             # refreezes at the same point of its stream.
-            check = frozen_graph.verify(frozen_graph.Check(
-                out, counts, self._fits, self._grow,
-                lambda: self.device_fn(cam), "bands",
-                self.ranks.device.index), now=self.ranks.n_procs > 1)
+            check = self._buckets.check(
+                out, counts, lambda: self.device_fn(cam), "bands",
+                self.ranks.device.index, now=self.ranks.n_procs > 1)
             out, counts = check.out, check.counts
         self.last_counts = counts
         if out is None:
@@ -244,12 +230,12 @@ def _equal_bands(scene, width: int, height: int, mesh, cfg, prebaked):
     return ranks, bands
 
 
-def _sized(ranks, bands, measure: Callable, pads_from: Callable):
-    """The common buckets: measure(band) (a sync render's raw counts) on
-    every local rank's stream, maxed over the bands (and the processes),
-    through pads_from. Every band then takes the early-exit cadence the
-    last band's sizing render chose, as the JAX package's one band
-    renderer does (broadcast from the process that runs it)."""
+def _sized(ranks, bands, measure: Callable) -> list:
+    """The sizing counts: measure(band) (a sync render's raw counts) on
+    every local rank's stream, maxed over the bands (and the processes).
+    Every band then takes the early-exit cadence the last band's sizing
+    render chose, as the JAX package's one band renderer does (broadcast
+    from the process that runs it)."""
     counts = []
     for r in ranks.local:
         with ranks.on(r):
@@ -260,7 +246,7 @@ def _sized(ranks, bands, measure: Callable, pads_from: Callable):
         [bands[last].exit_every if ranks.is_local(last) else 0], last)[0])
     for r in ranks.local:
         bands[r].exit_every = exit_every
-    return pads_from(worst.tolist())
+    return worst.tolist()
 
 
 def _sync_counts(band: CulledRenderer, camera) -> tuple:
@@ -286,10 +272,8 @@ def make_sharded_culled_renderer(scene: Optional[Scene], width: int,
             margin=margin, cfg=cfg, prebaked=prebaked)
     ranks, bands = _equal_bands(scene, width, height, mesh, cfg, prebaked)
     camera = sizing_camera if sizing_camera is not None else scene.camera
-    pads_from = lambda worst: bands[ranks.local[0]]._pads_from(worst,
-                                                               margin)
-    pads = _sized(ranks, bands, lambda b: _sync_counts(b, camera), pads_from)
-    return BandRenderer(ranks, bands, height, "fast", pads, pads_from)
+    worst = _sized(ranks, bands, lambda b: _sync_counts(b, camera))
+    return BandRenderer(ranks, bands, height, "fast", worst, margin)
 
 
 def make_balanced_culled_renderer(scene: Optional[Scene], width: int,
@@ -361,11 +345,9 @@ def make_balanced_culled_renderer(scene: Optional[Scene], width: int,
 
     starts, rows = layout_for(camera)
     set_layout(starts, rows)
-    pads_from = lambda worst: bands[ranks.local[0]]._pads_from(worst,
-                                                               margin)
-    pads = _sized(ranks, bands, lambda b: _sync_counts(b, camera), pads_from)
+    worst = _sized(ranks, bands, lambda b: _sync_counts(b, camera))
     return BalancedBandRenderer(
-        ranks, bands, height, "fast", pads, pads_from, rows=rows,
+        ranks, bands, height, "fast", worst, margin, rows=rows,
         tile_h=tile_h, set_layout=set_layout, layout_for=layout_for,
         starts=starts)
 
@@ -388,7 +370,5 @@ def make_sharded_bounced_renderer(scene: Optional[Scene], width: int,
         band.render_bounced(camera, depth, block=True)
         return band._last_bounce_counts
 
-    pads_from = lambda worst: tuple(
-        bands[ranks.local[0]]._pads_from(q, margin) for q in worst)
-    pads = _sized(ranks, bands, measure, pads_from)
-    return BandRenderer(ranks, bands, height, "bounced", pads, pads_from)
+    return BandRenderer(ranks, bands, height, "bounced",
+                        _sized(ranks, bands, measure), margin)

@@ -44,7 +44,7 @@ bound every step (the parent-box test is conservative, so a member that
 passes has a passing parent, and the per-pair member masks count each
 level's expansion exactly). render(cam, verify=True) refreezes grow-only
 until every reported count fits, up to 8 rounds, through the check it
-shares with the halo (halo_bvh.ShardedCulledRenderer._verify_loop).
+shares with the halo (halo_bvh.ShardedCulledRenderer).
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ import torch
 from distributed_raytracer_tpu_torch.models.camera import Camera
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneDiff
 from distributed_raytracer_tpu_torch.ops import bsr_trace, cull, raygen, shade
+from distributed_raytracer_tpu_torch.ops.frozen_graph import bucket_w_pad
 from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
 from distributed_raytracer_tpu_torch.parallel.halo_bvh import (
     ShardedCulledRenderer, ShardedGeometry, _put, apply_diff_sharded,
@@ -65,7 +66,6 @@ from distributed_raytracer_tpu_torch.utils.config import (DEFAULT_CONFIG,
                                                           RenderConfig)
 
 AXIS = "ring"
-_bucket = bsr_trace.bucket_w_pad
 
 
 class RingCulledRenderer(ShardedCulledRenderer):
@@ -103,7 +103,7 @@ class RingCulledRenderer(ShardedCulledRenderer):
         camera = sizing_camera if sizing_camera is not None else scene.camera
         self.sizing_counts = self.ranks.max_over_processes(
             self._sizing_counts(camera, perm, *host))
-        self._freeze(self.sizing_counts)
+        self._buckets.grow(self.sizing_counts.tolist())
         # Per-rank counts of the last frame, (n, B+1, 2 * n_levels + 2);
         # None until a frame has run.
         self.last_counts = None
@@ -141,7 +141,7 @@ class RingCulledRenderer(ShardedCulledRenderer):
         ti = cull.tile_intervals_packed(rays, rt, live=live)
         p_levels = self._pair_levels(ti, blo, bhi)
         mask, entry = cull.block_mask_with_entry(ti, blo, bhi)
-        wl = cull.compact_worklist(mask, _bucket(int(mask.sum())),
+        wl = cull.compact_worklist(mask, bucket_w_pad(int(mask.sum())),
                                    entry=entry)
         tris = (bsr_trace.pack_tris_origin(tris16, rays[0:3, 0]) if shared
                 else tris16)

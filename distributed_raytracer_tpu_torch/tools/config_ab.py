@@ -133,13 +133,13 @@ def breakdown(r, camera, reps: int = 4) -> dict:
     """{stage: mean ms} of one sync render's stages on its own inputs
     (render() must have run, so exit_every is settled)."""
     from distributed_raytracer_tpu_torch.ops import raygen
-    from distributed_raytracer_tpu_torch.ops.render_bvh import _tile_bucket
+    from distributed_raytracer_tpu_torch.ops.frozen_graph import tile_bucket
 
     sc, cam = r.dev_scene, raygen.camera_arrays(camera, r.device)
     rays, ti, m, e, c1 = r._stage_a(sc, cam)
     p_pads, _ = r._size_pads(sc, ti, m, e, c1)
     hits, hcount, _ = r._stage_b1(sc, p_pads, rays, ti, m, e, c1)
-    ht_pad = _tile_bucket(int(hcount), r.n_tiles)
+    ht_pad = tile_bucket(int(hcount), r.n_tiles)
     sh = r._stage_b2(sc, ht_pad, rays, hits, cam.pos)
     s_pads, _ = r._size_pads(sc, sh.sti, sh.smasks, sh.sentries, sh.sc1)
     stages = {

@@ -51,7 +51,8 @@ import time
 
 MODES = ("dense", "sharded-bvh", "sharded-bvh-balanced",
          "sharded-bvh-bounced", "halo", "ring")
-# The launch counters of the kernels on these paths.
+# The launch counters (utils/tracing.COUNTS) of the kernels on these
+# paths.
 KERNEL_KEYS = {"K1": "bsr_nearest", "K2": "bsr_any",
                "K3n": "bsr_nearest_rays"}
 
@@ -146,16 +147,16 @@ def render_case(mode: str, scene, w: int, h: int, mesh, depth: int = 1,
     rows) or None, "checksum": the bake's, "render": render(cam,
     verify)}, host values as JSON carries them. The kernel launch
     counters are zeroed after the build: they count the frame alone."""
-    from distributed_raytracer_tpu_torch.ops import bsr_trace
     from distributed_raytracer_tpu_torch.parallel import multihost
+    from distributed_raytracer_tpu_torch.utils.tracing import COUNTS
 
     camera = scene.camera if camera is None else camera
     sizing_camera = scene.camera if sizing_camera is None else sizing_camera
     render, buckets, counts, layout, bake = build(
         mode, scene, w, h, mesh, depth, sizing_camera)
     before = _nested(buckets())
-    for key in bsr_trace.LAUNCHES:
-        bsr_trace.LAUNCHES[key] = 0
+    for key in KERNEL_KEYS.values():
+        COUNTS[key] = 0
     frame = multihost.gather_frame(render(camera, True))
     return {"frame": frame,
             "buckets": {"before": before, "after": _nested(buckets())},
@@ -279,9 +280,9 @@ def main(argv=None) -> int:
     import torch
 
     torch.set_num_threads(1)
-    from distributed_raytracer_tpu_torch.ops import bsr_trace
     from distributed_raytracer_tpu_torch.parallel import mesh as mesh_mod
     from distributed_raytracer_tpu_torch.parallel import multihost
+    from distributed_raytracer_tpu_torch.utils.tracing import COUNTS
 
     tr = multihost.initialize(f"127.0.0.1:{args.port}", args.nproc,
                               args.pid, device=args.device)
@@ -307,8 +308,7 @@ def main(argv=None) -> int:
             frame, digest = case["frame"], case["checksum"]
             if ranks.cuda:
                 torch.cuda.synchronize(ranks.device)
-            launches = {k: bsr_trace.LAUNCHES[v]
-                        for k, v in KERNEL_KEYS.items()}
+            launches = {k: COUNTS[v] for k, v in KERNEL_KEYS.items()}
             digests = [None] * args.nproc
             torch.distributed.all_gather_object(digests, digest,
                                                 group=tr.host_group)

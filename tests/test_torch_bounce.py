@@ -20,8 +20,8 @@ from distributed_raytracer_tpu.ops.render_bvh import CulledRenderer as JaxRender
 from distributed_raytracer_tpu.utils import oracle
 from distributed_raytracer_tpu.utils import scenes as jscenes
 from distributed_raytracer_tpu_torch.models.scene import from_reference
-from distributed_raytracer_tpu_torch.ops import bsr_trace
 from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+from distributed_raytracer_tpu_torch.utils import tracing
 
 W, H = 64, 48
 
@@ -47,9 +47,9 @@ def jax_renderer(grid):
 def test_render_bounced_matches_jax(grid, port, jax_renderer, depth):
     scene = grid[0]
     want = np.asarray(jax_renderer.render_bounced(scene.camera, depth=depth))
-    before = dict(bsr_trace.LAUNCHES)
+    before = dict(tracing.COUNTS)
     got = port.render_bounced(scene.camera, depth).numpy()
-    assert bsr_trace.LAUNCHES == before         # plain versions on the CPU
+    assert tracing.COUNTS == before         # plain versions on the CPU
     assert got.shape == (H, W, 3) and got.dtype == np.float32
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
     counts = port._last_bounce_counts

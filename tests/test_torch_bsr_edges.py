@@ -42,7 +42,7 @@ import torch
 
 from distributed_raytracer_tpu.ops.pallas import bsr_trace as jbsr
 from distributed_raytracer_tpu_torch.ops import bsr_trace as tbsr
-from distributed_raytracer_tpu_torch.utils import trace_cases
+from distributed_raytracer_tpu_torch.utils import trace_cases, tracing
 
 EPS = tbsr.BARY_EPS
 RTOL = 1e-6
@@ -166,10 +166,10 @@ def test_cuda_kernels_match_plain_versions_on_edge_cases():
         any_key = tbsr.launch_key("bsr_any", shared)
         for exit_every in (0, 32):
             kw = dict(L.kwargs, exit_every=exit_every)
-            before = dict(tbsr.LAUNCHES)
+            before = dict(tracing.COUNTS)
             gt, gi = tbsr.bsr_nearest(*L.nearest_args(), **kw)
             ga = tbsr.bsr_any(*L.any_args(), **kw)
-            assert tbsr.LAUNCHES == dict(before, **{
+            assert tracing.COUNTS == dict(before, **{
                 near: before[near] + 1, any_key: before[any_key] + 1})
             wt, wi = tbsr.bsr_nearest_ref(*L.nearest_args(), **kw)
             wa = tbsr.bsr_any_ref(*L.any_args(), **kw)

@@ -26,6 +26,7 @@ from distributed_raytracer_tpu.utils import scenes as jscenes
 from distributed_raytracer_tpu_torch.models.scene import from_reference
 from distributed_raytracer_tpu_torch.ops import bsr_trace as tbsr
 from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
+from distributed_raytracer_tpu_torch.utils import tracing
 
 RT = 512
 
@@ -245,7 +246,7 @@ def test_bsr_any_ref_matches_pallas(launches, exit_every):
 def test_cpu_wrappers_use_plain_versions(launches):
     """On CPU tensors the wrappers compute the plain versions and launch
     nothing."""
-    before = dict(tbsr.LAUNCHES)
+    before = dict(tracing.COUNTS)
     args, kw = launches["bsr_nearest"]
     ta = [torch.from_numpy(a) for a in args]
     for got, want in zip(tbsr.bsr_nearest(*ta, **kw),
@@ -254,7 +255,7 @@ def test_cpu_wrappers_use_plain_versions(launches):
     args, kw = launches["bsr_any"]
     ta = [torch.from_numpy(a) for a in args]
     assert torch.equal(tbsr.bsr_any(*ta, **kw), tbsr.bsr_any_ref(*ta, **kw))
-    assert tbsr.LAUNCHES == before
+    assert tracing.COUNTS == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(launches):
@@ -287,9 +288,9 @@ def test_cuda_kernels_match_plain_versions(launches):
         kernel, plain = getattr(tbsr, name), getattr(tbsr, name + "_ref")
         for exit_every in (0, 8):
             k = dict(kw, exit_every=exit_every)
-            before = tbsr.LAUNCHES[name]
+            before = tracing.COUNTS[name]
             got, want = kernel(*ta, **k), plain(*ta, **k)
-            assert tbsr.LAUNCHES[name] == before + 1
+            assert tracing.COUNTS[name] == before + 1
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             for g, w in zip(got, want):
@@ -312,9 +313,9 @@ def test_cuda_rays_kernels_match_plain_versions(bounce_launch):
         key = tbsr.launch_key(name, shared_origin=False)
         for exit_every in (0, 8):
             k = dict(kw, exit_every=exit_every)
-            before = dict(tbsr.LAUNCHES)
+            before = dict(tracing.COUNTS)
             got, want = kernel(*ta, **k), plain(*ta, **k)
-            assert tbsr.LAUNCHES == dict(before, **{key: before[key] + 1})
+            assert tracing.COUNTS == dict(before, **{key: before[key] + 1})
             got = got if isinstance(got, tuple) else (got,)
             want = want if isinstance(want, tuple) else (want,)
             for g, w in zip(got, want):

@@ -226,7 +226,8 @@ def test_outside_the_loop_verify_refreezes_before_it_returns():
         prebaked=scene.bake_bvh(block_size=32))
     pads = br.buckets()
     br(near, verify=True)
-    assert br.buckets() != pads and br._fits(br.last_counts)
+    assert br.buckets() != pads and br._buckets.fits(
+        br._buckets.worst(br.last_counts))
     assert counts_since(before)["verify_deferred"] == 0
 
 
@@ -244,7 +245,7 @@ def test_a_multi_process_mesh_checks_at_once(loop):
         r = render_sharded_bvh.make_sharded_culled_renderer(
             scene, 32, 24, mesh=["cpu"] * 2)
         r.device_fn = lambda c: (torch.zeros(24, 32, 3), frames.counts(
-            torch.tensor(r._pads)[None].expand(2, -1)))
+            torch.tensor(r.buckets())[None].expand(2, -1)))
         call = lambda: r(scene.camera, verify=True)
     else:
         cls = (ring_bvh.RingCulledRenderer if loop == "ring"
@@ -252,14 +253,15 @@ def test_a_multi_process_mesh_checks_at_once(loop):
         r = cls(scene, 32, 24, mesh=["cpu"] * 2)
         extra = [0, 0] if loop == "ring" else []
 
-        def dispatch():
+        def dispatch(camera, diff=None):
             pads = torch.tensor([list(p + q) + extra for p, q in
                                  zip(r.w_pads, r.w_pads_sh)])
             if loop == "halo":
                 pads = pads[0]
-            return torch.zeros(1), frames.counts(
+            return torch.zeros(3, r.n_pad_ext), frames.counts(
                 pads[None].expand(2, *pads.shape))
-        call = lambda: r._verify_loop(dispatch, *dispatch())
+        r.device_fn = dispatch
+        call = lambda: r.render(scene.camera, verify=True)
     r.ranks.n_procs = 2
     with frozen_graph.deferred() as checks:
         call()

@@ -124,14 +124,14 @@ def test_render_dynamic_matches_jax(scenes_pair, use_mxu):
     jr.freeze(jsc.camera, margin=3.0)
     tr.freeze(tsc.camera, margin=3.0)
     assert tr._last_counts == jr._last_counts
-    assert tr._frozen_pads == tuple(jr._frozen_pads)
+    assert tr.buckets() == tuple(jr._frozen_pads)
     for k in range(3):
         diff = moved(jsc, k).make_diff()
         want = np.asarray(jr.render_dynamic(jsc.camera, diff, verify=True))
         got = tr.render_dynamic(tsc.camera, diff, verify=True).numpy()
         assert got.shape == (H, W, 3) and got.dtype == np.float32
         np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
-        assert tr._frozen_pads == tuple(jr._frozen_pads)
+        assert tr.buckets() == tuple(jr._frozen_pads)
         assert tr._last_counts == tuple(jr._last_counts)
         assert (got.sum(-1) > 0).mean() > 0.05
 
@@ -175,11 +175,11 @@ def test_verify_grows_buckets_after_a_large_move():
     away = scene.camera.yaw(3.14159)
     tr.render(away, block=True)
     tr.freeze(away, margin=1.0)
-    small = tr._frozen_pads
+    small = tr.buckets()
     m = copy.deepcopy(scene)
     m.set_object_pos(1, m.objects[0].pos + [0.4, 0.3, 0.5])
     got = tr.render_dynamic(scene.camera, m.make_diff(), verify=True).numpy()
-    grown = tr._frozen_pads
+    grown = tr.buckets()
     assert any(g > s for g, s in zip(grown, small))
     assert all(g >= s for g, s in zip(grown, small))
     assert all(c <= p for c, p in zip(tr._last_counts, grown))

@@ -229,7 +229,7 @@ def test_halo_overflow_refreeze(tetra):
     after = (got.w_pads, got.w_pads_sh)
     flat = lambda p: [x for q in p for row in q for x in row]
     assert all(a >= b for a, b in zip(flat(after), flat(before)))
-    assert got._counts_fit(got.last_counts)
+    assert got._buckets.fits(got._buckets.worst(got.last_counts))
     assert_matches_jax(got, want, img, want.render(close_j, verify=True))
     dense = np.asarray(jrender.render_frame(
         jax.device_put(js.bake()), close_j.to_arrays(), W, H))
@@ -251,6 +251,6 @@ def test_halo_verify_grows_buckets_until_counts_fit():
     flat = lambda p: [x for q in p for row in q for x in row]
     assert all(g >= s for g, s in zip(flat(grown), flat(small)))
     assert any(g > s for g, s in zip(flat(grown), flat(small)))
-    assert got._counts_fit(got.last_counts)
+    assert got._buckets.fits(got._buckets.worst(got.last_counts))
     single = CulledRenderer(None, W, H, prebaked=got.bake, device="cpu")
     assert torch.equal(img, single.render(grid.camera))

@@ -35,7 +35,7 @@ from distributed_raytracer_tpu.utils import scenes as jscenes
 from distributed_raytracer_tpu_torch.models.scene import from_reference
 from distributed_raytracer_tpu_torch.ops import bsr_trace as tbsr
 from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
-from distributed_raytracer_tpu_torch.utils import trace_cases
+from distributed_raytracer_tpu_torch.utils import trace_cases, tracing
 
 RT = 512
 W, H = 64, 48
@@ -238,7 +238,7 @@ def test_tuple_form_checks(launches):
     args, ablock, kw = launches["bsr_nearest"]
     ta = list(to_torch(args))
     dirs, scal = ta[2]
-    before = dict(tbsr.LAUNCHES)
+    before = dict(tracing.COUNTS)
     with pytest.raises(ValueError, match="shared origin"):
         tbsr.bsr_nearest(*ta, **dict(kw, shared_origin=False))
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -253,7 +253,7 @@ def test_tuple_form_checks(launches):
     with pytest.raises(ValueError, match="only with the"):
         tbsr.bsr_nearest(*ta[:2], torch.zeros(scal.shape[0], 16), *ta[3:],
                          ablock_ids=ta[4], **kw)
-    assert tbsr.LAUNCHES == before
+    assert tracing.COUNTS == before
     assert tbsr.launch_key("bsr_any", True, mxu=True) == "bsr_any_mxu"
 
 
@@ -272,16 +272,16 @@ def test_render_and_render_fast_match_jax(grid_pair):
     scene, jr, tr = grid_pair
     cam = scene.camera.yaw(0.05)
     want = np.asarray(jr.render(cam.to_arrays()))
-    before = dict(tbsr.LAUNCHES)
+    before = dict(tracing.COUNTS)
     got = tr.render(cam).numpy()
-    assert tbsr.LAUNCHES == before               # plain versions on the CPU
+    assert tracing.COUNTS == before               # plain versions on the CPU
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=0)
     assert tr._last_counts == jr._last_counts
     assert (got.sum(-1) > 0).mean() > 0.05
     tr.freeze(cam)
     fast = tr.render_fast(cam, verify=True).numpy()
     np.testing.assert_allclose(fast, got, atol=2e-5, rtol=0)
-    assert all(c <= p for c, p in zip(tr._last_counts, tr._frozen_pads))
+    assert all(c <= p for c, p in zip(tr._last_counts, tr.buckets()))
 
 
 def test_render_bounced_matches_jax(grid_pair):
@@ -321,10 +321,10 @@ def test_cuda_mxu_kernels_match_plain_versions(launches):
         key = tbsr.launch_key(name, True, mxu=True)
         for exit_every in (0, 8):
             k = dict(kw, exit_every=exit_every)
-            before = dict(tbsr.LAUNCHES)
+            before = dict(tracing.COUNTS)
             got = kernel(*ta, ablock_ids=ab, **k)
             want = plain(*ta, ablock_ids=ab, **k)
-            assert tbsr.LAUNCHES == dict(before, **{key: before[key] + 1})
+            assert tracing.COUNTS == dict(before, **{key: before[key] + 1})
             if name == "bsr_any":
                 assert int((got != want).sum()) <= 2
                 continue

@@ -54,7 +54,7 @@ def test_frame_matches_jax(request, ico, name):
     tr.freeze(scene.camera)
     fast = tr.render_fast(scene.camera, verify=True).numpy()
     np.testing.assert_allclose(fast, img, atol=2e-5, rtol=0)
-    assert all(c <= p for c, p in zip(tr._last_counts, tr._frozen_pads))
+    assert all(c <= p for c, p in zip(tr._last_counts, tr.buckets()))
 
 
 def test_moved_camera_matches_jax(tetra_scene):
@@ -89,12 +89,12 @@ def test_verify_loops_until_counts_fit():
     away = scene.camera.yaw(3.14159)
     tr.render(away, block=True)
     tr.freeze(away, margin=1.0)
-    small = tr._frozen_pads
+    small = tr.buckets()
     fast = tr.render_fast(scene.camera, verify=True).numpy()
     sync = tr.render(scene.camera, block=True).numpy()
     np.testing.assert_allclose(fast, sync, atol=2e-5, rtol=0)
     assert any(c > p for c, p in zip(tr._last_counts, small))
-    assert all(c <= p for c, p in zip(tr._last_counts, tr._frozen_pads))
+    assert all(c <= p for c, p in zip(tr._last_counts, tr.buckets()))
 
 
 def test_auto_exit_every_decision(ico):

@@ -34,6 +34,7 @@ from distributed_raytracer_tpu.utils import scenes as jscenes
 from distributed_raytracer_tpu_torch.models.scene import arrays_from_reference
 from distributed_raytracer_tpu_torch.ops import bsr_trace, render, ring_trace
 from distributed_raytracer_tpu_torch.parallel import mesh, ring
+from distributed_raytracer_tpu_torch.utils import tracing
 
 try:
     shard_map = jax.shard_map
@@ -152,14 +153,14 @@ def test_cpu_wrappers_use_plain_versions(ico):
     rays, tris, _ = frame_inputs(ico, n)
     ranks = cpu_ranks(n)
     args = (ranks, split(rays, n, 1), split(tris, n, 0))
-    before = dict(ring_trace.LAUNCHES)
+    before = dict(tracing.COUNTS)
     for got, want in zip(ring_trace.ring_nearest(*args, rt=RT),
                          ring_trace.ring_nearest_ref(*args, rt=RT)):
         assert all(torch.equal(g, w) for g, w in zip(got, want))
     for g, w in zip(ring_trace.ring_any(*args, rt=RT),
                     ring_trace.ring_any_ref(*args, rt=RT)):
         assert torch.equal(g, w)
-    assert ring_trace.LAUNCHES == before
+    assert tracing.COUNTS == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(ico):
@@ -295,7 +296,7 @@ def test_cuda_ring_kernels_match_plain_versions(ico, n, origins):
     t = [x.to(dev) for x in split(tris, n, 0)]
     e = [x.to(dev) for x in split(exclusion(t_total, rays.shape[1], True),
                                   n, 0)]
-    before = dict(ring_trace.LAUNCHES)
+    before = dict(tracing.COUNTS)
     got = ring_trace.ring_nearest(ranks, r, t, e, rt=RT)
     want = ring_trace.ring_nearest_ref(ranks, r, t, e, rt=RT)
     q = [x.clone() for x in r]
@@ -304,7 +305,9 @@ def test_cuda_ring_kernels_match_plain_versions(ico, n, origins):
     hit = ring_trace.ring_any(ranks, q, t, e, rt=RT)
     hit_ref = ring_trace.ring_any_ref(ranks, q, t, e, rt=RT)
     torch.cuda.synchronize()
-    assert ring_trace.LAUNCHES == {k: v + n * n for k, v in before.items()}
+    assert tracing.COUNTS == dict(
+        before, ring_nearest=before["ring_nearest"] + n * n,
+        ring_any=before["ring_any"] + n * n)
     for g, w in zip(got, want):
         assert all(torch.equal(a, b) for a, b in zip(g, w))
     assert all(torch.equal(a.view(torch.int32), b.view(torch.int32))

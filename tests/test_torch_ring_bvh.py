@@ -198,7 +198,7 @@ def test_ring_verify_grows_buckets_until_counts_fit():
     flat = lambda p: [x for q in p for row in q for x in row]
     assert all(g >= s for g, s in zip(flat(grown), flat(small)))
     assert any(g > s for g, s in zip(flat(grown), flat(small)))
-    assert got._counts_fit(got.last_counts)
+    assert got._buckets.fits(got._buckets.worst(got.last_counts))
     single = CulledRenderer(None, W, H, prebaked=got.bake, device="cpu")
     np.testing.assert_allclose(img.numpy(),
                                single.render(grid.camera).numpy(),

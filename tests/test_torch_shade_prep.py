@@ -20,9 +20,9 @@ import pytest
 import torch
 
 from distributed_raytracer_tpu_torch.ops import cull, raygen, shade_prep
+from distributed_raytracer_tpu_torch.ops.frozen_graph import tile_bucket
 from distributed_raytracer_tpu_torch.ops.intersect import Hits
-from distributed_raytracer_tpu_torch.ops.render_bvh import (CulledRenderer,
-                                                            _tile_bucket)
+from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
 from distributed_raytracer_tpu_torch.utils import profiling, scenes, tracing
 from rtbench import devtrace
 
@@ -44,7 +44,7 @@ def bounce_inputs(r, camera):
     """The same at bounce 1: reflection rays, each with its own viewer
     (the primary hit point)."""
     sc, rays, hits, view, hcount = b2_inputs(r, camera)
-    sh = r._stage_b2(sc, _tile_bucket(hcount, r.n_tiles), rays, hits, view,
+    sh = r._stage_b2(sc, tile_bucket(hcount, r.n_tiles), rays, hits, view,
                      keep_rays=True)
     rays1, ti, m, e, c1, excl, view1, _ = r._bounce(
         sc, sh, hits, rays.new_ones((3, r.n_pad)))
@@ -142,18 +142,15 @@ def test_stage_b2_on_the_cpu_takes_the_plain_path_and_counts_it(
                         lambda *a, **k: plain.append(1) or ref(*a, **k))
     scene, r = cpu_renderer
     before = dict(tracing.COUNTS)
-    launches = dict(shade_prep.LAUNCHES)
     r.render(scene.camera)
     assert plain == [1]
-    assert tracing.COUNTS["b2_plain"] == before["b2_plain"] + 1
-    assert tracing.COUNTS["b2_fused"] == before["b2_fused"]
-    assert shade_prep.LAUNCHES == launches
+    assert tracing.COUNTS == before          # no kernel launched
 
 
 def test_one_shadow_cull_over_all_lights_equals_one_per_light(cpu_renderer):
     scene, r = cpu_renderer
     sc, rays, hits, view, hcount = b2_inputs(r, scene.camera)
-    ht_pad = _tile_bucket(hcount, r.n_tiles)
+    ht_pad = tile_bucket(hcount, r.n_tiles)
     sh = r._stage_b2(sc, ht_pad, rays, hits, view)
     n_lights = sh.live_l.shape[0]
     assert n_lights == 3 and sh.smasks.shape[:2] == (n_lights, ht_pad)
@@ -173,13 +170,17 @@ def test_one_shadow_cull_over_all_lights_equals_one_per_light(cpu_renderer):
     assert int(sh.sc1) == total > 0
 
 
-def test_a_scene_without_lights_keeps_the_plain_early_return():
+def test_a_scene_without_lights_keeps_the_plain_early_return(monkeypatch):
     scene = scenes.icosphere_scene(1, n_lights=0)
     r = CulledRenderer(scene, W, H, ray_tile=128, device="cpu")
     sc, rays, hits, view, hcount = b2_inputs(r, scene.camera)
-    before = tracing.COUNTS["b2_plain"]
-    sh = r._stage_b2(sc, _tile_bucket(hcount, r.n_tiles), rays, hits, view)
-    assert tracing.COUNTS["b2_plain"] == before + 1
+    plain = []
+    ref = shade_prep.prep_tiles_ref
+    monkeypatch.setattr(shade_prep, "prep_tiles_ref",
+                        lambda *a, **k: plain.append(1) or ref(*a, **k))
+    before = tracing.COUNTS["shade_prep"]
+    sh = r._stage_b2(sc, tile_bucket(hcount, r.n_tiles), rays, hits, view)
+    assert plain == [1] and tracing.COUNTS["shade_prep"] == before
     assert sh.smasks.shape[0] == 0 and sh.sti.o_lo.shape == (0, 3)
     assert int(sh.sc1) == 0
     img = r.render(scene.camera).numpy()
@@ -245,15 +246,13 @@ def test_kernel_is_bit_equal_to_the_plain_version(cuda, monkeypatch, case,
     inputs = (bounce_inputs if case == "per-ray viewer" else b2_inputs)(
         r, camera)
     sc, rays, hits, view, hcount = inputs
-    ht_pad = r.n_tiles if case == "every tile" else _tile_bucket(
+    ht_pad = r.n_tiles if case == "every tile" else tile_bucket(
         hcount, r.n_tiles)
     if case == "padded tiles":
         assert hcount < ht_pad < r.n_tiles
-    launches = shade_prep.LAUNCHES["shade_prep"]
-    fused = tracing.COUNTS["b2_fused"]
+    launches = tracing.COUNTS["shade_prep"]
     got = r._stage_b2(sc, ht_pad, rays, hits, view, keep_rays=True)
-    assert shade_prep.LAUNCHES["shade_prep"] == launches + 1
-    assert tracing.COUNTS["b2_fused"] == fused + 1
+    assert tracing.COUNTS["shade_prep"] == launches + 1
     monkeypatch.setattr(shade_prep, "prep_tiles", shade_prep.prep_tiles_ref)
     want = r._stage_b2(sc, ht_pad, rays, hits, view, keep_rays=True)
     torch.cuda.synchronize()
@@ -309,9 +308,9 @@ def frames(cuda, kind: str):
 @pytest.mark.parametrize("kind", ["render_fast", "render_bounced",
                                   "render_dynamic", "balanced bands"])
 def test_frames_are_bit_equal_to_the_plain_version(cuda, monkeypatch, kind):
-    fused = tracing.COUNTS["b2_fused"]
+    fused = tracing.COUNTS["shade_prep"]
     got = frames(cuda, kind)
-    assert tracing.COUNTS["b2_fused"] > fused
+    assert tracing.COUNTS["shade_prep"] > fused
     with monkeypatch.context() as m:
         m.setattr(shade_prep, "prep_tiles", shade_prep.prep_tiles_ref)
         want = frames(cuda, kind)

@@ -146,11 +146,10 @@ def test_off_keeps_no_span_and_opens_no_profiler_range(renderer,
     rec = tracing.export()
     assert rec["spans"] == [] and rec["stamps"] == []
     assert r._stamps is None
-    # Nothing captured on the CPU; the three verify frames' checks settled
-    # at their drains; each frame's stage B2 took the plain path.
+    # Nothing captured and no kernel launched on the CPU; the three verify
+    # frames' checks settled at their drains.
     assert frozen_graph.COUNTS == dict(
-        before, verify_deferred=before["verify_deferred"] + 3,
-        b2_plain=before["b2_plain"] + FRAMES)
+        before, verify_deferred=before["verify_deferred"] + 3)
 
 
 def test_on_spans_nest_per_frame_with_one_frame_id(renderer, tracer):
@@ -199,8 +198,7 @@ def test_on_spans_nest_per_frame_with_one_frame_id(renderer, tracer):
                     and s["frame"] == row["frame"]]
         assert issue["start_ns"] <= ns[0] and ns[-1] <= issue["end_ns"]
     assert frozen_graph.COUNTS == dict(
-        before, verify_deferred=before["verify_deferred"] + 3,
-        b2_plain=before["b2_plain"] + FRAMES)
+        before, verify_deferred=before["verify_deferred"] + 3)
     assert rec["counters"] is not frozen_graph.COUNTS
     assert rec["counters"] == frozen_graph.COUNTS
 
@@ -223,8 +221,7 @@ def test_off_a_moving_frame_records_nothing_and_counts_its_diff(
     assert r._fold_stamps is None and r._stamps is None
     assert frozen_graph.COUNTS == dict(
         before, verify_deferred=before["verify_deferred"] + 3,
-        scene_diffs=before["scene_diffs"] + FRAMES,
-        b2_plain=before["b2_plain"] + FRAMES)
+        scene_diffs=before["scene_diffs"] + FRAMES)
 
 
 def test_on_a_moving_frame_stamps_its_fold_before_its_stages(
@@ -271,15 +268,18 @@ def test_on_a_moving_frame_stamps_its_fold_before_its_stages(
 
 def test_graph_key_and_counters_follow_the_tracer(renderer, tracer):
     """The graph key names whether the tracer is on (a graph with stamps is
-    a graph of its own); COUNTS is the tracer's counter registry."""
+    a graph of its own); COUNTS is the one counter registry, the kernel
+    launch counts included."""
     _, r = renderer
     on = r._graph_key("fast", r.buckets())
     tracer.disable()
     assert r._graph_key("fast", r.buckets()) != on
     assert frozen_graph.COUNTS is tracing.COUNTS
-    assert set(tracing.COUNTS) == {"captures", "replays", "verify_deferred",
-                                   "verify_reissued", "scene_diffs",
-                                   "b2_fused", "b2_plain"}
+    assert set(tracing.COUNTS) == {
+        "captures", "replays", "verify_deferred", "verify_reissued",
+        "scene_diffs", "bsr_nearest", "bsr_any", "bsr_nearest_rays",
+        "bsr_any_rays", "bsr_nearest_mxu", "bsr_any_mxu", "ring_nearest",
+        "ring_any", "shade_prep"}
 
 
 def test_buckets_are_the_frozen_buckets():
@@ -288,7 +288,8 @@ def test_buckets_are_the_frozen_buckets():
     assert r.buckets() is None
     r.render(scene.camera)
     r.freeze()
-    assert r.buckets() == r._frozen_pads
+    assert r.buckets() == r._buckets.pads == r._buckets.rule(
+        r._last_counts, 1.4)
     assert len(r.buckets()) == 2 * r.n_levels + 1
 
 

@@ -68,22 +68,25 @@ def drive(loop: str, scene, frames: Frames):
         r = render_sharded_bvh.make_sharded_culled_renderer(
             scene, W, H, mesh=["cpu"] * 2)
         r.device_fn = lambda c: (torch.zeros(H, W, 3), frames.counts(
-            torch.tensor(r._pads)[None].expand(2, -1)))
+            torch.tensor(r.buckets())[None].expand(2, -1)))
         return r(cam, verify=True)
     if loop == "ring":
         r = ring_bvh.RingCulledRenderer(scene, W, H, mesh=["cpu"] * 2)
 
-        def dispatch():
+        def dispatch(camera, diff=None):
             pads = torch.tensor([list(p + q) + [0, 0] for p, q in
                                  zip(r.w_pads, r.w_pads_sh)])
-            return torch.zeros(1), frames.counts(pads[None].expand(2, -1, -1))
-        return r._verify_loop(dispatch, *dispatch())
-    r = halo_bvh.HaloCulledRenderer(scene, W, H, mesh=["cpu"] * 2)
+            return (torch.zeros(3, r.n_pad_ext),
+                    frames.counts(pads[None].expand(2, -1, -1)))
+    else:
+        r = halo_bvh.HaloCulledRenderer(scene, W, H, mesh=["cpu"] * 2)
 
-    def dispatch():
-        pads = torch.tensor(r.w_pads[0] + r.w_pads_sh[0])
-        return torch.zeros(1), frames.counts(pads[None].expand(2, -1))
-    return r._verify_loop(dispatch, *dispatch())
+        def dispatch(camera, diff=None):
+            pads = torch.tensor(r.w_pads[0] + r.w_pads_sh[0])
+            return (torch.zeros(3, r.n_pad_ext),
+                    frames.counts(pads[None].expand(2, -1)))
+    r.device_fn = dispatch
+    return r.render(cam, verify=True)
 
 
 @pytest.mark.parametrize("loop", LOOPS)
