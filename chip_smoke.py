@@ -802,7 +802,7 @@ def phase_frame(renderer, scene, bsr_trace):
           f"median {statistics.median(fast_ms):.3f} ms over {ORBIT} poses; "
           f"render_fast() {nosync_ms:.3f} ms; counts {counts}; pads "
           f"{renderer.buckets()}; exit_every {renderer.exit_every}; "
-          f"launches {launches}")
+          f"launches {launches}; block layout {renderer.block_layout}")
     for name in ("bsr_nearest", "bsr_any", "shade_prep"):
         check(launches[name] > 0, f"{name} was not launched on the path")
     for img in imgs:
@@ -882,7 +882,8 @@ def phase_bounced(renderer, scene, bsr_trace):
           f"{[round(t, 3) for t in verify_ms]} ms, median "
           f"{statistics.median(verify_ms):.3f}; frozen() "
           f"{nosync_ms:.3f} ms (median of 10); pads {fast.pads()}; "
-          f"exit_every {renderer.exit_every}; launches {launches}")
+          f"exit_every {renderer.exit_every}; launches {launches}; "
+          f"block layout {renderer.block_layout}")
     for name in ("bsr_nearest_rays", "bsr_any", "shade_prep"):
         check(launches[name] > 0, f"{name} was not launched on the bounced "
                                   "path")
@@ -1300,7 +1301,7 @@ def phase_dynamic(grid, bsr_trace):
               f"{statistics.median(ms):.3f} ms (verify on frames 0, 8); "
               f"worst frame vs fresh bake: {worst[0]:.6%} of pixels > "
               f"2/255, mean {worst[1]:.3e}; pads {dyn.buckets()}; "
-              f"launches {got}")
+              f"launches {got}; block layout {dyn.block_layout}")
         check(bool(torch.equal(zero, static)),
               "zero diff differs from render_fast")
         want, other = (("bsr_nearest_mxu", "bsr_any_mxu"),
@@ -2888,7 +2889,8 @@ def phase_bench_shapes(bsr_trace) -> dict:
         print(f"[phase 8a] bench config {name}: {cfg.width}x{cfg.height}, "
               f"{m.n_tris} triangles, rt {r.rt}, tb {r.tb}, exit_every "
               f"{r.exit_every}, {cfg.path} frame {m.seconds * 1e3:.4f} ms "
-              f"(bench.run, {run_s:.1f} s); launches {got}; the sync "
+              f"(bench.run, {run_s:.1f} s); launches {got}; block layout "
+              f"{r.block_layout}; the sync "
               f"frame's calls {({k: len(v) for k, v in seen.items()})}")
         check(set(seen) == set(keys), f"bench config {name} launched "
                                       f"{sorted(seen)}, not {keys}")

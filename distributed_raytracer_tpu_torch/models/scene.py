@@ -207,6 +207,45 @@ class Scene:
         """Real (unpadded) triangle count across all instances."""
         return sum(len(self.meshes[o.model].faces_v) for o in self.objects)
 
+    def _slot_map(self, block_size: int, grouped: bool):
+        """The native bake's leaf-block slot map, (slot_src, obj_id):
+        slot_src (T',) int64 is the source triangle (the objects' triangles
+        in order) at each slot, -1 at padding. Grouped: per-object Morton
+        order and gap alignment, so no leaf block spans two objects
+        (_grouped_order's layout, same codes and order), and obj_id (T',)
+        int32 owns each slot. Else one global Morton order, obj_id None.
+        Without the native library, NumPy's codes and centroids stand in."""
+        from distributed_raytracer_tpu_torch.models import bvh as bvh_mod, native
+
+        lib = native.available()
+        codes_of = native.morton_codes if lib else bvh_mod.morton_codes
+
+        def centroids(obj):
+            mesh = self.meshes[obj.model]
+            if lib:
+                return native.centroids(mesh.vertices, mesh.faces_v, obj.pos)
+            return mesh.vertices[mesh.faces_v].sum(axis=1) / 3.0 + obj.pos
+
+        counts = [len(self.meshes[o.model].faces_v) for o in self.objects]
+        starts = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        if grouped:
+            slot_chunks, id_chunks = [], []
+            for oi, obj in enumerate(self.objects):
+                codes = codes_of(centroids(obj))
+                order = np.argsort(codes, kind="stable")
+                slots = bvh_mod.gap_aligned_slots(codes[order], block_size)
+                full = np.where(slots >= 0,
+                                starts[oi] + order[np.maximum(slots, 0)], -1)
+                slot_chunks.append(full)
+                id_chunks.append(np.full(full.shape, oi, np.int32))
+            return np.concatenate(slot_chunks), np.concatenate(id_chunks)
+        cents = np.concatenate([centroids(obj) for obj in self.objects])
+        order = (native.morton_argsort(cents) if lib
+                 else np.argsort(codes_of(cents), kind="stable"))
+        codes = codes_of(cents)[order]
+        slots = bvh_mod.gap_aligned_slots(codes, block_size)
+        return np.where(slots >= 0, order[np.maximum(slots, 0)], -1), None
+
     def _bake_bvh_native(self, block_size: int, grouped: bool):
         """One-pass C++ bake (native/drt_native.cpp drt_bake_object): the
         whole per-triangle loop — world-space placement, Baldwin-Weber
@@ -244,33 +283,7 @@ class Scene:
         if not mat_rows:
             mat_rows.append(((0.0,) * 3, (1.0,) * 3, (0.0,) * 3, 0.0))
 
-        if grouped:
-            # Per-object Morton + gap alignment: no leaf block ever spans
-            # two objects (_grouped_order's layout, same codes/order).
-            slot_chunks, id_chunks = [], []
-            for oi, obj in enumerate(self.objects):
-                mesh = self.meshes[obj.model]
-                cent = native.centroids(mesh.vertices, mesh.faces_v, obj.pos)
-                codes = native.morton_codes(cent)
-                order = np.argsort(codes, kind="stable")
-                slots = bvh_mod.gap_aligned_slots(codes[order], block_size)
-                full = np.where(slots >= 0,
-                                starts[oi] + order[np.maximum(slots, 0)], -1)
-                slot_chunks.append(full)
-                id_chunks.append(np.full(full.shape, oi, np.int32))
-            slot_src = np.concatenate(slot_chunks)
-            obj_id = np.concatenate(id_chunks)
-        else:
-            cents = np.empty((n_real, 3), np.float64)
-            for oi, obj in enumerate(self.objects):
-                mesh = self.meshes[obj.model]
-                cents[starts[oi]:starts[oi + 1]] = native.centroids(
-                    mesh.vertices, mesh.faces_v, obj.pos)
-            order = native.morton_argsort(cents)
-            codes = native.morton_codes(cents)[order]
-            slots = bvh_mod.gap_aligned_slots(codes, block_size)
-            slot_src = np.where(slots >= 0, order[np.maximum(slots, 0)], -1)
-            obj_id = None
+        slot_src, obj_id = self._slot_map(block_size, grouped)
 
         out = native.BakeOut(slot_src.shape[0])
         slot_src = np.ascontiguousarray(slot_src, np.int64)
@@ -358,6 +371,38 @@ class Scene:
         return (arrays, tree, obj_id, block_obj,
                 obj_pos0.astype(np.float32))
 
+    def bake_blocks(self, block_size: int = 128):
+        """The static renderers' bake: bake_bvh's one global leaf-block
+        layout or bake_bvh_grouped's per-object one, whichever has the
+        smaller sum of block AABB surface areas (the global one on a tie).
+
+        A leaf block costs the traversal `block_size` pairs for every ray
+        tile whose hull meets its box, however full it is, so the summed
+        surface area is the cull's expected cost (the SAH leaf cost). The
+        global Morton codes normalise each axis to its own extent: on a
+        flat grid of objects they are z-major, and their runs are thin
+        slabs across neighbouring objects, which the per-object order never
+        makes. A scene of one object has one order, and skips the
+        comparison.
+
+        Returns (arrays, tree, layout), layout "global" or "object";
+        tracing.COUNTS["bake_by_object"] counts the bakes that chose
+        "object"."""
+        from distributed_raytracer_tpu_torch.utils import tracing
+
+        if len(self.objects) > 1:
+            v = np.concatenate([self.meshes[o.model].vertices[
+                self.meshes[o.model].faces_v] + o.pos for o in self.objects])
+            lo, hi = v.min(axis=1), v.max(axis=1)   # triangle boxes
+            area = {g: _summed_block_area(self._slot_map(block_size, g)[0],
+                                          lo, hi, block_size)
+                    for g in (False, True)}
+            if area[True] < area[False]:
+                tracing.COUNTS["bake_by_object"] += 1
+                arrays, tree = self.bake_bvh_grouped(block_size)[:2]
+                return arrays, tree, "object"
+        return (*self.bake_bvh(block_size), "global")
+
     def make_diff(self) -> "SceneDiff":
         """Snapshot the current mutable state as a per-frame diff (the
         master gob-encoding EnvMutables each frame, master/main.go:260-262)."""
@@ -384,6 +429,20 @@ class SceneDiff(NamedTuple):
     obj_pos: np.ndarray    # (O, 3) float32 ABSOLUTE object positions
     light_pos: np.ndarray  # (L, 3) float32
     light_col: np.ndarray  # (L, 3) float32
+
+
+def _summed_block_area(slot_src: np.ndarray, tri_lo: np.ndarray,
+                       tri_hi: np.ndarray, block_size: int) -> float:
+    """Sum over the leaf blocks of a slot map (-1 = padding) of the surface
+    area of the block's box around its real triangles' boxes."""
+    pad = (slot_src < 0)[:, None]
+    src = np.maximum(slot_src, 0)
+    lo = np.where(pad, np.inf, tri_lo[src]).reshape(-1, block_size, 3)
+    hi = np.where(pad, -np.inf, tri_hi[src]).reshape(-1, block_size, 3)
+    d = hi.max(axis=1) - lo.min(axis=1)
+    d = d[np.isfinite(d).all(axis=1)]          # all-padding blocks: none
+    return float(2.0 * (d[:, 0] * d[:, 1] + d[:, 1] * d[:, 2]
+                        + d[:, 2] * d[:, 0]).sum())
 
 
 def _grouped_order(scene: "Scene", arrays: SceneArrays, block_size: int):

@@ -203,6 +203,9 @@ class CulledRenderer:
 
         # `prebaked` = (SceneArrays, BlockBVH), e.g. models.scene
         # .from_reference of the JAX package's bake; its leaf size wins.
+        # block_layout: the leaf-block layout of the renderer's own bake,
+        # "global" or "object" (Scene.bake_blocks); None when prebaked.
+        self.block_layout = None
         if prebaked is not None:
             arrays, tree = prebaked
             self.tb = block_size = int(tree.block_size)
@@ -279,9 +282,11 @@ class CulledRenderer:
         self.rank = None
 
     def _bake_scene(self, scene: Scene, block_size: int):
-        """Bake hook: the dynamic renderer (ops/render_dynamic.py)
-        overrides it to group leaf blocks per object."""
-        return scene.bake_bvh(block_size=block_size)
+        """Bake hook: the layout Scene.bake_blocks picks by its summed
+        block areas; the dynamic renderer (ops/render_dynamic.py)
+        overrides it to group leaf blocks per object always."""
+        arrays, tree, self.block_layout = scene.bake_blocks(block_size)
+        return arrays, tree
 
     def _fold_lights(self, tris_packed: torch.Tensor,
                      light_pos: torch.Tensor) -> torch.Tensor:

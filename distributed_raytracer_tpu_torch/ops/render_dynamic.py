@@ -72,6 +72,7 @@ class DynamicCulledRenderer(CulledRenderer):
         self._block_obj = torch.from_numpy(block_obj.astype(np.int64)).to(
             self.device)
         self.obj_pos0 = torch.from_numpy(obj_pos0).to(self.device)
+        self.block_layout = "object"
         return arrays, tree
 
     @staticmethod

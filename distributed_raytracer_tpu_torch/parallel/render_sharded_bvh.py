@@ -186,10 +186,13 @@ def _mesh(mesh) -> tuple:
 def _make_bands(scene: Optional[Scene], width: int, band_h: int,
                 height: int, mesh: tuple, cfg: RenderConfig, prebaked):
     """(Ranks, one band renderer per rank of this process on its device,
-    None at other processes' ranks), all from one bake (blocks of 128
-    unless prebaked), projecting with the full frame's height."""
+    None at other processes' ranks), all from one bake (Scene.bake_blocks,
+    blocks of 128, unless prebaked), projecting with the full frame's
+    height."""
+    layout = None
     if prebaked is None:
-        prebaked = scene.bake_bvh(block_size=128)
+        arrays, tree, layout = scene.bake_blocks(block_size=128)
+        prebaked = (arrays, tree)
     ranks = mesh_mod.Ranks(mesh)
 
     def band(r):
@@ -197,6 +200,7 @@ def _make_bands(scene: Optional[Scene], width: int, band_h: int,
                            device=mesh[r])
         b.raygen_height = height
         b.rank = r
+        b.block_layout = layout
         return b
 
     return ranks, ranks.per_rank(band)

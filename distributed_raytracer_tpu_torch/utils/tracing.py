@@ -20,9 +20,11 @@ captures and replays, the verify checks settled when the frame loop
 drains their frame (`verify_deferred`), the frames the loop issued
 again after such a check overflowed (`verify_reissued`), the frames
 the dynamic renderer issued with a scene diff (`scene_diffs`,
-ops/render_dynamic.py) and the host launches of the hand-written
-kernels, one key per wrapper and triangle form, on or off; a caller
-reads differences, or sets keys to 0 to count one run.
+ops/render_dynamic.py), the static bakes that chose the per-object
+leaf-block layout (`bake_by_object`, models/scene.py) and the host
+launches of the hand-written kernels, one key per wrapper and triangle
+form, on or off; a caller reads differences, or sets keys to 0 to count
+one run.
 
 Device stamps. `Stamps` marks points of a renderer's frame (five for the
 culled frame, kind "stages": before stage A and after A, B1, B2 and C,
@@ -59,18 +61,19 @@ import torch.autograd.profiler as _profiler
 # Graph captures and replays of every FrameGraph (ops/frozen_graph.py);
 # deferred verify checks settled, and frames issued again after one
 # overflowed (runtime/loop.py); frames issued with a scene diff
-# (ops/render_dynamic.py). Then kernel launches, counted only where a
-# CUDA kernel is launched, never by a plain version, and by a frozen
-# frame's CUDA graph when it is warmed up and captured, never when it is
-# replayed: the traversal kernels per triangle form
-# (ops/bsr_trace.launch_key), the ring's step kernels (ops/ring_trace.py:
-# one per rank and step; K6's seed and unpack launches are not counted)
-# and stage B2's (ops/shade_prep.py).
+# (ops/render_dynamic.py); static bakes that chose the per-object
+# leaf-block layout (models/scene.Scene.bake_blocks). Then kernel
+# launches, counted only where a CUDA kernel is launched, never by a
+# plain version, and by a frozen frame's CUDA graph when it is warmed up
+# and captured, never when it is replayed: the traversal kernels per
+# triangle form (ops/bsr_trace.launch_key), the ring's step kernels
+# (ops/ring_trace.py: one per rank and step; K6's seed and unpack
+# launches are not counted) and stage B2's (ops/shade_prep.py).
 COUNTS = {"captures": 0, "replays": 0, "verify_deferred": 0,
-          "verify_reissued": 0, "scene_diffs": 0, "bsr_nearest": 0,
-          "bsr_any": 0, "bsr_nearest_rays": 0, "bsr_any_rays": 0,
-          "bsr_nearest_mxu": 0, "bsr_any_mxu": 0, "ring_nearest": 0,
-          "ring_any": 0, "shade_prep": 0}
+          "verify_reissued": 0, "scene_diffs": 0, "bake_by_object": 0,
+          "bsr_nearest": 0, "bsr_any": 0, "bsr_nearest_rays": 0,
+          "bsr_any_rays": 0, "bsr_nearest_mxu": 0, "bsr_any_mxu": 0,
+          "ring_nearest": 0, "ring_any": 0, "shade_prep": 0}
 
 # The culled frame's stages, between its five marks.
 STAGES = ("A", "B1", "B2", "C")

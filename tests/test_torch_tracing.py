@@ -277,7 +277,8 @@ def test_graph_key_and_counters_follow_the_tracer(renderer, tracer):
     assert frozen_graph.COUNTS is tracing.COUNTS
     assert set(tracing.COUNTS) == {
         "captures", "replays", "verify_deferred", "verify_reissued",
-        "scene_diffs", "bsr_nearest", "bsr_any", "bsr_nearest_rays",
+        "scene_diffs", "bake_by_object", "bsr_nearest", "bsr_any",
+        "bsr_nearest_rays",
         "bsr_any_rays", "bsr_nearest_mxu", "bsr_any_mxu", "ring_nearest",
         "ring_any", "shade_prep"}
 
