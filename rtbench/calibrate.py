@@ -39,7 +39,7 @@ def main(argv=None) -> int:
         windows.append((seed, start, dropped, len(events.stamps),
                         display.sample))
     device = run.release(b)
-    ref = judge.Reference(b.scene, device)
+    ref = judge.Reference(b.scene, device, judge.bounces(cell.config))
     for k, (seed, start, dropped, ticks, sample) in enumerate(windows):
         got = run.numbers(b, ref, start, sample)
         print(json.dumps({"workload": cell.name, "seed": seed,

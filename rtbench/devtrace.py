@@ -84,12 +84,14 @@ def record(fn) -> list:
 
 
 def read(events: list, cards: list, frames: int, replays: int,
-         n_gaps: int = 10) -> dict:
+         n_gaps: int = 10, traversal: tuple = TRAVERSAL) -> dict:
     """The window's reading: per card ("cuda:N") busy seconds and device
     seconds by kernel class; the window's seconds; `whole`, whether every
     graph replay (the window should hold `replays`) ran the same nonzero
-    number of K1 and K2 kernels; the top device operations and the longest
-    idle gaps on any card, with the host event under each."""
+    number of kernels of each class in `traversal` (the traversal kernels
+    the layout's frame runs: K1 and K2 on the main path); the top device
+    operations and the longest idle gaps on any card, with the host event
+    under each."""
     start = min(e["ts"] for e in events)
     end = max(e["ts"] + e["dur"] for e in events)
     dev = [e for e in events if e.get("cat") in _DEVICE]
@@ -118,12 +120,12 @@ def read(events: list, cards: list, frames: int, replays: int,
     launches = [e for e in events if e.get("cat") == "cuda_runtime"
                 and "GraphLaunch" in e.get("name", "")]
     corr = {e.get("args", {}).get("correlation") for e in launches}
-    counts = {c: [0, 0] for c in corr}
+    counts = {c: [0] * len(traversal) for c in corr}
     for e in dev:
         k = kernel_class(e["name"]) if e.get("cat") == "kernel" else None
         c = e.get("args", {}).get("correlation")
-        if k in TRAVERSAL and c in counts:
-            counts[c][TRAVERSAL.index(k)] += 1
+        if k in traversal and c in counts:
+            counts[c][traversal.index(k)] += 1
     shapes = {tuple(v) for v in counts.values()}
     whole = (len(launches) == replays and None not in corr
              and len(shapes) == 1 and min(next(iter(shapes))) > 0)

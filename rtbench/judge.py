@@ -13,7 +13,10 @@ The numbers compared, each the worst over the sampled frames:
   - "mean_abs": the mean absolute difference over every pixel and
     channel, in levels of 255 (discontinuities included).
 A configuration's "check" object sets how many frames a run samples
-("frames") and each number's limit ("limits").
+("frames") and each number's limit ("limits"). Its optional "bounces" (a
+whole number >= 0; absent: 0) is the depth of Whitted reflection bounces
+the reference draws, and with it the decision code folds in every
+bounce's (reference.render).
 """
 
 from __future__ import annotations
@@ -31,13 +34,22 @@ def _key(state):
                                        state.lights.tobytes())
 
 
-class Reference:
-    """The plain reference of one SceneSpec on one device: `at(state)` is
-    its hierarchy at a scene state (None: the scene as made), built when
-    asked for; the last one is kept."""
+def bounces(config: dict) -> int:
+    """The reflection depth a configuration asks the reference for."""
+    depth = config.get("bounces", 0)
+    if not isinstance(depth, int) or isinstance(depth, bool) or depth < 0:
+        raise ValueError(f"bounces {depth!r}: a whole number >= 0")
+    return depth
 
-    def __init__(self, scene, device):
-        self.scene, self.device = scene, device
+
+class Reference:
+    """The plain reference of one SceneSpec on one device, drawing
+    `bounces` reflection bounces: `at(state)` is its hierarchy at a scene
+    state (None: the scene as made), built when asked for; the last one is
+    kept."""
+
+    def __init__(self, scene, device, bounces: int = 0):
+        self.scene, self.device, self.bounces = scene, device, bounces
         self._key, self._acc = (), None
 
     def at(self, state) -> reference.Accel:
@@ -60,13 +72,14 @@ def by_state(frames, states: dict) -> list:
 
 
 def reference_frame(acc, pose, width: int, height: int,
-                    ar: reference.Arith = reference.Arith()):
+                    ar: reference.Arith = reference.Arith(),
+                    bounces: int = 0):
     """(rgb uint8 (H, W, 3), decision code (H, W)) on acc's device."""
     dev = acc.soup.p1.device
     ys, xs = torch.meshgrid(torch.arange(height, device=dev),
                             torch.arange(width, device=dev), indexing="ij")
     rgb, code = reference.render(acc, pose, width, height, ys.reshape(-1),
-                                 xs.reshape(-1), ar)
+                                 xs.reshape(-1), ar, bounces)
     return rgb.view(height, width, 3), code.view(height, width)
 
 
@@ -89,7 +102,7 @@ def judge(ref: Reference, frames: dict, poses: dict, states: dict,
     worst = {"bad_share": 0.0, "mean_abs": 0.0}
     for idx in by_state(frames, states):
         want, code = reference_frame(ref.at(states.get(idx)), poses[idx],
-                                     width, height)
+                                     width, height, bounces=ref.bounces)
         got = frames[idx]
         if not isinstance(got, torch.Tensor):
             got = torch.as_tensor(np.asarray(got))

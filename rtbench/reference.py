@@ -13,6 +13,11 @@ hierarchy of boxes (leaves of LEAF triangles, BRANCH children a node)
 whose every test is conservative, so its answers equal a brute-force
 test of every triangle.
 
+With `bounces` > 0, `render` adds Whitted reflection bounces as the
+program draws them (see its docstring): reflection rays, their nearest
+hits shaded as above, and each bounce's colour weighted by the specular
+colours of the surfaces before it.
+
 `Arith("tf32")` is the control: the same tracer computed in float32 with
 every operand of a product rounded to TF32's 10-bit mantissa, the
 precision a matmul takes on the tensor cores with TF32 on. The culling
@@ -31,6 +36,13 @@ import torch
 
 GLOBAL_UP = np.array([0.0, 1.0, 0.0])
 SHADOW_OFFSET = 1e-4
+# A reflection ray's origin, lifted off its surface as the program lifts
+# it (distributed_raytracer_tpu_torch/ops/render_bvh.py:90-104
+# `reflect_rows`, with utils/config.py:31 `shadow_offset` 1e-4 along the
+# reflected direction and :37 `shadow_normal_offset` 1e-3 along the
+# shading normal, on the reflected direction's side).
+REFLECT_OFFSET = SHADOW_OFFSET
+REFLECT_NORMAL_OFFSET = 1e-3
 LEAF = 4
 BRANCH = 8
 BOX_PAD = 1e-7
@@ -285,9 +297,11 @@ def _intersect(ar: Arith, s: Soup, o, d, tri):
     return valid, t, r1, r2, r3
 
 
-def nearest(ar: Arith, acc: Accel, o, d, chunk: int = None):
+def nearest(ar: Arith, acc: Accel, o, d, chunk: int = None,
+            exclude=None):
     """Nearest hit of each ray: (t (inf on a miss), triangle (-1), r1, r2,
-    r3); ties go to the lower triangle index."""
+    r3); ties go to the lower triangle index. `exclude` (R,) int64, where
+    given, is a triangle each ray does not see (the one it leaves)."""
     r = o.shape[0]
     dev = o.device
     chunk = chunk or CHUNK
@@ -301,6 +315,8 @@ def nearest(ar: Arith, acc: Accel, o, d, chunk: int = None):
         ray, tri = _pairs(acc, o64[a:b], d64[a:b], far[a:b])
         ray = ray + a
         valid, t, _, _, _ = _intersect(ar, acc.soup, o[ray], d[ray], tri)
+        if exclude is not None:
+            valid &= tri != exclude[ray]
         ray, tri, t = ray[valid], tri[valid], t[valid]
         t_best.scatter_reduce_(0, ray, t, "amin")
         best = t == t_best[ray]
@@ -330,28 +346,15 @@ def occluded(ar: Arith, acc: Accel, o, d, tmax, chunk: int = None):
 
 # -- frames -------------------------------------------------------------------
 
-def render(acc: Accel, pose: Pose, width: int, height: int, ys, xs,
-           ar: Arith = Arith()):
-    """The pixels (ys, xs) of the frame at `pose`: (rgb uint8 (N, 3),
-    decision code (N,) int64: which object was hit (0 = none) and which
-    lights light it, where their light could change the pixel)."""
+def _hits(ar: Arith, acc: Accel, o, d, viewer, exclude=None):
+    """Each ray's nearest hit, shaded (tracer.go:53-77): (the rays that hit
+    (K,), their hit points (K, 3), shading normals (K, 3) and triangles
+    (K,), their colour (K, 3) before the clamp, and their decision code
+    (K,): the object hit and which lights light it). `viewer` is the point
+    the specular term looks from: (3,) for every ray, or (R, 3), one a
+    ray."""
     s = acc.soup
-    dev = s.p1.device
-    vec = lambda a: torch.as_tensor(np.asarray(a), dtype=ar.dtype,
-                                    device=dev)
-    half_w, half_h = width // 2, height // 2
-    phw = math.tan(pose.fov / 2.0)
-    phh = phw * height / width
-    i = xs.to(ar.dtype)
-    j = ys.to(ar.dtype)
-    a = ar.mul(phw, (half_w - i) - 0.5) / half_w
-    b = ar.mul(phh, (half_h - j) - 0.5) / half_h
-    d = ar.unit(vec(pose.forward)[None, :] + ar.mul(a[:, None],
-                                                    vec(pose.left)[None, :])
-                + ar.mul(b[:, None], vec(pose.up)[None, :]))
-    cam = vec(pose.pos)
-    o = cam.expand_as(d)
-    t, tri, r1, r2, r3 = nearest(ar, acc, o, d)
+    t, tri, r1, r2, r3 = nearest(ar, acc, o, d, exclude=exclude)
     hit = tri >= 0
     idx = torch.nonzero(hit).squeeze(1)
     ti = tri[idx]
@@ -364,7 +367,7 @@ def render(acc: Accel, pose: Pose, width: int, height: int, ys, xs,
     ka, kd, ks = (s.ka[mat].to(ar.dtype), s.kd[mat].to(ar.dtype),
                   s.ks[mat].to(ar.dtype))
     ns = s.ns[mat].to(ar.dtype)
-    view = ar.unit(cam[None, :] - x)
+    view = ar.unit((viewer if viewer.dim() == 1 else viewer[idx]) - x)
     colour = ka
     code = s.obj[ti] + 1
     for li in range(s.light_pos.shape[0]):
@@ -385,12 +388,101 @@ def render(acc: Accel, pose: Pose, width: int, height: int, ys, xs,
                            ldist[q] - SHADOW_OFFSET)
         colour = colour + torch.where(lit[:, None], contrib, 0.0)
         code = code * 2 + lit.to(torch.int64)
+    return idx, x, n, ti, colour, code
+
+
+def render(acc: Accel, pose: Pose, width: int, height: int, ys, xs,
+           ar: Arith = Arith(), bounces: int = 0):
+    """The pixels (ys, xs) of the frame at `pose`: (rgb uint8 (N, 3),
+    decision code (N,) int64: which object was hit (0 = none) and which
+    lights light it, where their light could change the pixel).
+
+    With `bounces` = D > 0, Whitted reflections as the program draws them
+    (distributed_raytracer_tpu_torch/ops/render_bvh.py:751-758 and
+    `render_bounced`, `_bounce` :772-783, `reflect_rows` :90-104; the
+    float64 oracle's `_radiance`, utils/oracle.py:136-163):
+      - the colour is the sum over bounces b = 0..D of throughput_b times
+        bounce b's Phong colour (itself clamped, as the program's shading
+        clamps its saturating adds), clamped once at the end;
+      - bounce b's specular term looks from bounce b-1's hit point (the
+        camera at b = 0);
+      - throughput_0 = 1, throughput_{b+1} = throughput_b * Ks of the
+        surface bounce b hit;
+      - a miss, or a Ks of zero, ends the path and adds nothing;
+      - the reflected direction is d - 2 (d.n) n about the shading normal
+        n, normalised;
+      - its origin is the hit point lifted as the program lifts it:
+        REFLECT_OFFSET (1e-4, the program's `shadow_offset`) along the
+        reflected direction and REFLECT_NORMAL_OFFSET (1e-3, its
+        `shadow_normal_offset`) along n on the reflected direction's side;
+        and, as in the program (the hit triangle is the next query's
+        exclude id, render_bvh.py:783), the ray does not see the triangle
+        it leaves. The oracle departs here: it lifts the origin 1e-4 along
+        the reflected direction alone and excludes nothing.
+    Shadows at every bounce are this module's own (one ray per light,
+    offset 1e-4 along the light). The decision code is then a dense id of
+    every bounce's code (the object hit and the lights that light it, 0
+    where the path has ended), so `continuity` sets reflected edges and
+    reflected shadow boundaries aside as it does primary ones."""
+    if bounces < 0:
+        raise ValueError(f"bounces={bounces}: must be >= 0")
+    s = acc.soup
+    dev = s.p1.device
+    vec = lambda a: torch.as_tensor(np.asarray(a), dtype=ar.dtype,
+                                    device=dev)
+    half_w, half_h = width // 2, height // 2
+    phw = math.tan(pose.fov / 2.0)
+    phh = phw * height / width
+    i = xs.to(ar.dtype)
+    j = ys.to(ar.dtype)
+    a = ar.mul(phw, (half_w - i) - 0.5) / half_w
+    b = ar.mul(phh, (half_h - j) - 0.5) / half_h
+    d = ar.unit(vec(pose.forward)[None, :] + ar.mul(a[:, None],
+                                                    vec(pose.left)[None, :])
+                + ar.mul(b[:, None], vec(pose.up)[None, :]))
+    cam = vec(pose.pos)
+    o = cam.expand_as(d)
+    idx, x, n, ti, colour, code = _hits(ar, acc, o, d, cam)
     rgb = torch.zeros((d.shape[0], 3), dtype=ar.dtype, device=dev)
     rgb[idx] = torch.clamp(colour, 0.0, 1.0)
     full_code = torch.zeros(d.shape[0], dtype=torch.int64, device=dev)
     full_code[idx] = code
+    if bounces:
+        rgb, full_code = _reflections(ar, acc, bounces, rgb, full_code,
+                                      idx, d[idx], x, n, ti)
     return (ar.mul(255.0, rgb)).to(torch.uint8), full_code
 
+
+def _reflections(ar: Arith, acc: Accel, bounces: int, colour, code, live,
+                 d, x, n, tri):
+    """Bounces 1..`bounces` (render's docstring) added to bounce 0's
+    clamped colour (N, 3) and code (N,), from the rays `live` that hit,
+    with their directions, hit points, shading normals and triangles.
+    Returns (rgb (N, 3) clamped once, decision code (N,))."""
+    s = acc.soup
+    throughput = torch.ones_like(colour)
+    codes = [code]
+    for _ in range(bounces):
+        ks = s.ks[s.mat[tri]].to(ar.dtype)
+        throughput[live] = ar.mul(throughput[live], ks)
+        keep = (ks > 0.0).any(1)
+        live, d, x, n, tri = live[keep], d[keep], x[keep], n[keep], tri[keep]
+        refl = ar.unit(d - ar.mul(ar.mul(2.0, ar.dot(d, n))[:, None], n))
+        side = torch.where(ar.dot(n, refl) >= 0.0, 1.0, -1.0)
+        o = (x + ar.mul(REFLECT_OFFSET, refl)
+             + ar.mul(ar.mul(REFLECT_NORMAL_OFFSET, side)[:, None], n))
+        idx, x, n_hit, tri, local, c = _hits(ar, acc, o, refl, x,
+                                             exclude=tri)
+        rows = live[idx]
+        colour[rows] = colour[rows] + ar.mul(throughput[rows],
+                                             torch.clamp(local, 0.0, 1.0))
+        bounce_code = torch.zeros_like(code)
+        bounce_code[rows] = c
+        codes.append(bounce_code)
+        live, d, n = rows, refl[idx], n_hit
+    _, dense = torch.unique(torch.stack(codes, 1), dim=0,
+                            return_inverse=True)
+    return torch.clamp(colour, 0.0, 1.0), dense
 
 def continuity(code: torch.Tensor) -> torch.Tensor:
     """(H, W) bool: pixels whose 3x3 neighbourhood (the image's edge

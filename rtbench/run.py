@@ -58,6 +58,9 @@ class Records:
     intervals: Optional[list]  # per card (window ms, [(start, end) ms])
     profile: Optional[dict]    # devtrace.read of the traced frames
     pairs: Optional[list]      # scheduled pairs of each traced frame
+    # Scheduled per-ray-origin pairs of each traced frame: a layout's
+    # ray_pairs (None for a layout without one).
+    ray_pairs: Optional[list] = None
 
 
 def _seed_seq(seed: int, stream: int) -> np.random.Generator:
@@ -73,13 +76,16 @@ class Bench:
     traffic: object
 
 
-def traced_pairs(layout, traffic, start: int, first: int, frames: int):
+def traced_pairs(layout, traffic, start: int, first: int, frames: int,
+                 kind: str = "pairs"):
     """The scheduled pairs of frames first .. first + frames - 1 of the run
-    starting at `start`, each at its pose and scene state."""
+    starting at `start`, each at its pose and scene state, by the layout's
+    method `kind` ("pairs", or "ray_pairs": those of the per-ray-origin
+    kernel)."""
     from rtbench import port
 
     n = len(traffic.cycle)
-    return layout.pairs(
+    return getattr(layout, kind)(
         [port.camera(traffic.poses[(start + first + k) % n + 1])
          for k in range(frames)],
         [traffic.frame_state(start, first + k) for k in range(frames)])
@@ -155,7 +161,7 @@ def numbers(b: Bench, ref, start: int, sample: dict, ar=None) -> dict:
     if ar is not None:
         sample = {i: judge.reference_frame(ref.at(states[i]), poses[i],
                                            cfg["width"], cfg["height"],
-                                           ar)[0]
+                                           ar, ref.bounces)[0]
                   for i in judge.by_state(sample, states)}
     return judge.judge(ref, sample, {i: poses[i] for i in sample}, states,
                        cfg["width"], cfg["height"])
@@ -199,9 +205,14 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
         first = len(render.calls)
         trace_events = devtrace.record(lambda: window.loop(
             layout, traffic, start, ticks=frames, first=first))
-        rec.profile = devtrace.read(trace_events, layout.cards, frames,
-                                    replays=frames * len(layout.cards))
+        rec.profile = devtrace.read(
+            trace_events, layout.cards, frames,
+            replays=frames * len(layout.cards),
+            traversal=getattr(layout, "TRAVERSAL", devtrace.TRAVERSAL))
         rec.pairs = traced_pairs(layout, traffic, start, first, frames)
+        if hasattr(layout, "ray_pairs"):
+            rec.ray_pairs = traced_pairs(layout, traffic, start, first,
+                                         frames, "ray_pairs")
         busy = [c["busy_s"] for c in rec.profile["cards"].values()]
         dev_info["busy_s"] = sum(busy) / len(busy)
         dev_info["window_s"] = rec.profile["window_s"]
@@ -221,8 +232,9 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool,
     del render, layout
     ref_device = release(b)
     t_ref = time.perf_counter()
-    got = numbers(b, judge.Reference(b.scene, ref_device), start,
-                  display.sample)
+    got = numbers(b, judge.Reference(b.scene, ref_device,
+                                     judge.bounces(cell.config)),
+                  start, display.sample)
     say(f"reference: {got['frames']} frames in "
         f"{time.perf_counter() - t_ref:.1f} s")
     limits = cell.config["check"]["limits"]

@@ -206,8 +206,10 @@ def run(cell, seed: int, seconds: float, device: str = "cuda",
         frames = 2 * traffic.verify_period
         trace_events = devtrace.record(lambda: win.loop(
             layout, traffic, start, ticks=frames, first=first))
-        rec.profile = devtrace.read(trace_events, layout.cards, frames,
-                                    replays=frames * len(layout.cards))
+        rec.profile = devtrace.read(
+            trace_events, layout.cards, frames,
+            replays=frames * len(layout.cards),
+            traversal=getattr(layout, "TRAVERSAL", devtrace.TRAVERSAL))
         rec.pairs = rtrun.traced_pairs(layout, traffic, start, first,
                                        frames)
         line["idle_gaps"] = rec.profile["idle_gaps"]
