@@ -38,7 +38,9 @@ its check (`Buckets.check`) to `verify`, which runs it at once, as a
 caller of `render_fast(verify=True)` expects, unless a deferral is open on
 this thread (`deferred()`): the frame loop (runtime/loop.py) opens one
 around each render call and settles the checks it collects when it drains
-the frame (`settle`), where it waits for the frame's pixels anyway. A deferred
+the frame (`settle`), where it waits for the frame's pixels anyway. The
+check is the span `frozen.verify` (attributes: its refreeze `rounds`; a
+bounced frame's per-bounce work-list counts, ops/render_bvh.py). A deferred
 check starts a non-blocking copy of the counts to pinned host memory and
 records an event after it, so the render call returns without a host
 sync. A multi-process mesh checks at once: every process must take the
@@ -184,13 +186,15 @@ class Check:
     grow-only; `again()` renders the frame again with the current buckets,
     writing its own inputs anew, and returns (out, counts). `name` labels
     the span `frozen.verify` and the warning of a loop that does not
-    converge, `card` the span."""
+    converge, `card` the span; `attrs(host counts)`, when given, names
+    more of the span's attributes, read from the counts of the frame `out`
+    holds, while the tracer is on."""
 
     def __init__(self, out, counts: torch.Tensor, fits, grow, again,
-                 name: str, card=None):
+                 name: str, card=None, attrs=None):
         self.out, self.counts = out, counts
         self._fits, self._grow, self._again = fits, grow, again
-        self.name, self.card = name, card
+        self.name, self.card, self._attrs = name, card, attrs
         self._host = self._done = None
 
     def start_copy(self) -> None:
@@ -234,6 +238,8 @@ class Check:
                 ok = self._fits(got)
                 rounds += 1
             span.set(rounds=rounds)
+            if self._attrs is not None and tracing.enabled():
+                span.set(**self._attrs(got))
             if not ok:
                 _log.warning("%s verify did not converge in 8 rounds "
                              "(counts %s); image may drop blocks",
@@ -325,9 +331,10 @@ class Buckets:
         return _within(counts, self.pads)
 
     def check(self, out, counts, again, name: str, card=None,
-              now: bool = False) -> Check:
+              now: bool = False, attrs=None) -> Check:
         """`verify`(Check) of one frame: its output, its true counts and
-        again() -> (out, counts) with the current buckets."""
+        again() -> (out, counts) with the current buckets (`attrs`: the
+        Check's span attributes)."""
         def grow(got):
             worst = self.worst(got)
             if self.on_grow is not None:
@@ -335,4 +342,5 @@ class Buckets:
             self.grow(worst)
 
         fits = lambda got: self.fits(self.worst(got))
-        return verify(Check(out, counts, fits, grow, again, name, card), now)
+        return verify(Check(out, counts, fits, grow, again, name, card,
+                            attrs), now)

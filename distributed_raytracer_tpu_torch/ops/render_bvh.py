@@ -42,7 +42,19 @@ its graph (a graph key of its own), and the verify check is the span
 `render_bounced(camera, depth)` adds `depth` reflection bounces: stages 2-6
 again per bounce over the previous bounce's reflection rays, whose nearest
 query runs the per-ray-origin kernel. `freeze_bounced(camera, depth)`
-returns the same pipeline with per-bounce buckets and no host sync.
+returns the same pipeline with per-bounce buckets and no host sync. Its
+frames count in `tracing.COUNTS["bounced_frames"]`, on or off. While the
+tracer is on, a bounced frozen frame (`_full_bounced`) marks 4 * depth + 5
+device stamps of kind "bounced" (tracing.bounce_stages): before stage A,
+after A, and for each bounce b after B1.b (the nearest query), B2.b (stage
+B2 and the shadow top cull) and C.b (the shadow query, Phong, the colour
+accumulated; the last bounce's also the final clamp and assembly) and,
+but for the last bounce, after R.b (the reflection rays, their tile hulls
+and coarse mask); its `frozen.verify` span carries, beside `rounds`, each
+bounce's work-list counts of the frame it returns: `top_cells` (the
+(ray tile, top block) cells of its live ray tiles after the top cull,
+which set K3n's work) and `hit_tiles` (the ray tiles with a hit, which
+set stage B2's and K2's).
 
 A renderer may draw one band of a larger frame (parallel/render_sharded_bvh.py):
 `raygen_height` is the full frame's height, which rays project with, and
@@ -276,9 +288,10 @@ class CulledRenderer:
         # CUDA graphs of the frozen frames, one per kind ("fast",
         # "bounced", "dynamic"; ops/frozen_graph.py).
         self._graphs = {}
-        # The frames' stage stamps (made when the tracer first marks) and
-        # the band's rank they are named by (parallel/render_sharded_bvh.py).
-        self._stamps = None
+        # The frames' stamps by (kind, points), each made when the tracer
+        # first marks it, and the band's rank they are named by
+        # (parallel/render_sharded_bvh.py).
+        self._stamps = {}
         self.rank = None
 
     def _bake_scene(self, scene: Scene, block_size: int):
@@ -597,14 +610,17 @@ class CulledRenderer:
     # render_fast(verify=True) checks the true counts and refreezes on
     # overflow: at once, or at the frame's drain inside the frame loop.
 
-    def _marks(self):
-        """mark(point) of a frame's stage stamps: the renderer's
-        tracing.Stamps while the tracer is on, else nothing."""
+    def _marks(self, kind: str = "stages", points: int = 5):
+        """mark(point) of a frame's stamps of `kind` ("stages", "bounced",
+        "fold"): the renderer's tracing.Stamps of that kind and row length
+        while the tracer is on, else nothing."""
         if not tracing.enabled():
             return _no_mark
-        if self._stamps is None:
-            self._stamps = tracing.Stamps(self.device, rank=self.rank)
-        return self._stamps.mark
+        key = (kind, points)
+        if key not in self._stamps:
+            self._stamps[key] = tracing.Stamps(self.device, points=points,
+                                               kind=kind, rank=self.rank)
+        return self._stamps[key].mark
 
     def _full(self, sc: DeviceScene, pads: tuple, cam: CameraArrays):
         """All stages with fixed buckets; pads layout == the counts layout.
@@ -831,9 +847,13 @@ class CulledRenderer:
         `pads` holds one bucket vector per bounce (the counts layout).
         Returns (image, (B, 2*n_levels + 1) int32 true counts on the
         device), so callers can check the buckets and refreeze on overflow
-        instead of silently dropping candidate blocks."""
+        instead of silently dropping candidate blocks. Bounce b's stamps
+        are points 2 + 4b (after B1.b) to 5 + 4b (after R.b)."""
         nl, sc = self.n_levels, self.dev_scene
+        mark = self._marks("bounced", 4 * len(pads) + 1)
+        mark(0)
         rays, ti, mask1, entry1, c1 = self._stage_a(sc, cam)
+        mark(1)
         colour = rays.new_zeros((3, self.n_pad))
         throughput = rays.new_ones((3, self.n_pad))
         view, exclude = cam.pos, self._no_excl
@@ -843,18 +863,29 @@ class CulledRenderer:
             hits, _, p_counts = self._nearest(sc, p_pads, sc.tris_packed,
                                               rays, exclude, ti, mask1,
                                               entry1, c1)
+            mark(2 + 4 * b)
             sh = self._stage_b2(sc, ht_pad, rays, hits, view,
                                 keep_rays=b + 1 < len(pads))
+            mark(3 + 4 * b)
             local_h, s_counts = self._stage_shade(sc, s_pads, sh)
             colour = colour + throughput * self._gather_tiles(
                 local_h, sh.tpos, sh.hit_tile)
             counts.append(torch.stack([c1, *p_counts, sh.ht_count, sh.sc1,
                                        *s_counts]))
             if b + 1 < len(pads):
+                mark(4 + 4 * b)
                 (rays, ti, mask1, entry1, c1, exclude, view,
                  throughput) = self._bounce(sc, sh, hits, throughput)
+                mark(5 + 4 * b)
         img = self._assemble(torch.clamp(colour, 0.0, 1.0))
+        mark(4 * len(pads))
         return img, torch.stack(counts)
+
+    def _bounce_counts(self, counts) -> dict:
+        """The per-bounce work-list counts a bounced frame's verify span
+        carries, from its (B, 2*n_levels + 1) host counts."""
+        return {"top_cells": [int(row[0]) for row in counts],
+                "hit_tiles": [int(row[self.n_levels]) for row in counts]}
 
     def freeze_bounced(self, camera, depth: int, margin: float = 1.4):
         """Fix per-bounce buckets from one sync render_bounced's RAW counts
@@ -871,6 +902,7 @@ class CulledRenderer:
         buckets.grow(self._last_bounce_counts)
 
         def render(cam, verify: bool = False) -> torch.Tensor:
+            tracing.COUNTS["bounced_frames"] += 1
             frame = self._frozen_frame(
                 "bounced", {"camera": raygen.camera_packed(cam)},
                 lambda bufs, pads: self._full_bounced(
@@ -883,7 +915,8 @@ class CulledRenderer:
             # reported count is an undercount and one refreeze is not
             # enough.
             return buckets.check(img, counts, lambda: frame(buckets.pads),
-                                 "bounced", self.device.index).out
+                                 "bounced", self.device.index,
+                                 attrs=self._bounce_counts).out
 
         render.pads = lambda: buckets.pads
         return render

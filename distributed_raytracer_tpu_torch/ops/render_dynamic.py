@@ -42,8 +42,7 @@ import torch
 from distributed_raytracer_tpu_torch.models.scene import Scene, SceneDiff
 from distributed_raytracer_tpu_torch.ops import raygen
 from distributed_raytracer_tpu_torch.ops.render_bvh import (CulledRenderer,
-                                                            DeviceScene,
-                                                            _no_mark)
+                                                            DeviceScene)
 from distributed_raytracer_tpu_torch.utils import tracing
 
 
@@ -61,7 +60,6 @@ class DynamicCulledRenderer(CulledRenderer):
             raise ValueError("DynamicCulledRenderer bakes its scene itself "
                              "(bake_bvh_grouped): pass a Scene, no prebaked")
         super().__init__(scene, width, height, **kwargs)
-        self._fold_stamps = None    # the fold's stamps, made when first marked
 
     def _bake_scene(self, scene: Scene, block_size: int):
         """The grouped bake, keeping the ownership maps on the device."""
@@ -81,17 +79,6 @@ class DynamicCulledRenderer(CulledRenderer):
         host-to-device copy of a frame's diff."""
         return torch.from_numpy(np.concatenate(
             [np.asarray(a, np.float32).reshape(-1, 3) for a in diff]))
-
-    def _fold_marks(self):
-        """mark(point) of a frame's fold stamps (0 before the fold, 1 after
-        it): the renderer's "fold" tracing.Stamps while the tracer is on,
-        else nothing."""
-        if not tracing.enabled():
-            return _no_mark
-        if self._fold_stamps is None:
-            self._fold_stamps = tracing.Stamps(self.device, points=2,
-                                               kind="fold", rank=self.rank)
-        return self._fold_stamps.mark
 
     def _diff_views(self, packed: torch.Tensor) -> SceneDiff:
         """SceneDiff viewing a (n, 3) _diff_packed tensor on the device."""
@@ -149,7 +136,7 @@ class DynamicCulledRenderer(CulledRenderer):
         return self._render_frozen(frame, camera, verify, "render_dynamic")
 
     def _dynamic_body(self, bufs: dict, pads: tuple):
-        mark = self._fold_marks()
+        mark = self._marks("fold", 2)
         mark(0)
         sc = self._apply_diff(self._diff_views(bufs["diff"]))
         mark(1)

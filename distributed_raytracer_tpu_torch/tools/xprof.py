@@ -16,7 +16,8 @@ A chrome trace of the program's own tracer (the CLI's `--trace-out`,
 utils/tracing.write_chrome_trace) holds device stamps instead of kernels:
 for it, the report is each stamped interval's device ms per frame on each
 card, mean over the frames with a frame id: the scene-diff fold of the
-dynamic frame and the culled frame's stages A, B1, B2 and C.
+dynamic frame, the culled frame's stages A, B1, B2 and C, and the bounced
+frame's A, then B1.b, B2.b, C.b and R.b of each bounce b.
 
     python -m distributed_raytracer_tpu_torch.tools.xprof TRACE \\
         [n_frames] [top_k]

@@ -20,16 +20,20 @@ captures and replays, the verify checks settled when the frame loop
 drains their frame (`verify_deferred`), the frames the loop issued
 again after such a check overflowed (`verify_reissued`), the frames
 the dynamic renderer issued with a scene diff (`scene_diffs`,
-ops/render_dynamic.py), the static bakes that chose the per-object
-leaf-block layout (`bake_by_object`, models/scene.py) and the host
-launches of the hand-written kernels, one key per wrapper and triangle
-form, on or off; a caller reads differences, or sets keys to 0 to count
-one run.
+ops/render_dynamic.py), the bounced frames issued by `freeze_bounced`'s
+render (`bounced_frames`, ops/render_bvh.py), the static bakes that chose
+the per-object leaf-block layout (`bake_by_object`, models/scene.py) and
+the host launches of the hand-written kernels, one key per wrapper and
+triangle form, on or off; a caller reads differences, or sets keys to 0
+to count one run.
 
 Device stamps. `Stamps` marks points of a renderer's frame (five for the
 culled frame, kind "stages": before stage A and after A, B1, B2 and C,
-`STAGES`; two for the dynamic frame's scene-diff fold, kind "fold",
-before and after it; one after the band gather, kind "gather"). On
+`STAGES`; 4 D + 5 for the frame of D Whitted bounces, kind "bounced":
+before stage A, after A, then for each bounce b after B1.b, B2.b and C.b
+and, but for the last, after R.b, its reflection rays (`BOUNCE_STAGES`,
+`bounce_stages(D)`); two for the dynamic frame's scene-diff fold, kind
+"fold", before and after it; one after the band gather, kind "gather"). On
 CUDA each mark is a one-thread kernel (csrc/stamp.cu, built and loaded
 only when the tracer first marks) that writes the card's %globaltimer
 into a row of the renderer's device ring. Captured into a frozen frame's
@@ -61,7 +65,8 @@ import torch.autograd.profiler as _profiler
 # Graph captures and replays of every FrameGraph (ops/frozen_graph.py);
 # deferred verify checks settled, and frames issued again after one
 # overflowed (runtime/loop.py); frames issued with a scene diff
-# (ops/render_dynamic.py); static bakes that chose the per-object
+# (ops/render_dynamic.py); bounced frames issued by freeze_bounced's
+# render (ops/render_bvh.py); static bakes that chose the per-object
 # leaf-block layout (models/scene.Scene.bake_blocks). Then kernel
 # launches, counted only where a CUDA kernel is launched, never by a
 # plain version, and by a frozen frame's CUDA graph when it is warmed up
@@ -70,13 +75,18 @@ import torch.autograd.profiler as _profiler
 # (ops/ring_trace.py: one per rank and step; K6's seed and unpack
 # launches are not counted) and stage B2's (ops/shade_prep.py).
 COUNTS = {"captures": 0, "replays": 0, "verify_deferred": 0,
-          "verify_reissued": 0, "scene_diffs": 0, "bake_by_object": 0,
-          "bsr_nearest": 0, "bsr_any": 0, "bsr_nearest_rays": 0,
-          "bsr_any_rays": 0, "bsr_nearest_mxu": 0, "bsr_any_mxu": 0,
-          "ring_nearest": 0, "ring_any": 0, "shade_prep": 0}
+          "verify_reissued": 0, "scene_diffs": 0, "bounced_frames": 0,
+          "bake_by_object": 0, "bsr_nearest": 0, "bsr_any": 0,
+          "bsr_nearest_rays": 0, "bsr_any_rays": 0, "bsr_nearest_mxu": 0,
+          "bsr_any_mxu": 0, "ring_nearest": 0, "ring_any": 0,
+          "shade_prep": 0}
 
 # The culled frame's stages, between its five marks.
 STAGES = ("A", "B1", "B2", "C")
+# The stages a bounced frame repeats for each bounce b, named "B1.b" ...:
+# the nearest query (B1), stage B2, the shadow query and shading (C) and,
+# but for the last bounce, the reflection rays and their cull (R).
+BOUNCE_STAGES = ("B1", "B2", "C", "R")
 # Rows of a device ring: frames a recording keeps per renderer.
 RING_ROWS = 4096
 
@@ -252,12 +262,20 @@ def _to_host(card: str, dev_ns: int) -> int:
     return dev_ns + round(off0 + (off1 - off0) * (dev_ns - d0) / (d1 - d0))
 
 
+def bounce_stages(depth: int) -> tuple:
+    """The stages between the 4 * depth + 5 marks of a frame of `depth`
+    bounces: A, then B1.b, B2.b, C.b and, for b < depth, R.b."""
+    return ("A",) + tuple(f"{stage}.{b}" for b in range(depth + 1)
+                          for stage in BOUNCE_STAGES
+                          if b < depth or stage != "R")
+
+
 class Stamps:
     """The marks of one renderer's frames on its device: `points` per row
-    (5 for the culled frame's stages, 2 around the dynamic frame's fold, 1
-    for a mark after the band gather), `kind` ("stages", "fold" or
-    "gather") and `rank` (the band's, or None) name the rows in the
-    export."""
+    (5 for the culled frame's stages, 4 D + 5 for the frame of D bounces,
+    2 around the dynamic frame's fold, 1 for a mark after the band
+    gather), `kind` ("stages", "bounced", "fold" or "gather") and `rank`
+    (the band's, or None) name the rows in the export."""
 
     def __init__(self, device, points: int = 5, kind: str = "stages",
                  rank: Optional[int] = None):
@@ -352,8 +370,9 @@ def export() -> dict:
 
 def write_chrome_trace(path: str) -> None:
     """The recording (`export()`) as a chrome trace: spans on the host's
-    row, each renderer's stages and folds on its card's row, the counters
-    at the end; times in microseconds on the host's clock."""
+    row, each renderer's stages (a bounced frame's per bounce, "stage
+    B1.0" ...) and folds on its card's row, the counters at the end; times
+    in microseconds on the host's clock."""
     rec = export()
     events = []
     for s in rec["spans"]:
@@ -375,7 +394,9 @@ def write_chrome_trace(path: str) -> None:
                            "dur": (ns[1] - ns[0]) / 1e3,
                            "args": {"frame": r["frame"]}})
             continue
-        for k, stage in enumerate(STAGES):
+        names = (STAGES if r["kind"] == "stages"
+                 else bounce_stages((len(ns) - 5) // 4))
+        for k, stage in enumerate(names):
             events.append({"name": f"stage {stage}", "cat": "stage",
                            "ph": "X", "pid": r["card"], "tid": tid,
                            "ts": ns[k] / 1e3,

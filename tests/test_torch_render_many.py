@@ -151,9 +151,11 @@ def test_cpu_frozen_frames_capture_nothing(ico):
     tr.render_fast(port_camera(ico.camera), verify=True)
     tr.render_many([port_camera(c) for c in poses(ico)])
     tr.freeze_bounced(port_camera(ico.camera), 1)(port_camera(ico.camera))
-    # No counter moves: nothing captured, and no kernel launched (every
-    # stage B2 took the plain path).
-    assert frozen_graph.COUNTS == before and tr._graphs == {}
+    # No counter moves but the one bounced frame issued: nothing captured,
+    # and no kernel launched (every stage B2 took the plain path).
+    assert frozen_graph.COUNTS == dict(
+        before, bounced_frames=before["bounced_frames"] + 1)
+    assert tr._graphs == {}
 
 
 # -- on the card ------------------------------------------------------------

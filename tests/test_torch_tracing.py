@@ -13,13 +13,18 @@ as before, and the verify frames' checks count as deferred. A moving scene
 `dynamic.diff` span and a "fold" stamp row of two marks, before the five
 "stages" marks; `scene_diffs` counts its frames, on or off; the benchmark's
 `fold_ms` reader and tools/xprof.py read the fold from the recording.
+A bounced frame (freeze_bounced's render, depth 2) marks one "bounced" row
+of 13 stamps a frame, in order (tracing.bounce_stages), and its verify
+span carries each bounce's work-list counts; off, it records nothing and
+its graph key is the one the tracer left alone; `bounced_frames` counts
+its render calls, on or off.
 Under a profiler window the spans are `user_annotation` events, and the
 trace parser names an idle gap by the span under it. The command
 line writes the recording as a chrome trace. On the card (`cuda` marker):
-the stamps of replayed graphs lie inside each replay's CUDA-event interval
-and, on the host's clock, after the replay was issued and before the
-frame's drain ended. Nothing here imports JAX, so on a machine with a card
-and no JAX the card's test runs with
+the stamps of replayed graphs, the bounced frame's too, lie inside each
+replay's CUDA-event interval and, on the host's clock, after the replay
+was issued and before the frame's drain ended. Nothing here imports JAX,
+so on a machine with a card and no JAX the card's test runs with
 
     python -m pytest -o addopts="" --noconftest -m cuda \
         tests/test_torch_tracing.py
@@ -33,7 +38,7 @@ import pytest
 import torch
 
 from distributed_raytracer_tpu_torch import run as cli
-from distributed_raytracer_tpu_torch.ops import frozen_graph
+from distributed_raytracer_tpu_torch.ops import frozen_graph, raygen
 from distributed_raytracer_tpu_torch.ops.render_bvh import CulledRenderer
 from distributed_raytracer_tpu_torch.ops.render_dynamic import (
     DynamicCulledRenderer)
@@ -145,7 +150,7 @@ def test_off_keeps_no_span_and_opens_no_profiler_range(renderer,
     assert tracing.span("loop.tick") is tracing.span("frozen.verify")
     rec = tracing.export()
     assert rec["spans"] == [] and rec["stamps"] == []
-    assert r._stamps is None
+    assert r._stamps == {}
     # Nothing captured and no kernel launched on the CPU; the three verify
     # frames' checks settled at their drains.
     assert frozen_graph.COUNTS == dict(
@@ -218,7 +223,7 @@ def test_off_a_moving_frame_records_nothing_and_counts_its_diff(
     moving_loop(scene, r)
     rec = tracing.export()
     assert rec["spans"] == [] and rec["stamps"] == []
-    assert r._fold_stamps is None and r._stamps is None
+    assert r._stamps == {}
     assert frozen_graph.COUNTS == dict(
         before, verify_deferred=before["verify_deferred"] + 3,
         scene_diffs=before["scene_diffs"] + FRAMES)
@@ -266,6 +271,101 @@ def test_on_a_moving_frame_stamps_its_fold_before_its_stages(
     assert sum(" stage " in ln for ln in out.splitlines()) == 4
 
 
+DEPTH = 2
+
+
+@pytest.fixture
+def bounced():
+    """A depth-2 frozen bounced render of four spheres, frozen with room to
+    spare, and its renderer."""
+    scene = scenes.instanced_grid(scenes.icosphere_scene(1), 2)
+    r = CulledRenderer(scene, W, H, device="cpu", block_size=32,
+                       ray_tile=128, tile_w=16)
+    return scene, r, r.freeze_bounced(scene.camera, DEPTH, margin=2.0)
+
+
+def bounced_loop(scene, render):
+    """run_loop of FRAMES frames of a bounced render, verifying every
+    PERIOD-th; returns each render call's (verify, camera)."""
+    calls = []
+
+    def fn(scene_arrays, cam):
+        calls.append((len(calls) % PERIOD == 0, cam))
+        return render(cam, verify=calls[-1][0])
+    run_loop(None, scene.camera, fn, W, H, events=orbit_events(FRAMES))
+    return calls
+
+
+def test_off_a_bounced_frame_records_nothing_and_keeps_its_graph_key(
+        bounced, monkeypatch):
+    tracing.enable()
+    tracing.disable()
+
+    def refuse(*a, **k):
+        raise AssertionError("a span or profiler range was made")
+
+    monkeypatch.setattr(tracing, "_Span", refuse)
+    monkeypatch.setattr(tracing, "_ProfiledSpan", refuse)
+    scene, r, render = bounced
+    before = dict(frozen_graph.COUNTS)
+    bounced_loop(scene, render)
+    render(scene.camera)
+    rec = tracing.export()
+    assert rec["spans"] == [] and rec["stamps"] == []
+    assert r._stamps == {}
+    assert frozen_graph.COUNTS == dict(
+        before, verify_deferred=before["verify_deferred"] + 3,
+        bounced_frames=before["bounced_frames"] + FRAMES + 1)
+    assert r._graph_key("bounced", render.pads()) == (
+        "bounced", render.pads(), r.exit_every, False, False, False)
+
+
+def test_on_a_bounced_frame_stamps_every_bounce_in_order(
+        bounced, tracer, tmp_path, capsys):
+    scene, r, render = bounced
+    before = frozen_graph.COUNTS["bounced_frames"]
+    calls = bounced_loop(scene, render)
+    tracer.disable()
+    rec = tracer.export()
+    assert frozen_graph.COUNTS["bounced_frames"] - before == FRAMES
+    rows = rec["stamps"]
+    assert [row["frame"] for row in rows] == list(range(FRAMES))
+    names = tracing.bounce_stages(DEPTH)
+    assert names == ("A", "B1.0", "B2.0", "C.0", "R.0", "B1.1", "B2.1",
+                     "C.1", "R.1", "B1.2", "B2.2", "C.2")
+    for row in rows:
+        ns = row["ns"]
+        assert row["kind"] == "bounced" and row["card"] == "cpu"
+        assert len(ns) == 4 * DEPTH + 5 == len(names) + 1
+        assert ns == sorted(ns) and ns[0] < ns[-1]
+        (issue,) = [s for s in rec["spans"] if s["name"] == "loop.issue"
+                    and s["frame"] == row["frame"]]
+        assert issue["start_ns"] <= ns[0] and ns[-1] <= issue["end_ns"]
+    # Each verify span carries its frame's per-bounce counts.
+    verifies = {s["frame"]: s["attrs"] for s in rec["spans"]
+                if s["name"] == "frozen.verify"}
+    assert sorted(verifies) == [f for f, (v, _) in enumerate(calls) if v]
+    nl = r.n_levels
+    for f, attrs in verifies.items():
+        _, counts = r._full_bounced(render.pads(), raygen.camera_arrays(
+            calls[f][1], r.device))
+        assert attrs["rounds"] == 0 and attrs["kind"] == "bounced"
+        assert len(counts) == DEPTH + 1
+        assert attrs["top_cells"] == counts[:, 0].tolist()
+        assert attrs["hit_tiles"] == counts[:, nl].tolist()
+        assert attrs["hit_tiles"][0] > 0 and attrs["top_cells"][1] > 0
+    # The chrome trace draws each bounced row's stages; xprof reports them.
+    path = tmp_path / "trace.json"
+    tracer.write_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    stages = [e for e in events if e.get("cat") == "stage"]
+    assert [e["name"] for e in stages] == [f"stage {n}"
+                                           for n in names] * FRAMES
+    assert xprof.main([str(path)]) == 0
+    out = capsys.readouterr().out
+    assert sum(" stage " in ln for ln in out.splitlines()) == len(names)
+
+
 def test_graph_key_and_counters_follow_the_tracer(renderer, tracer):
     """The graph key names whether the tracer is on (a graph with stamps is
     a graph of its own); COUNTS is the one counter registry, the kernel
@@ -277,10 +377,9 @@ def test_graph_key_and_counters_follow_the_tracer(renderer, tracer):
     assert frozen_graph.COUNTS is tracing.COUNTS
     assert set(tracing.COUNTS) == {
         "captures", "replays", "verify_deferred", "verify_reissued",
-        "scene_diffs", "bake_by_object", "bsr_nearest", "bsr_any",
-        "bsr_nearest_rays",
-        "bsr_any_rays", "bsr_nearest_mxu", "bsr_any_mxu", "ring_nearest",
-        "ring_any", "shade_prep"}
+        "scene_diffs", "bounced_frames", "bake_by_object", "bsr_nearest",
+        "bsr_any", "bsr_nearest_rays", "bsr_any_rays", "bsr_nearest_mxu",
+        "bsr_any_mxu", "ring_nearest", "ring_any", "shade_prep"}
 
 
 def test_buckets_are_the_frozen_buckets():
@@ -468,6 +567,64 @@ def test_cuda_stamps_lie_in_the_replay_and_on_the_host_clock(cuda_renderer):
     for row in rows:
         assert row["ns"][0] >= row["issued_ns"] - slack
         assert row["ns"][-1] <= drains[row["frame"]]["end_ns"] + slack
+
+
+@pytest.mark.cuda
+def test_cuda_bounced_stamps_lie_in_the_replay_and_on_the_host_clock():
+    """A depth-2 bounced frame's replays: each fills one "bounced" row of
+    13 rising stamps spanning most of, and no more than, its CUDA-event
+    interval; in a loop each row starts after its replay was issued and
+    ends before its frame's drain ended, on the host's clock, within 50
+    us."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA is not available)")
+    scene = scenes.instanced_grid(scenes.icosphere_scene(2), 3)
+    r = CulledRenderer(scene, 256, 192, device="cuda")
+    try:
+        render = r.freeze_bounced(scene.camera, DEPTH)
+        cams = animation.orbit_camera_path(scene.camera, 6, radius=3.0)
+        tracing.enable()
+        render(cams[0])                              # captures with stamps
+        torch.cuda.synchronize()
+        tracing.enable()                             # a new recording
+        stream = torch.cuda.current_stream()
+        intervals = []
+        torch.cuda._sleep(200_000_000)
+        for k, cam in enumerate(cams):
+            tracing.set_frame(k)
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record(stream)
+            render(cam)
+            e1.record(stream)
+            intervals.append((e0, e1))
+        torch.cuda.synchronize()
+        rows = tracing.export()["stamps"]
+        assert [row["frame"] for row in rows] == list(range(len(cams)))
+        for row, (e0, e1) in zip(rows, intervals):
+            ns = row["ns"]
+            assert row["kind"] == "bounced" and len(ns) == 4 * DEPTH + 5
+            assert row["issued_ns"] is not None
+            assert ns == sorted(ns) and ns[0] < ns[-1]
+            event_ms = e0.elapsed_time(e1)
+            assert 0.5 * event_ms <= (ns[-1] - ns[0]) / 1e6 \
+                <= event_ms + 0.05
+
+        tracing.enable()
+        run_loop(None, scene.camera, lambda s, cam: render(cam), 256, 192,
+                 events=orbit_events(FRAMES))
+        tracing.disable()
+        rec = tracing.export()
+        drains = {s["frame"]: s for s in rec["spans"]
+                  if s["name"] == "loop.drain"}
+        rows = rec["stamps"]
+        assert sorted(row["frame"] for row in rows) == list(range(FRAMES))
+        slack = 50_000
+        for row in rows:
+            assert row["ns"][0] >= row["issued_ns"] - slack
+            assert row["ns"][-1] <= drains[row["frame"]]["end_ns"] + slack
+    finally:
+        r.release_graphs()
+        tracing.disable()
 
 
 @pytest.mark.cuda
